@@ -1,0 +1,132 @@
+"""Package rules of the PyTorch port: it imports no JAX and nothing of
+vtpu, its entry points refuse to run on a CPU they were not asked for,
+and its CUDA kernels are tested on the card only."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "vtpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "vtpu")
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        yield ".".join(parts), path
+
+
+def test_import_pulls_in_no_jax_and_no_vtpu():
+    names = [name for name, _ in _modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(names) >= 12
+
+
+def test_no_source_imports_jax_flax_or_vtpu():
+    offenders = []
+    for name, path in _modules():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            offenders += [(name, m) for m in mods
+                          if m.split(".")[0] in FORBIDDEN]
+    assert not offenders
+
+
+@pytest.mark.parametrize("entry", ["TransformerLM", "params_from_flax",
+                                   "PagedBatcher", "generate"])
+def test_default_device_entry_points_refuse_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from vtpu_torch.models.convert import params_from_flax
+    from vtpu_torch.models.transformer import TransformerLM, generate
+    from vtpu_torch.serving.paged import PagedBatcher
+
+    kw = dict(vocab=16, d_model=16, depth=1, num_heads=2, max_seq=16,
+              kv_block_size=8, kv_pool_blocks=5)
+    cpu_model = TransformerLM(**kw, device="cpu")
+    calls = {
+        "TransformerLM": lambda: TransformerLM(**kw),
+        "params_from_flax": lambda: params_from_flax(
+            {"wte": {"embedding": np.zeros((2, 2), np.float32)}}),
+        "PagedBatcher": lambda: PagedBatcher(cpu_model, max_batch=2),
+        "generate": lambda: generate(cpu_model.clone(kv_pool_blocks=0),
+                                     np.zeros((1, 2), np.int32), 2),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++)")
+    from vtpu_torch.device import reference_numerics
+
+    reference_numerics()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card(cuda_card):
+    """Each kernel against its plain version on the card (run on the GPU
+    machine: ``python -m pytest tests/test_torch_package.py -m cuda``)."""
+    from vtpu_torch.ops import layernorm as tln
+    from vtpu_torch.ops import paged_attention as tpa
+    from vtpu_torch.ops.quant import quantize_int8
+
+    gen = torch.Generator(device=cuda_card).manual_seed(0)
+    for rows, d in [(8, 4096), (37, 100), (3, 64)]:
+        x = torch.randn(rows, d, device=cuda_card, generator=gen)
+        g = torch.randn(d, device=cuda_card, generator=gen)
+        b = torch.randn(d, device=cuda_card, generator=gen)
+        err = (tln.fused_layernorm(x, g, b)
+               - tln._reference_ln(x, g, b)).abs().max().item()
+        assert err <= 2e-5
+    # one split and several; block sizes below and at the tile width
+    for bsz, nh, n_kv, hd, bs, nb in [(3, 8, 2, 64, 16, 4),
+                                      (4, 32, 8, 128, 16, 64),
+                                      (2, 4, 4, 32, 8, 80)]:
+        P = 1 + bsz * nb
+        q = torch.randn(bsz, nh, hd, device=cuda_card, generator=gen)
+        k = torch.randn(P, n_kv, bs, hd, device=cuda_card, generator=gen)
+        v = torch.randn(P, n_kv, bs, hd, device=cuda_card, generator=gen)
+        tables = (torch.randperm(P - 1, device=cuda_card, generator=gen)
+                  + 1).to(torch.int32).reshape(bsz, nb)
+        lengths = torch.tensor([0, bs, nb * bs + 3, nb * bs // 2 + 5][:bsz],
+                               dtype=torch.int32, device=cuda_card)
+        got = tpa.paged_attention_decode(q, k, v, tables, lengths)
+        want = tpa.paged_attention_reference(q, k, v, tables, lengths)
+        assert (got - want).abs().max().item() <= 2e-5
+        kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+        args = (q, kq.q, vq.q, tables, lengths, kq.scale, vq.scale)
+        err = (tpa.paged_attention_decode(*args)
+               - tpa.paged_attention_reference(*args)).abs().max().item()
+        assert err <= 2e-5

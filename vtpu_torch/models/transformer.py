@@ -1,0 +1,472 @@
+"""Decoder-only transformer LM: the paged serving path of
+``vtpu/models/transformer.py`` in PyTorch.
+
+What is here is the decode path of ``TransformerLM`` at the knobs the
+paged serving tier uses: MHA or GQA, learned ``wpe`` or half-split
+``rope``, the dense MLP with tanh-approximate GELU, a native or int8 K/V
+pool behind a block table (``kv_cache_layout="paged"``), the fused
+LayerNorm kernel and the paged decode kernel.  What waits raises
+``NotImplementedError`` naming the slice that brings it.
+
+The cache is an explicit dict of tensors that every forward updates in
+place (the JAX model returns a new cache; writing the pools in place
+saves a copy of the whole pool per step)::
+
+    {"pos": [b] int32,                  # the ONE per-row position counter
+     "block_table": [b, nb_max] int32,  # logical -> physical pool block
+     "layers": [{"k_pool", "v_pool"[, "k_pool_scale", "v_pool_scale"]}]}
+
+Pools are ``[P, n_kv, bs, hd]`` in the model's dtype (int8 with f32
+scale pools ``[P, n_kv, bs, 1]`` when ``kv_cache_dtype="int8"``).
+Dense weights are ``nn.Linear`` (``weight`` is the flax kernel
+transposed, see ``vtpu_torch.models.convert``).
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vtpu_torch.device import resolve_device
+from vtpu_torch.ops.layernorm import _reference_ln, fused_layernorm
+from vtpu_torch.ops.paged_attention import paged_attention_decode
+from vtpu_torch.ops.quant import quantize_int8
+
+NEG_INF = -1e30
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         base: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on the head dim of x ``[..., s, d]``: the dim is
+    split into halves (not interleaved) and rotated by per-position
+    angles.  ``positions`` are absolute, ``[s]`` or per-row ``[b, s]``."""
+    assert x.shape[-1] % 2 == 0, "RoPE needs an even head dim"
+    half = x.shape[-1] // 2
+    freqs = base ** (
+        -torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs
+    if ang.dim() == 3:
+        # per-row positions [b, s, half] against x [b, ..., s, d]
+        ang = ang.reshape(ang.shape[0], *([1] * (x.dim() - 3)),
+                          ang.shape[1], ang.shape[2])
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm (eps 1e-6) through the fused kernel; ``kernel=False``
+    runs its plain version on any device."""
+
+    def __init__(self, d: int, *, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+
+    def forward(self, x, kernel: bool = True):
+        if kernel:
+            return fused_layernorm(x, self.scale, self.bias, 1e-6)
+        return _reference_ln(x, self.scale, self.bias, 1e-6)
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int, num_heads: int, num_kv_heads: int,
+                 use_rope: bool, *, device=None, dtype=None):
+        super().__init__()
+        assert d % num_heads == 0, "num_heads must divide d_model"
+        self.num_heads = num_heads
+        self.hd = d // num_heads
+        self.n_kv = num_kv_heads or num_heads
+        assert num_heads % self.n_kv == 0, "kv heads must divide q heads"
+        self.use_rope = use_rope
+        kw = dict(bias=False, device=device, dtype=dtype)
+        if self.n_kv == num_heads:
+            self.qkv = nn.Linear(d, 3 * d, **kw)
+        else:
+            # GQA: q keeps every head, k/v project to the smaller count
+            self.q = nn.Linear(d, d, **kw)
+            self.kv = nn.Linear(d, 2 * self.n_kv * self.hd, **kw)
+        self.out = nn.Linear(d, d, **kw)
+
+    def forward(self, x, layer: dict, pos0, table, *, block_size: int,
+                max_seq: int, use_kernel: bool):
+        b, s, d = x.shape
+        hd, n_kv, nh = self.hd, self.n_kv, self.num_heads
+        if n_kv == nh:
+            q, k, v = self.qkv(x).split(d, dim=-1)
+        else:
+            q = self.q(x)
+            k, v = self.kv(x).split(n_kv * hd, dim=-1)
+        q = q.reshape(b, s, nh, hd).transpose(1, 2)    # [b, H, s, hd]
+        k = k.reshape(b, s, n_kv, hd).transpose(1, 2)  # [b, n_kv, s, hd]
+        v = v.reshape(b, s, n_kv, hd).transpose(1, 2)
+        steps = torch.arange(s, device=x.device)
+        qpos = pos0.long()[:, None] + steps[None]      # [b, s]
+        if self.use_rope:
+            # absolute positions: the pool holds rotated keys
+            q, k = rope(q, qpos), rope(k, qpos)
+
+        # write each (row, token) at its physical (block, :, offset).  The
+        # logical block index is clamped to the table, as the reference's
+        # gather clamps it: a finished row that decodes past max_seq
+        # writes into its last table entry instead of raising.
+        kp, vp = layer["k_pool"], layer["v_pool"]
+        quant = "k_pool_scale" in layer
+        nb_max = table.shape[1]
+        flat = qpos.reshape(-1)
+        rows = torch.arange(b, device=x.device).repeat_interleave(s)
+        bidx = table[rows, (flat // block_size).clamp_(max=nb_max - 1)].long()
+        off = flat % block_size
+        if quant:
+            kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+            k_store, v_store = kq.q, vq.q
+        else:
+            k_store, v_store = k, v
+        kp[bidx, :, off] = k_store.transpose(1, 2).reshape(
+            b * s, n_kv, hd).to(kp.dtype)
+        vp[bidx, :, off] = v_store.transpose(1, 2).reshape(
+            b * s, n_kv, hd).to(vp.dtype)
+        ks = vs = None
+        if quant:
+            ks, vs = layer["k_pool_scale"], layer["v_pool_scale"]
+            ks[bidx, :, off] = kq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
+            vs[bidx, :, off] = vq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
+
+        if s == 1 and use_kernel:
+            o = paged_attention_decode(q[:, :, 0], kp, vp, table, pos0, ks, vs)
+            return self.out(o.reshape(b, 1, d))
+
+        # gather path: each row's pages back into [b, n_kv, L, hd]; dtypes
+        # mirror the reference (K in the pool's dtype, V in f32)
+        tl = table.long()
+
+        def page_read(pool):
+            return pool[tl].transpose(1, 2).reshape(b, n_kv, max_seq, -1)
+
+        if quant:
+            k_read = page_read(kp).float() * page_read(ks)
+            v_read = page_read(vp).float() * page_read(vs)
+        else:
+            k_read = page_read(kp)
+            v_read = page_read(vp).float()
+        kpos = torch.arange(max_seq, device=x.device)
+        mask = kpos[None, None, :] <= qpos[:, :, None]  # [b, s, L]
+        g = nh // n_kv
+        ct = torch.promote_types(q.dtype, k_read.dtype)
+        qg = q.reshape(b, n_kv, g, s, hd).to(ct)
+        scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_read.to(ct))
+        scores = scores.float().mul_(hd ** -0.5)
+        scores.masked_fill_(~mask[:, None, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bngqk,bnkd->bngqd", probs, v_read).to(q.dtype)
+        o = o.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
+        return self.out(o)
+
+
+class Block(nn.Module):
+    def __init__(self, d: int, num_heads: int, num_kv_heads: int,
+                 use_rope: bool, mlp_ratio: int = 4, *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = LayerNorm(d, **kw)
+        self.attn = Attention(d, num_heads, num_kv_heads, use_rope, **kw)
+        self.ln2 = LayerNorm(d, **kw)
+        self.mlp_in = nn.Linear(d, mlp_ratio * d, **kw)
+        self.mlp_out = nn.Linear(mlp_ratio * d, d, **kw)
+
+    def forward(self, x, layer, pos0, table, *, ln_kernel: bool, **attn_kw):
+        x = x + self.attn(self.ln1(x, ln_kernel), layer, pos0, table,
+                          **attn_kw)
+        h = self.mlp_in(self.ln2(x, ln_kernel))
+        # flax nn.gelu defaults to the tanh approximation
+        return x + self.mlp_out(F.gelu(h, approximate="tanh"))
+
+
+# knobs a clone may change: none of them shapes a weight
+_CLONE_KNOBS = ("kv_cache_dtype", "kv_block_size", "kv_pool_blocks",
+                "paged_kernel", "ln_kernel")
+
+
+class TransformerLM(nn.Module):
+    """GPT-style causal LM.  ``forward(tokens [b, s], cache)`` returns
+    logits ``[b, s, vocab]`` in f32 and advances ``cache`` in place.
+
+    ``paged_kernel``: "auto" (the kernel on CUDA, the gather path on the
+    CPU), "on" (the kernel's wrapper everywhere; on a CPU tensor that is
+    its plain version) or "off" (the gather path).  ``ln_kernel``:
+    "auto" (the fused LayerNorm wrapper) or "off" (its plain version on
+    every device, for comparisons on the card).
+
+    Weights are drawn from ``generator`` (default: seed 0 on ``device``):
+    N(0, 1/fan_in) for dense kernels, N(0, 1/d_model) for embeddings,
+    ones/zeros for LayerNorm and biases.
+    """
+
+    def __init__(self, vocab: int = 32000, d_model: int = 512,
+                 depth: int = 8, num_heads: int = 8, max_seq: int = 2048,
+                 num_kv_heads: int = 0, pos_embedding: str = "learned",
+                 attn_window: int = 0, mlp: str = "dense",
+                 kv_cache_dtype: str = "native",
+                 kv_cache_layout: str = "paged", kv_block_size: int = 16,
+                 kv_pool_blocks: int = 0, paged_kernel: str = "auto",
+                 ln_kernel: str = "auto", *, device="cuda",
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.vocab, self.d_model, self.depth = vocab, d_model, depth
+        self.num_heads, self.max_seq = num_heads, max_seq
+        self.num_kv_heads = num_kv_heads
+        self.pos_embedding, self.attn_window, self.mlp = (
+            pos_embedding, attn_window, mlp)
+        self.kv_cache_dtype, self.kv_cache_layout = (
+            kv_cache_dtype, kv_cache_layout)
+        self.kv_block_size, self.kv_pool_blocks = kv_block_size, kv_pool_blocks
+        self.paged_kernel, self.ln_kernel = paged_kernel, ln_kernel
+        self._validate()
+        dev = resolve_device(device)
+        self.dtype = dtype
+        meta = dict(device="meta", dtype=dtype)
+        self.wte = nn.Embedding(vocab, d_model, **meta)
+        if pos_embedding == "learned":
+            self.wpe = nn.Embedding(max_seq, d_model, **meta)
+        use_rope = pos_embedding == "rope"
+        self.h = nn.ModuleList(
+            Block(d_model, num_heads, num_kv_heads, use_rope, **meta)
+            for _ in range(depth)
+        )
+        self.ln_f = LayerNorm(d_model, **meta)
+        self.lm_head = nn.Linear(d_model, vocab, bias=False, **meta)
+        self.to_empty(device=dev)
+        self.reset_parameters(generator)
+
+    # -- configuration --------------------------------------------------
+    def _validate(self) -> None:
+        """The reference's ValueErrors for bad knobs (checked at
+        construction here, at apply time there), then what this slice
+        does not port yet."""
+        if self.pos_embedding not in ("learned", "rope"):
+            raise ValueError(
+                f"pos_embedding must be 'learned' or 'rope', "
+                f"got {self.pos_embedding!r}"
+            )
+        if self.mlp not in ("dense", "moe"):
+            raise ValueError(f"mlp must be 'dense' or 'moe', got {self.mlp!r}")
+        if self.kv_cache_dtype not in ("native", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'native' or 'int8', "
+                f"got {self.kv_cache_dtype!r}"
+            )
+        if self.kv_cache_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_cache_layout must be 'dense' or 'paged', "
+                f"got {self.kv_cache_layout!r}"
+            )
+        if self.paged_kernel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"paged_kernel must be 'auto', 'on' or 'off', "
+                f"got {self.paged_kernel!r}"
+            )
+        if self.ln_kernel not in ("auto", "off"):
+            raise ValueError(
+                f"ln_kernel must be 'auto' or 'off', got {self.ln_kernel!r}")
+        if self.kv_cache_layout == "paged":
+            if self.paged_kernel == "on" and self.attn_window > 0:
+                raise ValueError(
+                    "the paged decode kernel does not implement "
+                    "sliding-window masking; attn_window needs "
+                    "paged_kernel='off' (the gather path)"
+                )
+            if self.max_seq % self.kv_block_size != 0:
+                raise ValueError(
+                    f"kv_block_size {self.kv_block_size} must divide "
+                    f"max_seq {self.max_seq}"
+                )
+        if self.kv_cache_layout == "dense":
+            raise NotImplementedError(
+                "the dense KV cache layout comes with a later slice of the "
+                "port (dense serving); use kv_cache_layout='paged'")
+        if self.mlp == "moe":
+            raise NotImplementedError(
+                "MoE blocks come with the parallel slice of the port")
+        if self.attn_window > 0:
+            raise NotImplementedError(
+                "sliding-window attention in the paged path comes with a "
+                "later slice of the port")
+
+    def clone(self, **updates) -> "TransformerLM":
+        """A model that shares this one's weights with some cache or
+        kernel knobs changed (flax's ``Module.clone`` counterpart)."""
+        bad = set(updates) - set(_CLONE_KNOBS)
+        if bad:
+            raise TypeError(f"clone cannot change {sorted(bad)}; "
+                            f"only {list(_CLONE_KNOBS)}")
+        new = copy.copy(self)  # new __dict__; parameters stay shared
+        for k, v in updates.items():
+            object.__setattr__(new, k, v)
+        new._validate()
+        return new
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        for name, p in self.named_parameters():
+            if name.endswith(("ln1.scale", "ln2.scale", "ln_f.scale")):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            elif name in ("wte.weight", "wpe.weight"):
+                p.normal_(0.0, self.d_model ** -0.5, generator=gen)
+            else:  # nn.Linear weight [out, in]
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+
+    # -- cache ----------------------------------------------------------
+    def init_cache(self, batch: int) -> dict:
+        """Pristine decode cache for ``batch`` rows.  The block table is
+        the identity map (row i owns blocks [i*nb, (i+1)*nb)) when
+        ``kv_pool_blocks == 0``, all zeros (the garbage block) when a
+        serving engine allocates a real pool."""
+        dev = self.device
+        nb_max = self.max_seq // self.kv_block_size
+        n_kv = self.num_kv_heads or self.num_heads
+        hd = self.d_model // self.num_heads
+        pool = self.kv_pool_blocks or batch * nb_max
+        if self.kv_pool_blocks == 0:
+            table = (torch.arange(batch, device=dev)[:, None] * nb_max
+                     + torch.arange(nb_max, device=dev)[None, :])
+        else:
+            table = torch.zeros((batch, nb_max), dtype=torch.int32, device=dev)
+        quant = self.kv_cache_dtype == "int8"
+        store = torch.int8 if quant else self.dtype
+        shape = (pool, n_kv, self.kv_block_size, hd)
+        layers = []
+        for _ in range(self.depth):
+            layer = {"k_pool": torch.zeros(shape, dtype=store, device=dev),
+                     "v_pool": torch.zeros(shape, dtype=store, device=dev)}
+            if quant:
+                sc = (*shape[:3], 1)
+                layer["k_pool_scale"] = torch.zeros(sc, device=dev)
+                layer["v_pool_scale"] = torch.zeros(sc, device=dev)
+            layers.append(layer)
+        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "block_table": table.to(torch.int32),
+                "layers": layers}
+
+    # -- forward --------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, cache: dict,
+                decode: bool = True) -> torch.Tensor:
+        if not decode:
+            raise NotImplementedError(
+                "full forwards (decode=False) run the flash-attention "
+                "kernels, which come with the training slice of the port")
+        b, s = tokens.shape
+        assert s <= self.max_seq, f"seq {s} > max_seq {self.max_seq}"
+        pos0 = cache["pos"]
+        cache["pos"] = pos0 + s  # the one position counter
+        table = cache["block_table"]
+        x = self.wte(tokens.long())
+        if self.pos_embedding == "learned":
+            # a finished row may decode past max_seq; its logits are
+            # dropped, so clamp the lookup instead of raising
+            pos_ids = pos0.long()[:, None] + torch.arange(
+                s, device=tokens.device)[None]
+            x = x + self.wpe(pos_ids.clamp(max=self.max_seq - 1))
+        use_kernel = (self.paged_kernel == "on"
+                      or (self.paged_kernel == "auto"
+                          and self.device.type == "cuda"))
+        ln_kernel = self.ln_kernel == "auto"
+        for blk, layer in zip(self.h, cache["layers"]):
+            x = blk(x, layer, pos0, table, ln_kernel=ln_kernel,
+                    block_size=self.kv_block_size, max_seq=self.max_seq,
+                    use_kernel=use_kernel)
+        x = self.ln_f(x, ln_kernel)
+        return self.lm_head(x).float()
+
+
+def bucket_length(n: int, max_seq: int) -> int:
+    """Smallest power of two >= ``n``, clamped to ``max_seq``: the
+    prefill padding buckets.  Right-padding a prompt is exact under the
+    decode path (real positions never attend to the padding, and the
+    padding's K/V sit at positions >= the rewound counter)."""
+    return min(1 << (max(1, int(n)) - 1).bit_length(), max_seq)
+
+
+def set_cache_pos(cache: dict, pos) -> dict:
+    """Set the model's single position counter to ``pos`` in place (the
+    rewind half of the bucketed-prefill contract) and return the cache."""
+    cache["pos"].fill_(pos)
+    return cache
+
+
+def _check_generate(model: TransformerLM, s: int, num_new: int,
+                    temperature: float) -> None:
+    if num_new < 1:
+        raise ValueError(f"num_new must be >= 1, got {num_new}")
+    if model.kv_pool_blocks > 0:
+        raise ValueError(
+            "a paged model with an explicit pool needs a serving "
+            "engine (vtpu_torch.serving.paged.PagedBatcher) to allocate "
+            "its block table; generate() supports the dense-equivalent "
+            "pool only (kv_pool_blocks=0)"
+        )
+    if temperature > 0:
+        raise NotImplementedError(
+            "sampled decoding (temperature > 0) comes with a later slice "
+            "of the port; generate() is greedy")
+    if s + num_new > model.max_seq:
+        raise ValueError(
+            f"prompt ({s}) + num_new ({num_new}) exceeds "
+            f"max_seq ({model.max_seq}) — the cache would silently clamp"
+        )
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, prompt, num_new: int,
+             temperature: float = 0.0, prefill_chunk: int = 0,
+             eos_id: int | None = None, *, device="cuda") -> torch.Tensor:
+    """Greedy decoding: prefill the cache with ``prompt`` [b, s] (in
+    chunks of ``prefill_chunk`` when set), then ``num_new`` one-token
+    steps.  ``eos_id`` freezes a row once it emits it.  ``device`` must
+    be the model's.  Returns [b, num_new] int32."""
+    if model.device.type != resolve_device(device).type:
+        raise ValueError(f"the model lives on {model.device}, generate() "
+                         f"was asked for {device}")
+    prompt = torch.as_tensor(prompt, device=model.device).to(torch.int32)
+    b, s = prompt.shape
+    _check_generate(model, s, num_new, temperature)
+    cache = model.init_cache(b)
+    step = prefill_chunk if prefill_chunk > 0 else s
+    for lo in range(0, s, step):
+        logits = model(prompt[:, lo:lo + step], cache)
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+    done = (tok == eos_id) if eos_id is not None else None
+    out = [tok]
+    for _ in range(num_new - 1):
+        nxt = model(tok[:, None], cache)[:, -1].argmax(dim=-1)
+        nxt = nxt.to(torch.int32)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        tok = nxt
+    return torch.stack(out, dim=1)
+
+
+def generate_beam(*_a, **_k):
+    raise NotImplementedError(
+        "generate_beam comes with the dense-layout slice of the port")
+
+
+def generate_speculative(*_a, **_k):
+    raise NotImplementedError(
+        "generate_speculative comes with the dense-layout slice of the port")

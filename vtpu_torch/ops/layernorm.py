@@ -1,0 +1,68 @@
+"""Fused LayerNorm: the wrapper of ``csrc/layernorm.cu`` and its plain
+PyTorch version.
+
+Counterpart of ``vtpu/ops/layernorm.py`` (forward only: the backward,
+the reference's ``_ln_bwd`` VJP, comes with the training path).  On a
+CUDA tensor the wrapper launches the kernel, for every row count; on a
+CPU tensor it runs ``_reference_ln``.  There is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vtpu_torch.ops import _build
+
+_ENTRY = {
+    (torch.float32, torch.float32): "vtpu_layernorm_f32_f32",
+    (torch.bfloat16, torch.bfloat16): "vtpu_layernorm_bf16_bf16",
+}
+
+
+def _reference_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: f32 statistics (biased
+    variance ``mean((x - mean)^2)``), result cast to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
+
+
+def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis.  x: [..., d]; gamma/beta: [d]."""
+    if x.device.type == "cpu":
+        return _reference_ln(x, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_layernorm: unsupported device {x.device}")
+    d = x.shape[-1]
+    entry = _ENTRY.get((x.dtype, gamma.dtype))
+    if entry is None or beta.dtype != gamma.dtype:
+        raise TypeError(
+            f"fused_layernorm: no kernel for x {x.dtype}, gamma "
+            f"{gamma.dtype}, beta {beta.dtype}"
+        )
+    if gamma.shape != (d,) or beta.shape != (d,):
+        raise ValueError(
+            f"fused_layernorm: gamma/beta must be [{d}], got "
+            f"{tuple(gamma.shape)} and {tuple(beta.shape)}"
+        )
+    if gamma.device != x.device or beta.device != x.device:
+        raise ValueError("fused_layernorm: x, gamma and beta must share a device")
+    x2 = x.contiguous()
+    y = torch.empty_like(x2)
+    rows = x2.numel() // d if d else 0
+    if rows == 0:
+        return y
+    g, b = gamma.contiguous(), beta.contiguous()
+    fn = getattr(_build.lib(), entry)
+    err = fn(x2.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+             rows, d, float(eps), _build.stream_ptr(x2))
+    _build.check(err, "layernorm kernel")
+    fused_layernorm.launches += 1
+    return y
+
+
+fused_layernorm.launches = 0

@@ -1,0 +1,358 @@
+"""Continuous batching for the port's TransformerLM serving path.
+
+The scheduling core of ``vtpu/serving/batcher.py::ContinuousBatcher``,
+which ``PagedBatcher`` builds on: a fixed ``[max_batch]`` slot array
+where each slot is an independent request at its own depth; requests
+join mid-flight, in batched admission rounds whose prompts are padded
+to power-of-two buckets; decode runs in windows of ``harvest_every``
+steps, with up to ``pipeline_depth`` windows in flight, each carrying
+the slot->rid snapshot it was dispatched under; post-EOS tokens are
+frozen to ``eos_id`` and overshoot past a budget is dropped at harvest.
+
+On CUDA a window's tokens go device->host with ``non_blocking=True``
+into pinned memory behind a recorded CUDA event (the counterpart of
+JAX's ``copy_to_host_async``); the harvest waits on that event only.
+PyTorch dispatches kernels asynchronously, so the next window is
+already queued on the card while the host harvests the previous one.
+
+The dense-layout engine (``_prefill``, ``_admit_prog``,
+``_scatter_rows``) comes with the dense-layout slice; this class is the
+base of :class:`vtpu_torch.serving.paged.PagedBatcher` and is not used
+on its own.  Tracing hooks (request ledger, spans, histograms) come
+with the observability slice.
+
+Greedy decoding; every request's tokens are identical to the JAX
+engine's on the same weights and schedule (tests/test_torch_paged.py).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from vtpu_torch.device import resolve_device
+from vtpu_torch.models.transformer import TransformerLM
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: str
+    prompt: np.ndarray  # [s] int32
+    num_new: int
+
+
+class _HostCopy:
+    """A device->host copy in flight.  On CUDA: a pinned buffer filled
+    with ``non_blocking=True`` and the event recorded after it; on the
+    CPU the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.buf.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.buf.numpy()
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over the model's KV cache."""
+
+    def __init__(self, model: TransformerLM, max_batch: int,
+                 eos_id: Optional[int] = None, prefill_chunk: int = 0,
+                 harvest_every: int = 1, pipeline_depth: int = 1,
+                 bucket_prefill: bool = True, *, device="cuda"):
+        if (model.kv_cache_layout == "paged"
+                and type(self) is ContinuousBatcher):
+            raise ValueError(
+                "paged models need vtpu_torch.serving.paged.PagedBatcher")
+        dev = resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(
+                f"the model lives on {model.device}, the engine was asked "
+                f"for {dev}")
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.eos_id = eos_id
+        # > 0: long prompts prefill in chunks interleaved with decode
+        # steps of the other slots (one chunk per step)
+        self.prefill_chunk = prefill_chunk
+        self.bucket_prefill = bool(bucket_prefill)
+        self.prefilling: Dict[int, dict] = {}  # slot -> progress state
+        self.cache = model.init_cache(max_batch)
+        self.tok = torch.zeros((max_batch,), dtype=torch.int32,
+                               device=self.device)  # last token per slot
+        # host-side slot state (the device never sees it)
+        self.active = [False] * max_batch
+        self.remaining = [0] * max_batch
+        self.done_frozen = [False] * max_batch
+        self.rid: List[Optional[str]] = [None] * max_batch
+        self.out: Dict[str, List[int]] = {}
+        self.queue: collections.deque[_Request] = collections.deque()
+        # every rid ever submitted: a finished rid stays taken
+        self._rids: Set[str] = set()
+        self.harvest_every = max(1, int(harvest_every))
+        # windows in flight: (host copy, slot->rid snapshot, k, issued)
+        self.pipeline_depth = max(0, int(pipeline_depth))
+        self._inflight: collections.deque[
+            Tuple[_HostCopy, list, int, float]] = collections.deque()
+        # admissions whose first tokens are still in flight:
+        # (host copy of [n] firsts, [(slot, req), ...], issued)
+        self._pending_first: collections.deque = collections.deque()
+        # device->host materialization hook: (host copy, issue time) ->
+        # np.ndarray; a transport layer may override it
+        self._fetch = lambda hc, issued: hc.numpy()
+        self.steps = 0  # decode forwards executed (batch-wide)
+
+    # ------------------------------------------------------------------
+    def _step_k(self, k: int) -> torch.Tensor:
+        """k decode steps over every slot; returns the [k, b] tokens and
+        leaves the last ones in ``self.tok``.  Finished rows overshoot
+        harmlessly: their writes fall off the leased table into the
+        garbage block (or clamp into their own last block)."""
+        toks = torch.empty((k, self.max_batch), dtype=torch.int32,
+                           device=self.device)
+        tok = self.tok
+        for j in range(k):
+            logits = self.model(tok[:, None], self.cache)
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            toks[j] = tok
+        self.tok = tok
+        return toks
+
+    def submit(self, rid: str, prompt, num_new: int) -> None:
+        """Queue a request; admitted as soon as a slot frees up."""
+        if num_new < 1:
+            raise ValueError(f"num_new must be >= 1, got {num_new}")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must have at least one token")
+        if prompt.size + num_new > self.model.max_seq:
+            raise ValueError(
+                f"prompt ({prompt.size}) + num_new ({num_new}) exceeds "
+                f"max_seq ({self.model.max_seq})"
+            )
+        if rid in self._rids:
+            raise ValueError(f"duplicate request id {rid!r}")
+        self._rids.add(rid)
+        self.queue.append(_Request(rid, prompt, num_new))
+        self._admit_pending()
+
+    def _free_slots(self) -> List[int]:
+        return [i for i in range(self.max_batch)
+                if not self.active[i] and i not in self.prefilling]
+
+    def _slot_is_free(self, slot: int) -> bool:
+        return not self.active[slot] and slot not in self.prefilling
+
+    def _admit_pending(self) -> None:
+        raise NotImplementedError(
+            "dense-layout admission comes with the dense-layout slice")
+
+    def _bucket_rows(self, n: int) -> int:
+        """Row-count bucket of an admission group (a power of two);
+        padding rows are garbage and are dropped at publish."""
+        if not self.bucket_prefill:
+            return n
+        return 1 << (n - 1).bit_length()
+
+    def _merge_rows(self, slots: np.ndarray, rows_cache,
+                    pos: np.ndarray) -> None:
+        raise NotImplementedError(
+            "dense-layout row merge comes with the dense-layout slice")
+
+    def _on_retire(self, slot: int) -> None:
+        """Hook: a slot left decode rotation."""
+
+    def _retire_rows(self, slots: List[int]) -> None:
+        for slot in slots:
+            self._on_retire(slot)
+
+    def _activate(self, slot: int, req: _Request, logits, row_cache) -> None:
+        """Single-row activation tail (chunked-prefill admissions);
+        ``logits`` are already sliced to the true last prompt token."""
+        self._merge_rows(np.asarray([slot], np.int32), row_cache,
+                         np.asarray([req.prompt.size], np.int32))
+        first = logits[:, -1].argmax(dim=-1).to(torch.int32)  # [1]
+        self.tok[slot] = first[0]
+        self._queue_first(first, [(slot, req)])
+
+    def _queue_first(self, firsts: torch.Tensor, items) -> None:
+        """Host-side slot bookkeeping shared by batched and chunked
+        admission.  ``firsts`` stays on the device; its copy is started
+        now and read at the next harvest's flush."""
+        self._pending_first.append((_HostCopy(firsts), list(items),
+                                    time.perf_counter()))
+        for slot, req in items:
+            self.rid[slot] = req.rid
+            self.out[req.rid] = []
+            self.active[slot] = True
+            self.done_frozen[slot] = False
+            self.remaining[slot] = req.num_new - 1
+            self._maybe_retire(slot)
+
+    def _flush_first_tokens(self) -> None:
+        """Materialize every pending admission's first token (FIFO)."""
+        while self._pending_first:
+            firsts, items, issued = self._pending_first.popleft()
+            vals = self._fetch(firsts, issued)
+            for (slot, req), v in zip(items, vals):
+                first = int(v)
+                self.out[req.rid].append(first)
+                # freeze only if the rid still owns the slot
+                if (self.rid[slot] == req.rid and self.eos_id is not None
+                        and first == self.eos_id):
+                    self.done_frozen[slot] = True
+
+    def _advance_prefill(self) -> None:
+        """One prefill chunk for the longest-waiting prefilling slot.
+        Under ``bucket_prefill`` the tail chunk is padded to the chunk
+        length (capped so writes never pass max_seq); the activation
+        publishes the true prompt length."""
+        if not self.prefilling:
+            return
+        slot = next(iter(self.prefilling))
+        st = self.prefilling[slot]
+        req, lo = st["req"], st["done"]
+        chunk = req.prompt[lo:lo + self.prefill_chunk]
+        real = len(chunk)
+        if self.bucket_prefill and real < self.prefill_chunk:
+            pad_to = min(self.prefill_chunk, self.model.max_seq - lo)
+            if pad_to > real:
+                chunk = np.concatenate(
+                    [chunk, np.zeros(pad_to - real, np.int32)])
+        logits, st["cache"] = st["pf"](
+            st["cache"],
+            torch.as_tensor(chunk, device=self.device)[None, :])
+        st["done"] += real
+        if st["done"] >= req.prompt.size:
+            del self.prefilling[slot]
+            self._pre_activate(slot, st)
+            self._activate(slot, req, logits[:, real - 1:real], st["cache"])
+
+    def _pre_activate(self, slot: int, st: dict) -> None:
+        """Hook: a chunked admission is about to activate."""
+
+    def _maybe_retire(self, slot: int) -> None:
+        if self.remaining[slot] <= 0:
+            self.active[slot] = False
+            self.rid[slot] = None
+            self._on_retire(slot)
+
+    # ------------------------------------------------------------------
+    def _inflight_tokens(self) -> int:
+        return sum(k for _, _, k, _t in self._inflight)
+
+    def _window(self) -> int:
+        """Decode steps to run this round, net of windows in flight; 0 =
+        harvest instead.  1 while a chunked prefill is in flight;
+        otherwise min(harvest_every, remaining budget) rounded down to a
+        power of two."""
+        rem = max(
+            (self.remaining[i] for i in range(self.max_batch)
+             if self.active[i]),
+            default=0,
+        ) - self._inflight_tokens()
+        if rem <= 0:
+            return 0
+        if self.harvest_every <= 1 or self.prefilling:
+            return 1
+        k = min(self.harvest_every, rem)
+        return 1 << (k.bit_length() - 1)
+
+    def _harvest_oldest(self) -> None:
+        """Materialize and account the oldest in-flight window."""
+        if not self._inflight:
+            return
+        toks, rids, _k, issued = self._inflight.popleft()
+        self._harvest_window(self._fetch(toks, issued), rids)
+
+    def _harvest_window(self, toks_np, rids) -> None:
+        """Append a [k, b] window of tokens to each request active in
+        ``rids`` (the snapshot taken at dispatch: a slot re-tenanted
+        while the window was in flight does not take its tokens), with
+        EOS freeze and overshoot drop."""
+        self._flush_first_tokens()
+        k = toks_np.shape[0]
+        finished = []
+        for i in range(self.max_batch):
+            rid = rids[i]
+            if rid is None or self.rid[i] != rid:
+                continue  # slot retired (maybe re-tenanted) mid-flight
+            for j in range(k):
+                if self.remaining[i] <= 0:
+                    break
+                t = int(toks_np[j, i])
+                if self.done_frozen[i]:
+                    t = self.eos_id
+                elif self.eos_id is not None and t == self.eos_id:
+                    self.done_frozen[i] = True
+                self.out[rid].append(t)
+                self.remaining[i] -= 1
+            if self.remaining[i] <= 0:
+                finished.append(i)
+        for i in finished:
+            self.active[i] = False
+            self.rid[i] = None
+        if finished:
+            self._retire_rows(finished)
+        self._admit_pending()
+
+    def step(self) -> None:
+        """One prefill chunk (if a slot is admitting) + one decode window
+        for every active slot; harvest the oldest window once more than
+        ``pipeline_depth`` are in flight."""
+        self._advance_prefill()
+        if not any(self.active):
+            if self._inflight:
+                self._harvest_oldest()
+            elif self.queue:
+                self._admit_pending()
+            else:
+                self._flush_first_tokens()
+            return
+        k = self._window()
+        if k == 0:
+            self._harvest_oldest()
+            return
+        toks = self._step_k(k)
+        self.steps += k
+        self._inflight.append((_HostCopy(toks), list(self.rid), k,
+                               time.perf_counter()))
+        while len(self._inflight) > self.pipeline_depth:
+            self._harvest_oldest()
+
+    def run(self) -> Dict[str, List[int]]:
+        """Drive until every request has finished and every window is
+        drained."""
+        while (any(self.active) or self.queue or self.prefilling
+               or self._inflight):
+            self.step()
+        self._flush_first_tokens()
+        return self.out
+
+    def stats(self) -> dict:
+        return {
+            "max_batch": self.max_batch,
+            "active_slots": sum(self.active),
+            "prefilling_slots": len(self.prefilling),
+            "queued": len(self.queue),
+            "decode_steps": self.steps,
+            "inflight_windows": len(self._inflight),
+            "pending_first_tokens": len(self._pending_first),
+            "pipeline_depth": self.pipeline_depth,
+            "completed": len(self.out) - sum(self.active),
+        }
