@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's paged serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, full width (one card)
 
@@ -23,7 +24,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
 4. exactness: depth 2, f32, the kernel path against the plain path
    (paged_kernel="off", ln_kernel="off"), greedy tokens identical; and,
    as information, the share of tokens on which the full-depth bf16
-   kernel and plain paths agree.
+   kernel and plain paths agree;
+5. (with phase 1) the flash-attention kernels -- forward, dq, dk/dv --
+   against their plain versions at the training path's shape (b 2, 32
+   heads, 8 kv heads, s 4096, hd 128, causal) in bf16 and f32, with the
+   library time of scaled_dot_product_attention and of its backward, and
+   correctness rows at s 1024 (window 256, shift -1 with f32 o, ragged
+   s 1000);
+6. the training path at full width (the same widths, attn_window 4096,
+   depth 16, bf16, b 2 x s 4096): TransformerLM(tokens, decode=False),
+   lm_loss, backward and torch.optim.Adam(lr=1e-4), 4 steps on one
+   seeded batch -- loss, step ms, tokens/s, peak memory and the launch
+   counts of every step -- then torch.profiler over one more step;
+7. training exactness: depth 2, f32, b 1 x s 1024, the kernel path
+   against clone(flash_kernel="off", ln_kernel="off"): loss within 1e-5
+   relative, every grad within 1e-4 of its max |grad|.
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -34,6 +49,7 @@ beside this script.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -212,6 +228,157 @@ def paged_phase(card: str, gen) -> dict:
     return summary
 
 
+# -- phase 5: the flash-attention kernels ----------------------------------
+FLASH = dict(b=2, heads=32, kv_heads=8, s=4096, hd=128)
+
+
+def flash_work(b, heads, s_q, s_k, hd, causal, shift=0, window=0):
+    """Kept (query, key) pairs of this mask: the pairs the kernels'
+    arithmetic needs (fully masked tiles are skipped)."""
+    import torch
+
+    if not causal:
+        return b * heads * s_q * s_k
+    q = torch.arange(s_q, dtype=torch.float64)[:, None] + shift
+    k = torch.arange(s_k, dtype=torch.float64)[None, :]
+    keep = k <= q
+    if window > 0:
+        keep &= k > q - window
+    return b * heads * int(keep.sum())
+
+
+def flash_inputs(gen, dtype, b, heads, kv_heads, s, hd):
+    import torch
+
+    def rnd(h):
+        return torch.randn(b, h, s, hd, device="cuda",
+                           generator=gen).to(dtype)
+
+    return rnd(heads), rnd(kv_heads), rnd(kv_heads), rnd(heads)
+
+
+def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
+                out_dtype=None, time_it=False, card=""):
+    """Forward, dq and dk/dv kernels against their plain versions on the
+    same inputs (the backward from the kernel's own o and lse).  Returns
+    one row per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops import attention as tat
+
+    q, k, v, do = flash_inputs(gen, dtype, **shape)
+    cfg = (causal, shift, window)
+    dt = str(dtype).split(".")[1]
+    o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=out_dtype)
+    ro, rlse = tat.flash_attention_reference(q, k, v, *cfg,
+                                             out_dtype=out_dtype)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    got = {"flash_forward": [o],
+           "flash_bwd_dq": [tat.flash_bwd_dq(q, k, v, do, lse, delta, *cfg)],
+           "flash_bwd_dkv": list(tat.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                   *cfg))}
+    lse_err = float(((lse - rlse).abs() / rlse.abs().clamp_min(1)).max())
+    del rlse
+    want = {"flash_forward": [ro],
+            "flash_bwd_dq": [tat.flash_bwd_dq_reference(
+                q, k, v, do, lse, delta, *cfg)]}
+    want["flash_bwd_dkv"] = list(tat.flash_bwd_dkv_reference(
+        q, k, v, do, lse, delta, *cfg))
+    torch.cuda.synchronize()
+    b, h, s, hd = q.shape
+    pairs = flash_work(b, h, s, k.shape[2], hd, *cfg)
+    elt = q.element_size()
+    qb, kb = q.numel() * elt, k.numel() * elt
+    rowb = b * h * s * 4                        # lse or delta, f32
+    io = {"flash_forward": (qb + 2 * kb + qb + rowb, 4.0 * hd * pairs),
+          "flash_bwd_dq": (2 * qb + 2 * kb + 2 * rowb + qb, 6.0 * hd * pairs),
+          "flash_bwd_dkv": (2 * qb + 2 * kb + 2 * rowb + 2 * kb,
+                            8.0 * hd * pairs)}
+    calls = {
+        "flash_forward": (
+            lambda: tat.flash_forward(q, k, v, *cfg, out_dtype=out_dtype),
+            lambda: tat.flash_attention_reference(q, k, v, *cfg,
+                                                  out_dtype=out_dtype)),
+        "flash_bwd_dq": (
+            lambda: tat.flash_bwd_dq(q, k, v, do, lse, delta, *cfg),
+            lambda: tat.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               *cfg)),
+        "flash_bwd_dkv": (
+            lambda: tat.flash_bwd_dkv(q, k, v, do, lse, delta, *cfg),
+            lambda: tat.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                *cfg)),
+    }
+    library = {}
+    if time_it:
+        # one PyTorch call for the same function: SDPA forward, and one
+        # autograd.grad of it for the backward (held against dq + dk/dv)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention
+        out = sdpa(qr, kr, vr, is_causal=causal, enable_gqa=True)
+        library["flash_forward"] = time_ms(
+            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+            iters=5, warmup=1)
+        bwd = time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                                  retain_graph=True),
+                      iters=5, warmup=1)
+        library["flash_bwd_dq"] = library["flash_bwd_dkv"] = bwd
+        del out, qr, kr, vr
+    rows = {}
+    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
+        errs, tols = [], []
+        for g, w in zip(got[name], want[name]):
+            errs.append(float((g.float() - w.float()).abs().max()))
+            wf = w.float()
+            if g.dtype == torch.bfloat16:
+                tols.append(bf16_tol(wf))
+            elif name == "flash_forward":
+                tols.append(TOL_F32)
+            else:  # the f32 sum order differs: relative to the output
+                tols.append(1e-4 * float(wf.abs().max()))
+        row = dict(phase="kernel", kernel=name, b=b, heads=h,
+                   kv_heads=k.shape[1], s=s, hd=hd, causal=causal,
+                   shift=shift, window=window, dtype=dt,
+                   out_dtype=str(g.dtype).split(".")[1],
+                   max_abs_err=max(errs), tol=min(tols), card=card)
+        if name == "flash_forward":
+            row["lse_rel_err"] = lse_err
+        if time_it:
+            nbytes, ops = io[name]
+            b_ms, b_by = bound(nbytes, ops, dt)
+            kern, plain = calls[name]
+            row.update(ms=time_ms(kern, iters=5, warmup=1),
+                       plain_ms=time_ms(plain, iters=3, warmup=1),
+                       library_ms=library[name], bound_ms=b_ms,
+                       bound_by=b_by, kept_pairs=pairs)
+        emit(**row)
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"{name} {dt} {cfg}: err {errs} > {tols}")
+        check(name != "flash_forward" or lse_err <= TOL_F32,
+              f"flash_forward lse {dt} {cfg}: rel err {lse_err}")
+        rows[name] = row
+    del q, k, v, do, ro, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_phase(card: str, gen) -> dict:
+    import torch
+
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = flash_check(gen, dtype, FLASH, time_it=True, card=card)
+        if dtype == torch.bfloat16:
+            summary = rows
+    small = dict(FLASH, b=1, s=1024)
+    for dtype in (torch.float32, torch.bfloat16):
+        flash_check(gen, dtype, small, window=256, card=card)
+        flash_check(gen, dtype, small, shift=-1, out_dtype=torch.float32,
+                    card=card)
+        flash_check(gen, dtype, dict(small, s=1000), card=card)
+    return summary
+
+
 # -- phase 2: the serving path at full width ------------------------------
 FULL = dict(vocab=32000, d_model=4096, depth=32, num_heads=32,
             num_kv_heads=8, pos_embedding="rope", attn_window=0,
@@ -233,20 +400,28 @@ def make_requests(seed: int, n: int = 16, num_new: int = 32):
 
 
 def zero_counts() -> None:
+    from vtpu_torch.ops import attention as tat
     from vtpu_torch.ops.layernorm import fused_layernorm
     from vtpu_torch.ops.paged_attention import paged_attention_decode
 
     fused_layernorm.launches = 0
     paged_attention_decode.launches = {"native": 0, "int8": 0}
+    tat.flash_forward.launches = 0
+    tat.flash_bwd_dq.launches = 0
+    tat.flash_bwd_dkv.launches = 0
 
 
 def read_counts() -> dict:
+    from vtpu_torch.ops import attention as tat
     from vtpu_torch.ops.layernorm import fused_layernorm
     from vtpu_torch.ops.paged_attention import paged_attention_decode
 
     return {"fused_layernorm": fused_layernorm.launches,
             "paged_decode": paged_attention_decode.launches["native"],
-            "paged_decode_q8": paged_attention_decode.launches["int8"]}
+            "paged_decode_q8": paged_attention_decode.launches["int8"],
+            "flash_forward": tat.flash_forward.launches,
+            "flash_bwd_dq": tat.flash_bwd_dq.launches,
+            "flash_bwd_dkv": tat.flash_bwd_dkv.launches}
 
 
 def serve(model, reqs, *, count: bool):
@@ -358,45 +533,58 @@ def serve_phase(card: str, seed: int):
 
 
 # -- phase 3: where the time goes ------------------------------------------
-def profile_phase(card: str, model, reqs) -> None:
-    """Where a decode step's time goes: torch.profiler over one admission
-    round (8 prompts) and over 4 decode steps of a fresh engine; device
-    busy time (sum of kernel times; one stream), wall time, idle share
-    and the kernels that take the most device time."""
+def profile_window(card: str, name: str, fn) -> None:
+    """torch.profiler around ``fn``: device busy time (the union of the
+    kernels' intervals), wall time, idle share and the kernels that take
+    the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events less the annotations that span them (an optimizer's
+    # step is recorded on the device timeline as a range over its kernels)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        if hi > lo:
+            busy_us += hi - lo
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit(phase="profile", window=name, wall_ms=wall_ms,
+         device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / wall_ms if wall_ms else None,
+         kernel_launches=len(kernels),
+         top_kernels_ms=[[n[:80], ms] for n, ms in top], card=card)
+
+
+def profile_phase(card: str, model, reqs) -> None:
+    """Where a decode step's time goes: one admission round (8 prompts)
+    and 4 decode steps of a fresh engine."""
+    import torch
 
     from vtpu_torch.serving.paged import PagedBatcher
 
     eng = PagedBatcher(model, max_batch=8)
-
-    def window(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        emit(phase="profile", window=name, wall_ms=wall_ms,
-             device_busy_ms=busy_ms,
-             idle_share=1.0 - busy_ms / wall_ms if wall_ms else None,
-             kernel_launches=len(kernels),
-             top_kernels_ms=[[n[:80], ms] for n, ms in top], card=card)
-
-    window("admission_prefill_8_prompts",
-           lambda: [eng.submit(rid, p, n) for rid, p, n in reqs[:8]])
+    profile_window(card, "admission_prefill_8_prompts",
+                   lambda: [eng.submit(rid, p, n) for rid, p, n in reqs[:8]])
     for _ in range(2):  # the admission's first harvest, then steady state
         eng.step()
-    window("decode_4_steps", lambda: [eng.step() for _ in range(4)])
+    profile_window(card, "decode_4_steps",
+                   lambda: [eng.step() for _ in range(4)])
     del eng
     torch.cuda.empty_cache()
 
@@ -432,6 +620,123 @@ def exactness_phase(card: str, seed: int, model_bf16, reqs, kernel_out):
          card=card)
 
 
+# -- phase 6: the training path at full width ----------------------------
+TRAIN = dict(vocab=32000, d_model=4096, depth=16, num_heads=32,
+             num_kv_heads=8, pos_embedding="rope", attn_window=4096,
+             max_seq=4096)
+TRAIN_REDUCED = [
+    "depth 32 -> 16: bf16 params, grads and two Adam moments of 5.9 B "
+    "params are 47 GB before activations; at depth 16 (3.08 B params) "
+    "they are ~25 GB, plus ~21 GB of saved activations and ~4 GB of f32 "
+    "logits and their log-softmax",
+    "max_seq 131072 -> 4096"]
+TRAIN_BATCH, TRAIN_STEPS = (2, 4096), 4
+
+
+def train_phase(card: str, seed: int) -> dict:
+    """Adam steps on one seeded batch; every step's launch counts are
+    zeroed just before it and read just after.  Returns the summed
+    launch counts of the counted steps."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM, lm_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = TransformerLM(**TRAIN, device="cuda", dtype=torch.bfloat16,
+                          generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, TRAIN["vocab"], TRAIN_BATCH, device="cuda",
+                           generator=gen, dtype=torch.int32)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    torch.cuda.synchronize()
+    depth = TRAIN["depth"]
+    emit(phase="train_setup", params=n_params, dtype="bfloat16",
+         batch=list(TRAIN_BATCH), optimizer="Adam(lr=1e-4)",
+         seconds=time.perf_counter() - t0, config=TRAIN,
+         reduced=TRAIN_REDUCED, card=card)
+
+    def step():
+        loss = lm_loss(model(tokens, decode=False), tokens)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    losses, total = [], {}
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        zero_counts()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1 = time.perf_counter()
+        s.record()
+        loss = step()
+        e.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        c = read_counts()
+        ms = s.elapsed_time(e)
+        losses.append(float(loss))
+        emit(phase="train", step=i, loss=losses[-1], step_ms=ms,
+             wall_s=wall, tokens_per_s=tokens.numel() / (ms / 1e3),
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             launches=c, card=card)
+        for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(c[name] == depth, f"train step {i}: {name} launched "
+                                    f"{c[name]} times, not {depth}")
+        check(c["fused_layernorm"] == 2 * depth + 1,
+              f"train step {i}: layernorm launched {c['fused_layernorm']} "
+              f"times, not {2 * depth + 1}")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    import math
+
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    profile_window(card, "train_step", step)
+    del model, opt, tokens
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 7: training exactness ------------------------------------------
+def train_exactness_phase(card: str, seed: int) -> None:
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM, lm_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerLM(**dict(TRAIN, depth=2), device="cuda",
+                          dtype=torch.float32, generator=gen)
+    tokens = torch.randint(0, TRAIN["vocab"], (1, 1024), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    loss_k = lm_loss(model(tokens, decode=False), tokens)
+    loss_k.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    plain = model.clone(flash_kernel="off", ln_kernel="off")
+    loss_p = lm_loss(plain(tokens, decode=False), tokens)
+    loss_p.backward()
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = ("", 0.0)
+    for n, p in model.named_parameters():
+        scale = float(p.grad.abs().max())
+        rel = float((grads[n] - p.grad).abs().max()) / scale if scale else 0.0
+        if rel >= worst[1]:
+            worst = (n, rel)
+    emit(phase="train_exactness", depth=2, dtype="float32", batch=[1, 1024],
+         loss_kernel=loss_k, loss_plain=loss_p,
+         loss_rel_err=loss_rel, worst_grad=worst[0],
+         worst_grad_rel_err=worst[1], card=card)
+    check(loss_rel <= 1e-5, f"train exactness: loss rel err {loss_rel}")
+    check(worst[1] <= 1e-4, f"train exactness: grad {worst[0]} rel err "
+                            f"{worst[1]}")
+    del model, plain, grads
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -463,11 +768,16 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {"fused_layernorm": layernorm_phase(card, gen),
-            **paged_phase(card, gen)}
+            **paged_phase(card, gen), **flash_phase(card, gen)}
     model, reqs, results, launches = serve_phase(card, args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])
-    del model
+    del model, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in train_phase(card, args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    train_exactness_phase(card, args.seed)
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",
@@ -476,6 +786,12 @@ def main() -> int:
                          "vtpu/ops/paged_attention.py:74"),
         "paged_decode_q8": ("vtpu_torch/csrc/paged_attention.cu",
                             "vtpu/ops/paged_attention.py:87"),
+        "flash_forward": ("vtpu_torch/csrc/flash_attention.cu",
+                          "vtpu/ops/attention.py:48"),
+        "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention.cu",
+                         "vtpu/ops/attention.py:91"),
+        "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention.cu",
+                          "vtpu/ops/attention.py:130"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

@@ -130,3 +130,49 @@ def test_kernels_match_plain_on_the_card(cuda_card):
         err = (tpa.paged_attention_decode(*args)
                - tpa.paged_attention_reference(*args)).abs().max().item()
         assert err <= 2e-5
+    _flash_kernels_match_plain(cuda_card, gen)
+
+
+def _flash_kernels_match_plain(dev, gen):
+    """Forward, dq and dk/dv against their plain versions in f32: GQA,
+    MHA in 2D, a ragged length, a window, the strict mask (shift -1, f32
+    o) and head dims below and at the widest tile."""
+    from vtpu_torch.ops import attention as tat
+
+    for q_shape, n_kv, causal, shift, window, out in [
+            ((2, 8, 256, 128), 2, True, 0, 0, None),
+            ((192, 64), 1, False, 0, 0, None),
+            ((1, 4, 200, 64), 4, True, 0, 0, None),
+            ((1, 4, 300, 32), 1, True, 0, 70, None),
+            ((1, 2, 256, 128), 2, True, -1, 0, torch.float32),
+            ((1, 2, 130, 40), 2, False, 0, 0, None)]:
+        kv_shape = q_shape if len(q_shape) == 2 else (
+            q_shape[0], n_kv, *q_shape[2:])
+        q, do = (torch.randn(q_shape, device=dev, generator=gen)
+                 for _ in range(2))
+        k, v = (torch.randn(kv_shape, device=dev, generator=gen)
+                for _ in range(2))
+        cfg = (causal, shift, window)
+        o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=out)
+        ro, rlse = tat.flash_attention_reference(q, k, v, *cfg,
+                                                 out_dtype=out)
+        assert (o - ro).abs().max().item() <= 2e-5
+        assert ((lse - rlse).abs() / rlse.abs().clamp_min(1)).max() <= 2e-5
+        delta = (do * ro).sum(-1, keepdim=True)
+        dq = tat.flash_bwd_dq(q, k, v, do, rlse, delta, *cfg)
+        rdq = tat.flash_bwd_dq_reference(q, k, v, do, rlse, delta, *cfg)
+        assert (dq - rdq).abs().max() <= 1e-4 * rdq.abs().max()
+        dk, dv = tat.flash_bwd_dkv(q, k, v, do, rlse, delta, *cfg)
+        rdk, rdv = tat.flash_bwd_dkv_reference(q, k, v, do, rlse, delta,
+                                               *cfg)
+        assert (dk - rdk).abs().max() <= 1e-4 * rdk.abs().max()
+        assert (dv - rdv).abs().max() <= 1e-4 * rdv.abs().max()
+    # shapes the kernels would read out of bounds raise instead
+    q = torch.randn(2, 4, 64, 32, device=dev, generator=gen)
+    k = torch.randn(2, 2, 64, 32, device=dev, generator=gen)
+    lse = torch.zeros(2, 4, 64, 1, device=dev)
+    for args in [(q, k, k[:, :, :32]), (q, k[:1], k[:1]),
+                 (q, k, k, q[:, :, :32], lse, lse)]:
+        fn = tat.flash_forward if len(args) == 3 else tat.flash_bwd_dq
+        with pytest.raises(ValueError):
+            fn(*args)

@@ -101,6 +101,33 @@ def test_paged_decode_logits_match_jax(n_kv, pos, cache_dtype, kernel):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("cache_dtype", ["native", "int8"])
+@pytest.mark.parametrize("n_kv", [0, 2], ids=["mha", "gqa"])
+def test_sliding_window_decode_matches_jax(n_kv, cache_dtype):
+    """attn_window masks the gather path's keys to the last W positions
+    (prefill and steps both cross the window)."""
+    jm = jtf.TransformerLM(**KW, num_kv_heads=n_kv, pos_embedding="rope",
+                           attn_window=4, kv_cache_dtype=cache_dtype,
+                           paged_kernel="off")
+    params = jax_params(jm)
+    tm = port_of(jm, params)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, 64, (2, 6)).astype(np.int32)
+    steps = rng.integers(0, 64, (2, 6)).astype(np.int32)
+    want = _jax_decode(jm, params, prompt, 8, steps)
+    got = _port_decode(tm, prompt, 8, steps)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    # "auto" serves a windowed model through the gather path too
+    auto = _port_decode(tm.clone(paged_kernel="auto"), prompt, 8, steps)
+    np.testing.assert_allclose(auto, want, atol=1e-4, rtol=0)
+
+
+def test_decode_without_a_cache_raises():
+    m = ttf.TransformerLM(**KW, device="cpu")
+    with pytest.raises(ValueError, match="cache"):
+        m(torch.zeros((1, 4), dtype=torch.int32))
+
+
 @pytest.mark.parametrize("cfg", [
     dict(num_kv_heads=0, pos_embedding="learned", paged_kernel="on"),
     dict(num_kv_heads=2, pos_embedding="rope", kv_cache_dtype="int8",
@@ -161,23 +188,18 @@ def test_generate_errors_match_jax():
             want.value)
 
 
-@pytest.mark.parametrize("what", ["dense", "moe", "window", "full_forward",
-                                  "beam", "speculative", "sampling"])
+@pytest.mark.parametrize("what", ["dense", "moe", "beam", "speculative",
+                                  "sampling"])
 def test_deferred_paths_raise_not_implemented(what):
     kw = dict(KW)
     with pytest.raises(NotImplementedError, match="slice"):
         if what == "dense":
-            ttf.TransformerLM(**dict(kw, kv_cache_layout="dense"),
-                              device="cpu")
+            # a dense-layout model runs full forwards; its decode waits
+            m = ttf.TransformerLM(**dict(kw, kv_cache_layout="dense"),
+                                  device="cpu")
+            m(torch.zeros((1, 4), dtype=torch.int32), {})
         elif what == "moe":
             ttf.TransformerLM(**kw, mlp="moe", device="cpu")
-        elif what == "window":
-            ttf.TransformerLM(**kw, attn_window=8, paged_kernel="off",
-                              device="cpu")
-        elif what == "full_forward":
-            m = ttf.TransformerLM(**kw, device="cpu")
-            m(torch.zeros((1, 4), dtype=torch.int32), m.init_cache(1),
-              decode=False)
         elif what == "beam":
             ttf.generate_beam()
         elif what == "speculative":
@@ -196,6 +218,9 @@ def test_clone_shares_weights_and_validates():
     assert c.init_cache(2)["layers"][0]["k_pool"].dtype == torch.int8
     with pytest.raises(ValueError, match="paged_kernel"):
         m.clone(paged_kernel="yes")
+    assert m.clone(flash_kernel="off").flash_kernel == "off"
+    with pytest.raises(ValueError, match="flash_kernel"):
+        m.clone(flash_kernel="on")
     with pytest.raises(TypeError):
         m.clone(d_model=32)
 

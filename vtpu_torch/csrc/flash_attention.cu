@@ -1,0 +1,666 @@
+// Flash attention for Hopper (sm_90a): the forward (o and the per-row
+// logsumexp) and the two backward kernels (dq; dk and dv), over f32 or
+// bf16 inputs, f32 accumulation.
+//
+// Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
+//   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
+//   flash_bwd_dq  <- _attn_bwd_dq_kernel   (reached from _flash_bwd_2d)
+//   flash_bwd_dkv <- _attn_bwd_dkv_kernel  (reached from _flash_bwd_2d)
+//
+// Layouts: q, o, do, dq [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd];
+// lse, delta [N, seq_q] f32.  N flattens every leading dim of the public
+// [..., s, hd] tensors (batch and heads), and query head n reads kv head
+// n / g, which is grouped-query attention written into the index: k and
+// v are never repeated per query head.  Scores are (q . k) * sm_scale in
+// f32.  With `causal`, key k is kept for query q iff k <= q + shift and,
+// with window > 0, k > q + shift - window (the reference's _causal_mask).
+//
+// Numerics are the TPU kernels': online softmax with m starting at
+// -1e30, l clamped at 1e-30 (a row with no kept key writes o = 0 and
+// lse ~ -1e30), lse = m + log(l); the backward rematerializes
+// p = exp(s - lse) and forces p = 0 on every masked entry, so a row
+// whose lse is ~-1e30 (shift = -1 leaves the first row without a key)
+// gives no gradient instead of 1/L per masked key.  The forward applies
+// the same p = 0 rule.  Unlike the TPU wrappers, which send a length
+// that is not a multiple of 128 to the XLA reference, these kernels take
+// every length: tiles past seq_q or seq_k are zero-filled on the way in,
+// their entries masked, and their rows never written.
+//
+// What bounds them on an H100: operations.  Causal at b 2, H 32,
+// s 4096, hd 128 the forward does about 2*b*H*s^2*hd = 2.7e11 flops
+// (QK^T and PV over the kept half), dq 1.5x that (QK^T, dO V^T, dS K)
+// and dk/dv 2x (QK^T, dO V^T, P^T dO, dS^T Q); the bytes (q, k, v, o
+// once) are ~0.2 GB, 0.06 ms at 3.35 TB/s.  Against the bf16 tensor-core
+// peak (989 TFLOP/s) the forward's bound is 0.28 ms.  This first design
+// multiplies on the CUDA cores in f32, so its own ceiling is the f32
+// rate (67 TFLOP/s, ~4.1 ms for the forward); wgmma with TMA-fed tiles
+// is the later step to the tensor-core bound.  What the design does:
+//
+//  - Tiles of 64 query rows by 64 keys staged in shared memory as f32
+//    (rows padded by 4 floats so the 16-byte reads of 8 neighbouring
+//    threads hit distinct banks); 256 threads as 16 x 16, each thread
+//    owning a 4 x 4 block of the score tile (rows ty + 16 i, columns
+//    tx + 16 j) and reading both operands as float4 along hd: 8 shared
+//    loads for 64 FMAs.  Each output row is spread over 16 threads of a
+//    half-warp, so row max and row sum are four shuffles.
+//  - The TPU grid walked q blocks in order with all of K/V resident in
+//    VMEM.  Here blocks run in any order on 132 SMs and each streams its
+//    K/V (or Q/dO) tiles from device memory (L2 holds the 2-16 MB of a
+//    head).  forward and dq: one block per (q tile, query head);
+//    dk/dv: one block per (k tile, kv head), which loops over the g
+//    query heads of its group and over the q tiles, keeping dk and dv in
+//    registers and writing them once (no atomics, no second pass): that
+//    loop is where the TPU path's vmap sums the cotangents of the
+//    broadcast k and v.
+//  - Fully masked tiles are skipped with the reference's bounds
+//    (_causal_hi, _window_lo; for dk/dv the first q tile at the diagonal
+//    and the window's last), so causal work is the kept half.
+//  - Staging costs (K + V + Q + P tiles, f32) are 116 KB for the
+//    forward, 150 KB for dq and 167 KB for dk/dv at hd 128, above the
+//    48 KB default: vtpu::allow_smem opts each kernel in.
+
+#include <initializer_list>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kTile = 64;      // query rows and keys per tile
+constexpr int kPS = kTile + 4; // row stride of the staged P / dS tiles
+constexpr float kNegInf = -1e30f;
+
+struct Problem {
+  int g;            // query heads per kv head
+  int seq_q, seq_k, hd;
+  int causal, shift, window;
+  float sm_scale;
+};
+
+__device__ __forceinline__ bool keep(const Problem& P, int q, int k) {
+  if (q >= P.seq_q || k >= P.seq_k) return false;
+  if (!P.causal) return true;
+  const int qp = q + P.shift;
+  return k <= qp && (P.window <= 0 || k > qp - P.window);
+}
+
+// kv tiles [lo, hi) that can hold a kept key for rows [q0, q0 + kTile)
+__device__ __forceinline__ void kv_range(const Problem& P, int q0, int& lo,
+                                         int& hi) {
+  const int n = (P.seq_k + kTile - 1) / kTile;
+  lo = 0;
+  hi = n;
+  if (!P.causal) return;
+  const int last = min(q0 + kTile - 1, P.seq_q - 1) + P.shift;
+  hi = last < 0 ? 0 : min(n, last / kTile + 1);
+  if (P.window > 0) {
+    const int first = q0 + P.shift - P.window + 1;
+    lo = first <= 0 ? 0 : first / kTile;
+  }
+}
+
+// q tiles [lo, hi) that can hold a kept row for keys [k0, k0 + kTile)
+__device__ __forceinline__ void q_range(const Problem& P, int k0, int& lo,
+                                        int& hi) {
+  const int n = (P.seq_q + kTile - 1) / kTile;
+  lo = 0;
+  hi = n;
+  if (!P.causal) return;
+  const int first = k0 - P.shift;
+  lo = first <= 0 ? 0 : min(n, first / kTile);
+  if (P.window > 0) {
+    const int last = min(k0 + kTile - 1, P.seq_k - 1) - P.shift +
+                     P.window - 1;
+    hi = last < 0 ? 0 : min(n, last / kTile + 1);
+  }
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Stage rows [row0, row0 + kTile) of a [rows, hd] matrix as f32 rows of
+// `stride` floats, HD columns, zero past rows and past hd.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, int stride,
+                                          const T* __restrict__ src,
+                                          int row0, int rows, int hd,
+                                          bool vec) {
+  constexpr int kGroups = HD / 4;
+  for (int i = threadIdx.x; i < kTile * kGroups; i += kThreads) {
+    const int r = i / kGroups, d = (i % kGroups) * 4;
+    const int row = row0 + r;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows && d < hd) {
+      const T* p = src + static_cast<size_t>(row) * hd + d;
+      if (vec) {
+        f = load4(p);
+      } else {
+        f.x = vtpu::to_f32(p[0]);
+        f.y = d + 1 < hd ? vtpu::to_f32(p[1]) : 0.f;
+        f.z = d + 2 < hd ? vtpu::to_f32(p[2]) : 0.f;
+        f.w = d + 3 < hd ? vtpu::to_f32(p[3]) : 0.f;
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * stride + d) = f;
+  }
+}
+
+// One f32 value per row of a [rows] vector, zero past rows.
+__device__ __forceinline__ void load_rowvec(float* dst,
+                                            const float* __restrict__ src,
+                                            int row0, int rows) {
+  if (threadIdx.x < kTile) {
+    const int row = row0 + threadIdx.x;
+    dst[threadIdx.x] = row < rows ? src[row] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+__device__ __forceinline__ void axpy4(float4& o, float p, float4 v) {
+  o.x = fmaf(p, v.x, o.x);
+  o.y = fmaf(p, v.y, o.y);
+  o.z = fmaf(p, v.z, o.z);
+  o.w = fmaf(p, v.w, o.w);
+}
+
+// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over HD columns.
+template <int HD>
+__device__ __forceinline__ void tile_dot(float (&c)[4][4],
+                                         const float* A, const float* B,
+                                         int stride, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * stride + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * stride + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[i][j] = dot4(a[i], b[j], c[i][j]);
+  }
+}
+
+// acc[i][u] += sum_c W[ty + 16 i][c] * M[c][4 tx + 64 u .. + 3]: a
+// [64 x 64] weight tile (row stride kPS) times a staged [64 x HD] tile.
+template <int HD>
+__device__ __forceinline__ void tile_accum(float4 (&acc)[4][HD / 64],
+                                           const float* W, const float* M,
+                                           int stride, int ty, int tx) {
+  constexpr int NU = HD / 64;
+#pragma unroll 2
+  for (int c = 0; c < kTile; c += 4) {
+    float4 w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = *reinterpret_cast<const float4*>(W + (ty + 16 * i) * kPS + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float4 m = *reinterpret_cast<const float4*>(
+            M + (c + cc) * stride + 4 * tx + 64 * u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float wi = cc == 0 ? w[i].x : cc == 1 ? w[i].y
+                         : cc == 2 ? w[i].z : w[i].w;
+          axpy4(acc[i][u], wi, m);
+        }
+      }
+    }
+  }
+}
+
+// Max and sum over the 16 threads (tx) of a half-warp that share a row.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Write acc[i][u] (rows row0 + ty + 16 i, columns 4 tx + 64 u) times
+// scale[i] into a [rows, hd] matrix.
+template <typename O, int HD>
+__device__ __forceinline__ void store_tile(O* __restrict__ dst,
+                                           const float4 (&acc)[4][HD / 64],
+                                           const float (&scale)[4],
+                                           int row0, int rows, int hd,
+                                           int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+    O* out = dst + static_cast<size_t>(row) * hd;
+#pragma unroll
+    for (int u = 0; u < HD / 64; ++u) {
+      const int d = 4 * tx + 64 * u;
+      const float v[4] = {acc[i][u].x, acc[i][u].y, acc[i][u].z,
+                          acc[i][u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < hd) out[d + e] = vtpu::from_f32<O>(v[e] * scale[i]);
+    }
+  }
+}
+
+template <typename T, typename O, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, O* __restrict__ o,
+              float* __restrict__ lse, Problem P, bool vec) {
+  constexpr int S = HD + 4;
+  constexpr int NU = HD / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kTile * S;
+  float* Vs = Ks + kTile * S;
+  float* Ps = Vs + kTile * S;
+  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
+
+  float m[4], l[4];
+  float4 acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  int lo, hi;
+  kv_range(P, q0, lo, hi);
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * kTile;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
+    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+    __syncthreads();
+    float s[4][4];
+    tile_dot<HD>(s, Qs, Ks, S, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = keep(P, row, k0 + tx + 16 * j) ? s[i][j] * P.sm_scale
+                                                 : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p =
+            s[i][j] <= kNegInf * 0.5f ? 0.f : expf(s[i][j] - m_new);
+        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        acc[i][u].x *= alpha;
+        acc[i][u].y *= alpha;
+        acc[i][u].z *= alpha;
+        acc[i][u].w *= alpha;
+      }
+    }
+    __syncthreads();
+    tile_accum<HD>(acc, Ps, Vs, S, ty, tx);
+  }
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float ls = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / ls;
+    const int row = q0 + ty + 16 * i;
+    if (tx == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] = m[i] + logf(ls);
+  }
+  store_tile<O, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, ty, tx);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 Problem P, bool vec) {
+  constexpr int S = HD + 4;
+  constexpr int NU = HD / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kTile * S;
+  float* Ks = dOs + kTile * S;
+  float* Vs = Ks + kTile * S;
+  float* dSs = Vs + kTile * S;
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
+  load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, vec);
+  load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
+  load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
+
+  float4 acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int lo, hi;
+  kv_range(P, q0, lo, hi);
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * kTile;
+    __syncthreads();
+    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
+    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    tile_dot<HD>(s, Qs, Ks, S, ty, tx);
+    tile_dot<HD>(dp, dOs, Vs, S, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = keep(P, q0 + r, k0 + tx + 16 * j)
+                            ? expf(s[i][j] * P.sm_scale - lse_s[r])
+                            : 0.f;
+        dSs[r * kPS + tx + 16 * j] =
+            p * (dp[i][j] - delta_s[r]) * P.sm_scale;
+      }
+    }
+    __syncthreads();
+    tile_accum<HD>(acc, dSs, Ks, S, ty, tx);
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_tile<T, HD>(dq + q_off, acc, one, q0, P.seq_q, P.hd, ty, tx);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, Problem P, bool vec) {
+  constexpr int S = HD + 4;
+  constexpr int NU = HD / 64;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile * S;
+  float* Qs = Vs + kTile * S;
+  float* dOs = Qs + kTile * S;
+  float* Ps = dOs + kTile * S;
+  float* dSs = Ps + kTile * kPS;
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+  const int nk = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
+  load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
+  load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+
+  float4 dk_acc[4][NU], dv_acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      dk_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      dv_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  int lo, hi;
+  q_range(P, k0, lo, hi);
+  for (int h = 0; h < P.g; ++h) {
+    const int n = nk * P.g + h;
+    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+    for (int t = lo; t < hi; ++t) {
+      const int q0 = t * kTile;
+      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
+      load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
+      load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, vec);
+      load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
+      load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
+      __syncthreads();
+      // transposed tiles: rows are keys (ty + 16 i), columns queries
+      float st[4][4], dpt[4][4];
+      tile_dot<HD>(st, Ks, Qs, S, ty, tx);
+      tile_dot<HD>(dpt, Vs, dOs, S, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tx + 16 * j;
+          const float p = keep(P, q0 + r, k0 + c)
+                              ? expf(st[i][j] * P.sm_scale - lse_s[r])
+                              : 0.f;
+          Ps[c * kPS + r] = p;
+          dSs[c * kPS + r] = p * (dpt[i][j] - delta_s[r]) * P.sm_scale;
+        }
+      }
+      __syncthreads();
+      tile_accum<HD>(dv_acc, Ps, dOs, S, ty, tx);
+      tile_accum<HD>(dk_acc, dSs, Qs, S, ty, tx);
+    }
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_tile<T, HD>(dk + kv_off, dk_acc, one, k0, P.seq_k, P.hd, ty, tx);
+  store_tile<T, HD>(dv + kv_off, dv_acc, one, k0, P.seq_k, P.hd, ty, tx);
+}
+
+template <int HD>
+constexpr size_t smem_fwd() {
+  return sizeof(float) * (3 * kTile * (HD + 4) + kTile * kPS);
+}
+template <int HD>
+constexpr size_t smem_dq() {
+  return sizeof(float) * (4 * kTile * (HD + 4) + kTile * kPS + 2 * kTile);
+}
+template <int HD>
+constexpr size_t smem_dkv() {
+  return sizeof(float) *
+         (4 * kTile * (HD + 4) + 2 * kTile * kPS + 2 * kTile);
+}
+
+bool make_problem(Problem& P, int n_q, int g, int seq_q, int seq_k, int hd,
+                  int causal, int shift, int window, float sm_scale) {
+  if (n_q <= 0 || g <= 0 || n_q % g != 0 || seq_q <= 0 || seq_k <= 0 ||
+      hd <= 0 || hd > 128 || n_q > 65535 || window < 0)
+    return false;
+  P.g = g;
+  P.seq_q = seq_q;
+  P.seq_k = seq_k;
+  P.hd = hd;
+  P.causal = causal;
+  P.shift = shift;
+  P.window = window;
+  P.sm_scale = sm_scale;
+  return true;
+}
+
+template <typename T>
+bool can_vec(int hd, std::initializer_list<const void*> ptrs) {
+  if (hd % 4 != 0) return false;
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) != 0) return false;
+  }
+  return true;
+}
+
+template <typename T, typename O, int HD>
+int fwd_hd(const void* q, const void* k, const void* v, void* o, void* lse,
+           int n_q, const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_fwd<T, O, HD>;
+  const size_t smem = smem_fwd<HD>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((P.seq_q + kTile - 1) / kTile, n_q);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<O*>(o),
+      static_cast<float*>(lse), P, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename O>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
+               int causal, int shift, int window, float sm_scale,
+               void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec<T>(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64 ? fwd_hd<T, O, 64>(q, k, v, o, lse, n_q, P, vec, st)
+                  : fwd_hd<T, O, 128>(q, k, v, o, lse, n_q, P, vec, st);
+}
+
+template <typename T, int HD>
+int dq_hd(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dq, int n_q,
+          const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_bwd_dq<T, HD>;
+  const size_t smem = smem_dq<HD>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((P.seq_q + kTile - 1) / kTile, n_q);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), P, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int n_q, int g,
+              int seq_q, int seq_k, int hd, int causal, int shift,
+              int window, float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec<T>(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64
+             ? dq_hd<T, 64>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st)
+             : dq_hd<T, 128>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st);
+}
+
+template <typename T, int HD>
+int dkv_hd(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv, int n_kv,
+           const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_bwd_dkv<T, HD>;
+  const size_t smem = smem_dkv<HD>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((P.seq_k + kTile - 1) / kTile, n_kv);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), P, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta,
+               void* dk, void* dv, int n_q, int g, int seq_q, int seq_k,
+               int hd, int causal, int shift, int window, float sm_scale,
+               void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec<T>(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_kv = n_q / g;
+  return hd <= 64 ? dkv_hd<T, 64>(q, k, v, dout, lse, delta, dk, dv, n_kv,
+                                  P, vec, st)
+                  : dkv_hd<T, 128>(q, k, v, dout, lse, delta, dk, dv, n_kv,
+                                   P, vec, st);
+}
+
+}  // namespace
+
+#define VTPU_FLASH_FWD_ENTRY(NAME, T, O)                                    \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
+                      void* lse, int n_q, int g, int seq_q, int seq_k,      \
+                      int hd, int causal, int shift, int window,            \
+                      float sm_scale, void* stream) {                       \
+    return launch_fwd<T, O>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,      \
+                            causal, shift, window, sm_scale, stream);       \
+  }
+
+#define VTPU_FLASH_DQ_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* dout, const void* lse, const void* delta,  \
+                      void* dq, int n_q, int g, int seq_q, int seq_k,        \
+                      int hd, int causal, int shift, int window,             \
+                      float sm_scale, void* stream) {                        \
+    return launch_dq<T>(q, k, v, dout, lse, delta, dq, n_q, g, seq_q, seq_k, \
+                        hd, causal, shift, window, sm_scale, stream);        \
+  }
+
+#define VTPU_FLASH_DKV_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* dout, const void* lse, const void* delta,  \
+                      void* dk, void* dv, int n_q, int g, int seq_q,         \
+                      int seq_k, int hd, int causal, int shift, int window,  \
+                      float sm_scale, void* stream) {                        \
+    return launch_dkv<T>(q, k, v, dout, lse, delta, dk, dv, n_q, g, seq_q,   \
+                         seq_k, hd, causal, shift, window, sm_scale,         \
+                         stream);                                            \
+  }
+
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, float, float)
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16, __nv_bfloat16, __nv_bfloat16)
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, __nv_bfloat16, float)
+VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, float)
+VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_bf16, __nv_bfloat16)
+VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, float)
+VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_bf16, __nv_bfloat16)

@@ -1,12 +1,14 @@
-"""Decoder-only transformer LM: the paged serving path of
-``vtpu/models/transformer.py`` in PyTorch.
+"""Decoder-only transformer LM: ``vtpu/models/transformer.py`` in
+PyTorch, its full forward (training) and its paged decode path.
 
-What is here is the decode path of ``TransformerLM`` at the knobs the
-paged serving tier uses: MHA or GQA, learned ``wpe`` or half-split
-``rope``, the dense MLP with tanh-approximate GELU, a native or int8 K/V
-pool behind a block table (``kv_cache_layout="paged"``), the fused
-LayerNorm kernel and the paged decode kernel.  What waits raises
-``NotImplementedError`` naming the slice that brings it.
+What is here: MHA or GQA, learned ``wpe`` or half-split ``rope``,
+sliding-window attention, the dense MLP with tanh-approximate GELU, the
+fused LayerNorm kernel; the full forward ``model(tokens, decode=False)``
+through the flash-attention kernels, differentiable, with
+:func:`lm_loss`; and the decode path over a native or int8 K/V pool
+behind a block table (``kv_cache_layout="paged"``) with the paged decode
+kernel.  What waits raises ``NotImplementedError`` naming the slice that
+brings it.
 
 The cache is an explicit dict of tensors that every forward updates in
 place (the JAX model returns a new cache; writing the pools in place
@@ -31,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vtpu_torch.device import resolve_device
+from vtpu_torch.ops.attention import (flash_attention, flash_attention_gqa,
+                                      reference_attention)
 from vtpu_torch.ops.layernorm import _reference_ln, fused_layernorm
 from vtpu_torch.ops.paged_attention import paged_attention_decode
 from vtpu_torch.ops.quant import quantize_int8
@@ -92,8 +96,7 @@ class Attention(nn.Module):
             self.kv = nn.Linear(d, 2 * self.n_kv * self.hd, **kw)
         self.out = nn.Linear(d, d, **kw)
 
-    def forward(self, x, layer: dict, pos0, table, *, block_size: int,
-                max_seq: int, use_kernel: bool):
+    def _heads(self, x):
         b, s, d = x.shape
         hd, n_kv, nh = self.hd, self.n_kv, self.num_heads
         if n_kv == nh:
@@ -104,6 +107,40 @@ class Attention(nn.Module):
         q = q.reshape(b, s, nh, hd).transpose(1, 2)    # [b, H, s, hd]
         k = k.reshape(b, s, n_kv, hd).transpose(1, 2)  # [b, n_kv, s, hd]
         v = v.reshape(b, s, n_kv, hd).transpose(1, 2)
+        return q, k, v
+
+    def forward(self, x, layer: dict | None = None, pos0=None, table=None,
+                *, window: int = 0, flash: bool = True, block_size: int = 0,
+                max_seq: int = 0, use_kernel: bool = False):
+        """Full causal forward when ``layer`` is None (the flash kernels,
+        or with ``flash=False`` the plain attention), else one decode
+        step against the cache ``layer``."""
+        if layer is None:
+            return self._full(x, window, flash)
+        return self._decode(x, layer, pos0, table, window=window,
+                            block_size=block_size, max_seq=max_seq,
+                            use_kernel=use_kernel)
+
+    def _full(self, x, window: int, flash: bool):
+        b, s, d = x.shape
+        q, k, v = self._heads(x)
+        if self.use_rope:
+            pos = torch.arange(s, device=x.device)
+            q, k = rope(q, pos), rope(k, pos)
+        if self.n_kv != self.num_heads:
+            o = flash_attention_gqa(q, k, v, causal=True, window=window,
+                                    use_kernel=None if flash else False)
+        elif flash:
+            o = flash_attention(q, k, v, causal=True, window=window)
+        else:
+            o = reference_attention(q, k, v, causal=True, window=window)
+        return self.out(o.transpose(1, 2).reshape(b, s, d))
+
+    def _decode(self, x, layer: dict, pos0, table, *, window: int,
+                block_size: int, max_seq: int, use_kernel: bool):
+        b, s, d = x.shape
+        hd, n_kv, nh = self.hd, self.n_kv, self.num_heads
+        q, k, v = self._heads(x)
         steps = torch.arange(s, device=x.device)
         qpos = pos0.long()[:, None] + steps[None]      # [b, s]
         if self.use_rope:
@@ -136,7 +173,7 @@ class Attention(nn.Module):
             ks[bidx, :, off] = kq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
             vs[bidx, :, off] = vq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
 
-        if s == 1 and use_kernel:
+        if s == 1 and window == 0 and use_kernel:
             o = paged_attention_decode(q[:, :, 0], kp, vp, table, pos0, ks, vs)
             return self.out(o.reshape(b, 1, d))
 
@@ -155,6 +192,8 @@ class Attention(nn.Module):
             v_read = page_read(vp).float()
         kpos = torch.arange(max_seq, device=x.device)
         mask = kpos[None, None, :] <= qpos[:, :, None]  # [b, s, L]
+        if window > 0:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - window
         g = nh // n_kv
         ct = torch.promote_types(q.dtype, k_read.dtype)
         qg = q.reshape(b, n_kv, g, s, hd).to(ct)
@@ -179,7 +218,8 @@ class Block(nn.Module):
         self.mlp_in = nn.Linear(d, mlp_ratio * d, **kw)
         self.mlp_out = nn.Linear(mlp_ratio * d, d, **kw)
 
-    def forward(self, x, layer, pos0, table, *, ln_kernel: bool, **attn_kw):
+    def forward(self, x, layer=None, pos0=None, table=None, *,
+                ln_kernel: bool, **attn_kw):
         x = x + self.attn(self.ln1(x, ln_kernel), layer, pos0, table,
                           **attn_kw)
         h = self.mlp_in(self.ln2(x, ln_kernel))
@@ -189,18 +229,22 @@ class Block(nn.Module):
 
 # knobs a clone may change: none of them shapes a weight
 _CLONE_KNOBS = ("kv_cache_dtype", "kv_block_size", "kv_pool_blocks",
-                "paged_kernel", "ln_kernel")
+                "paged_kernel", "ln_kernel", "flash_kernel")
 
 
 class TransformerLM(nn.Module):
     """GPT-style causal LM.  ``forward(tokens [b, s], cache)`` returns
-    logits ``[b, s, vocab]`` in f32 and advances ``cache`` in place.
+    logits ``[b, s, vocab]`` in f32 and advances ``cache`` in place;
+    ``forward(tokens, decode=False)`` is the full causal forward, with
+    autograd (the training path).
 
     ``paged_kernel``: "auto" (the kernel on CUDA, the gather path on the
     CPU), "on" (the kernel's wrapper everywhere; on a CPU tensor that is
     its plain version) or "off" (the gather path).  ``ln_kernel``:
     "auto" (the fused LayerNorm wrapper) or "off" (its plain version on
-    every device, for comparisons on the card).
+    every device, for comparisons on the card).  ``flash_kernel``:
+    "auto" (the flash-attention wrappers in the full forward) or "off"
+    (the plain attention on every device).
 
     Weights are drawn from ``generator`` (default: seed 0 on ``device``):
     N(0, 1/fan_in) for dense kernels, N(0, 1/d_model) for embeddings,
@@ -214,7 +258,8 @@ class TransformerLM(nn.Module):
                  kv_cache_dtype: str = "native",
                  kv_cache_layout: str = "paged", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, paged_kernel: str = "auto",
-                 ln_kernel: str = "auto", *, device="cuda",
+                 ln_kernel: str = "auto", flash_kernel: str = "auto", *,
+                 device="cuda",
                  dtype=torch.float32, generator=None):
         super().__init__()
         self.vocab, self.d_model, self.depth = vocab, d_model, depth
@@ -226,6 +271,7 @@ class TransformerLM(nn.Module):
             kv_cache_dtype, kv_cache_layout)
         self.kv_block_size, self.kv_pool_blocks = kv_block_size, kv_pool_blocks
         self.paged_kernel, self.ln_kernel = paged_kernel, ln_kernel
+        self.flash_kernel = flash_kernel
         self._validate()
         dev = resolve_device(device)
         self.dtype = dtype
@@ -273,6 +319,10 @@ class TransformerLM(nn.Module):
         if self.ln_kernel not in ("auto", "off"):
             raise ValueError(
                 f"ln_kernel must be 'auto' or 'off', got {self.ln_kernel!r}")
+        if self.flash_kernel not in ("auto", "off"):
+            raise ValueError(
+                f"flash_kernel must be 'auto' or 'off', "
+                f"got {self.flash_kernel!r}")
         if self.kv_cache_layout == "paged":
             if self.paged_kernel == "on" and self.attn_window > 0:
                 raise ValueError(
@@ -285,17 +335,17 @@ class TransformerLM(nn.Module):
                     f"kv_block_size {self.kv_block_size} must divide "
                     f"max_seq {self.max_seq}"
                 )
+        if self.mlp == "moe":
+            raise NotImplementedError(
+                "MoE blocks come with the parallel slice of the port")
+
+    def _check_paged(self) -> None:
+        """The decode path's cache is the paged pool; a dense-layout
+        model runs full forwards only."""
         if self.kv_cache_layout == "dense":
             raise NotImplementedError(
                 "the dense KV cache layout comes with a later slice of the "
                 "port (dense serving); use kv_cache_layout='paged'")
-        if self.mlp == "moe":
-            raise NotImplementedError(
-                "MoE blocks come with the parallel slice of the port")
-        if self.attn_window > 0:
-            raise NotImplementedError(
-                "sliding-window attention in the paged path comes with a "
-                "later slice of the port")
 
     def clone(self, **updates) -> "TransformerLM":
         """A model that shares this one's weights with some cache or
@@ -335,6 +385,7 @@ class TransformerLM(nn.Module):
         the identity map (row i owns blocks [i*nb, (i+1)*nb)) when
         ``kv_pool_blocks == 0``, all zeros (the garbage block) when a
         serving engine allocates a real pool."""
+        self._check_paged()
         dev = self.device
         nb_max = self.max_seq // self.kv_block_size
         n_kv = self.num_kv_heads or self.num_heads
@@ -362,13 +413,34 @@ class TransformerLM(nn.Module):
                 "layers": layers}
 
     # -- forward --------------------------------------------------------
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, cache: dict,
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 decode: bool = True) -> torch.Tensor:
         if not decode:
-            raise NotImplementedError(
-                "full forwards (decode=False) run the flash-attention "
-                "kernels, which come with the training slice of the port")
+            return self._full(tokens)
+        if cache is None:
+            raise ValueError("decode=True needs a cache (model.init_cache); "
+                             "pass decode=False for a full forward")
+        self._check_paged()
+        with torch.no_grad():
+            return self._decode(tokens, cache)
+
+    def _full(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full causal forward over positions arange(s), with autograd."""
+        b, s = tokens.shape
+        if s > self.max_seq:
+            raise ValueError(f"seq {s} > max_seq {self.max_seq}")
+        x = self.wte(tokens.long())
+        if self.pos_embedding == "learned":
+            x = x + self.wpe(torch.arange(s, device=tokens.device)[None])
+        ln_kernel = self.ln_kernel == "auto"
+        flash = self.flash_kernel == "auto"
+        for blk in self.h:
+            x = blk(x, ln_kernel=ln_kernel, window=self.attn_window,
+                    flash=flash)
+        x = self.ln_f(x, ln_kernel)
+        return self.lm_head(x).float()
+
+    def _decode(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         b, s = tokens.shape
         assert s <= self.max_seq, f"seq {s} > max_seq {self.max_seq}"
         pos0 = cache["pos"]
@@ -381,16 +453,26 @@ class TransformerLM(nn.Module):
             pos_ids = pos0.long()[:, None] + torch.arange(
                 s, device=tokens.device)[None]
             x = x + self.wpe(pos_ids.clamp(max=self.max_seq - 1))
+        # the paged kernel serves one-token steps without a window (the
+        # reference's condition); the rest takes the gather path
         use_kernel = (self.paged_kernel == "on"
                       or (self.paged_kernel == "auto"
                           and self.device.type == "cuda"))
         ln_kernel = self.ln_kernel == "auto"
         for blk, layer in zip(self.h, cache["layers"]):
             x = blk(x, layer, pos0, table, ln_kernel=ln_kernel,
-                    block_size=self.kv_block_size, max_seq=self.max_seq,
-                    use_kernel=use_kernel)
+                    window=self.attn_window, block_size=self.kv_block_size,
+                    max_seq=self.max_seq, use_kernel=use_kernel)
         x = self.ln_f(x, ln_kernel)
         return self.lm_head(x).float()
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (shifted): the mean over b * (s - 1) of
+    -log_softmax(logits[:, :-1])[tokens[:, 1:]], in f32."""
+    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long().to(logits.device)
+    return -logp.gather(-1, tgt[..., None])[..., 0].mean()
 
 
 def bucket_length(n: int, max_seq: int) -> int:

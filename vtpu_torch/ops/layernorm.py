@@ -1,10 +1,12 @@
 """Fused LayerNorm: the wrapper of ``csrc/layernorm.cu`` and its plain
 PyTorch version.
 
-Counterpart of ``vtpu/ops/layernorm.py`` (forward only: the backward,
-the reference's ``_ln_bwd`` VJP, comes with the training path).  On a
-CUDA tensor the wrapper launches the kernel, for every row count; on a
-CPU tensor it runs ``_reference_ln``.  There is no other path.
+Counterpart of ``vtpu/ops/layernorm.py``.  ``fused_layernorm`` is
+differentiable: its forward launches the kernel on a CUDA tensor, for
+every row count, and runs ``_reference_ln`` on a CPU tensor; its
+backward is the exact gradient of ``_reference_ln``, taken from the
+reference by autograd as the JAX package's ``_ln_bwd`` takes its VJP
+(plain PyTorch: that backward is XLA there, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -30,9 +32,7 @@ def _reference_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
-def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis.  x: [..., d]; gamma/beta: [d]."""
+def _layernorm_forward(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return _reference_ln(x, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -63,6 +63,29 @@ def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     _build.check(err, "layernorm kernel")
     fused_layernorm.launches += 1
     return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return _layernorm_forward(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            a, g, b = (t.detach().requires_grad_() for t in (x, gamma, beta))
+            y = _reference_ln(a, g, b, ctx.eps)
+            dx, dg, db = torch.autograd.grad(y, (a, g, b), dy)
+        return dx, dg, db, None
+
+
+def fused_layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis.  x: [..., d]; gamma/beta: [d]."""
+    return _LayerNorm.apply(x, gamma, beta, eps)
 
 
 fused_layernorm.launches = 0
