@@ -7,7 +7,11 @@ NVIDIA GPU.
 Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card's name and power limit (nvidia-smi), and the build of the
-   CUDA kernels from ``vtpu_torch/csrc`` (nvcc, sm_90a) with its seconds;
+   CUDA kernels from ``vtpu_torch/csrc`` (nvcc, sm_90a) with its seconds
+   and, for each flash kernel, its registers and spill bytes (ptxas -v)
+   and its count of tensor-core instructions (HMMA / HGMMA in
+   ``cuobjdump -sass``); the tensor-core kernels must have some and
+   spill nothing;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it: max abs error against the stated
    tolerance, kernel/plain/library times (CUDA events, median of 30
@@ -30,15 +34,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    heads, 8 kv heads, s 4096, hd 128, causal) in bf16 and f32, with the
    library time of scaled_dot_product_attention and of its backward, and
    correctness rows at s 1024 (window 256, shift -1 with f32 o, ragged
-   s 1000);
+   s 1000); ``err_to_tol`` is the worst output's error over its own
+   tolerance (dk and dv each against their own scale);
 6. the training path at full width (the same widths, attn_window 4096,
    depth 16, bf16, b 2 x s 4096): TransformerLM(tokens, decode=False),
    lm_loss, backward and torch.optim.Adam(lr=1e-4), 4 steps on one
    seeded batch -- loss, step ms, tokens/s, peak memory and the launch
    counts of every step -- then torch.profiler over one more step;
-7. training exactness: depth 2, f32, b 1 x s 1024, the kernel path
-   against clone(flash_kernel="off", ln_kernel="off"): loss within 1e-5
-   relative, every grad within 1e-4 of its max |grad|.
+7. training exactness: depth 2, b 1 x s 1024, the kernel path against
+   clone(flash_kernel="off", ln_kernel="off"); in f32 the loss within
+   1e-5 relative and every grad within 1e-4 of its max |grad|; in bf16
+   (where the tensor-core kernels round p and dS to bf16) the loss within
+   1e-2 relative and every grad's cosine similarity with the plain
+   path's at least 0.99.
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -52,6 +60,8 @@ import argparse
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -117,6 +127,63 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_ops = ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# -- phase 0: what the build made ------------------------------------------
+TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dkv_tc")
+
+
+def _short(mangled: str, names: dict) -> str:
+    """``flash_fwd_tc<128>``-style name of a mangled kernel symbol."""
+    name = names.get(mangled, mangled).replace("(anonymous namespace)::", "")
+    return name.split("(")[0].replace("void ", "")
+
+
+def flash_build_report(build_log: str, lib_path: str, nvcc_dir: str) -> dict:
+    """Registers and spill bytes (from ptxas -v in ``build_log``) and
+    tensor-core instruction counts (HMMA / HGMMA in ``cuobjdump -sass``
+    of ``lib_path``) of every flash kernel, keyed by its short name."""
+    ptx, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if "flash" in m.group(1) else None
+            if cur:
+                ptx[cur] = {"registers": None, "spill_bytes": None}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            ptx[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            ptx[cur]["registers"] = int(m.group(1))
+    tc = {}
+    tool = os.path.join(nvcc_dir, "cuobjdump")
+    if lib_path and os.path.exists(tool):
+        res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                             text=True, timeout=300)
+        cur = None
+        for line in res.stdout.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = m.group(1) if "flash" in m.group(1) else None
+                if cur:
+                    tc[cur] = 0
+            elif cur and re.search(r"\bHG?MMA\b", line):
+                tc[cur] += 1
+    names = {}
+    filt = shutil.which("c++filt")
+    syms = sorted(set(ptx) | set(tc))
+    if filt and syms:
+        res = subprocess.run([filt], input="\n".join(syms),
+                             capture_output=True, text=True, timeout=60)
+        names = dict(zip(syms, res.stdout.splitlines()))
+    return {_short(sym, names): dict(ptx.get(sym, {}),
+                                     tensor_core_ops=tc.get(sym))
+            for sym in syms}
 
 
 # -- phase 1: kernels against their plain versions ------------------------
@@ -340,7 +407,9 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
                    kv_heads=k.shape[1], s=s, hd=hd, causal=causal,
                    shift=shift, window=window, dtype=dt,
                    out_dtype=str(g.dtype).split(".")[1],
-                   max_abs_err=max(errs), tol=min(tols), card=card)
+                   max_abs_err=max(errs), tol=min(tols),
+                   err_to_tol=max(e / t for e, t in zip(errs, tols)),
+                   card=card)
         if name == "flash_forward":
             row["lse_rel_err"] = lse_err
         if time_it:
@@ -701,14 +770,17 @@ def train_phase(card: str, seed: int) -> dict:
 
 
 # -- phase 7: training exactness ------------------------------------------
-def train_exactness_phase(card: str, seed: int) -> None:
+def _kernel_and_plain_grads(seed: int, dtype):
+    """Depth 2, b 1 x s 1024: the loss on the kernel path and on
+    clone(flash_kernel="off", ln_kernel="off"), and each parameter's
+    gradient on both, as (loss_k, loss_p, {name: (grad_k, grad_p)})."""
     import torch
 
     from vtpu_torch.models.transformer import TransformerLM, lm_loss
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = TransformerLM(**dict(TRAIN, depth=2), device="cuda",
-                          dtype=torch.float32, generator=gen)
+                          dtype=dtype, generator=gen)
     tokens = torch.randint(0, TRAIN["vocab"], (1, 1024), device="cuda",
                            generator=gen, dtype=torch.int32)
     loss_k = lm_loss(model(tokens, decode=False), tokens)
@@ -718,12 +790,19 @@ def train_exactness_phase(card: str, seed: int) -> None:
     plain = model.clone(flash_kernel="off", ln_kernel="off")
     loss_p = lm_loss(plain(tokens, decode=False), tokens)
     loss_p.backward()
-    loss_k, loss_p = loss_k.item(), loss_p.item()
+    pairs = {n: (grads[n], p.grad) for n, p in model.named_parameters()}
+    return loss_k.item(), loss_p.item(), pairs
+
+
+def train_exactness_phase(card: str, seed: int) -> None:
+    import torch
+
+    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.float32)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = ("", 0.0)
-    for n, p in model.named_parameters():
-        scale = float(p.grad.abs().max())
-        rel = float((grads[n] - p.grad).abs().max()) / scale if scale else 0.0
+    for n, (got, ref) in pairs.items():
+        scale = float(ref.abs().max())
+        rel = float((got - ref).abs().max()) / scale if scale else 0.0
         if rel >= worst[1]:
             worst = (n, rel)
     emit(phase="train_exactness", depth=2, dtype="float32", batch=[1, 1024],
@@ -733,7 +812,37 @@ def train_exactness_phase(card: str, seed: int) -> None:
     check(loss_rel <= 1e-5, f"train exactness: loss rel err {loss_rel}")
     check(worst[1] <= 1e-4, f"train exactness: grad {worst[0]} rel err "
                             f"{worst[1]}")
-    del model, plain, grads
+    del pairs
+    torch.cuda.empty_cache()
+
+
+def train_exactness_bf16_phase(card: str, seed: int) -> None:
+    """The same comparison in bf16, where the tensor-core kernels round p
+    and dS to bf16: the loss within 1e-2 relative and each gradient's
+    cosine similarity with the plain path's at least 0.99 (parameters
+    whose plain gradient is all zero are skipped and listed)."""
+    import torch
+
+    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.bfloat16)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosine, skipped = {}, []
+    for n, (got, ref) in pairs.items():
+        got, ref = got.double(), ref.double()
+        if not bool(ref.any()):
+            skipped.append(n)
+            continue
+        cosine[n] = float((got * ref).sum()
+                          / (got.norm() * ref.norm()).clamp_min(1e-300))
+    worst = min(cosine, key=cosine.get)
+    emit(phase="train_exactness", depth=2, dtype="bfloat16",
+         batch=[1, 1024], loss_kernel=loss_k, loss_plain=loss_p,
+         loss_rel_err=loss_rel, grad_cosine=cosine, worst_grad=worst,
+         worst_grad_cosine=cosine[worst], skipped_zero_grads=skipped,
+         card=card)
+    check(loss_rel <= 1e-2, f"bf16 train exactness: loss rel err {loss_rel}")
+    check(cosine[worst] >= 0.99, f"bf16 train exactness: grad {worst} "
+                                 f"cosine {cosine[worst]}")
+    del pairs
     torch.cuda.empty_cache()
 
 
@@ -761,10 +870,20 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     _build.lib()
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         built_now=_build.build_seconds is not None, card=card)
+    build_s = time.perf_counter() - t0
+    report = flash_build_report(_build.build_log, _build.lib_path,
+                                os.path.dirname(_build._nvcc()))
+    emit(phase="build", seconds=build_s,
+         built_now=_build.build_seconds is not None, flash_kernels=report,
+         card=card)
     if _build.build_log:
         print(_build.build_log, file=sys.stderr)
+    for name in TENSOR_CORE_KERNELS:
+        rows = [r for k, r in report.items() if name in k]
+        check(bool(rows) and all(r.get("tensor_core_ops") for r in rows),
+              f"{name}: no tensor-core instructions in its SASS ({rows})")
+        check(all(r.get("spill_bytes") == 0 for r in rows),
+              f"{name}: ptxas reports spills ({rows})")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {"fused_layernorm": layernorm_phase(card, gen),
@@ -778,6 +897,7 @@ def main() -> int:
     for k, v in train_phase(card, args.seed).items():
         launches[k] = launches.get(k, 0) + v
     train_exactness_phase(card, args.seed)
+    train_exactness_bf16_phase(card, args.seed)
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",
@@ -786,11 +906,11 @@ def main() -> int:
                          "vtpu/ops/paged_attention.py:74"),
         "paged_decode_q8": ("vtpu_torch/csrc/paged_attention.cu",
                             "vtpu/ops/paged_attention.py:87"),
-        "flash_forward": ("vtpu_torch/csrc/flash_attention.cu",
+        "flash_forward": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:48"),
         "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention.cu",
                          "vtpu/ops/attention.py:91"),
-        "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention.cu",
+        "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:130"),
     }
     kernels = []

@@ -133,25 +133,89 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     _flash_kernels_match_plain(cuda_card, gen)
 
 
+FLASH_SHAPES = [  # q shape, kv heads, causal, shift, window, o dtype
+    ((2, 8, 256, 128), 2, True, 0, 0, None),
+    ((192, 64), 1, False, 0, 0, None),
+    ((1, 4, 200, 64), 4, True, 0, 0, None),
+    ((1, 4, 300, 32), 1, True, 0, 70, None),
+    ((1, 2, 256, 128), 2, True, -1, 0, torch.float32),
+    ((1, 2, 130, 40), 2, False, 0, 0, None)]
+
+
+def _flash_inputs(dev, gen, q_shape, n_kv, dtype=torch.float32, s_k=None):
+    kv_shape = q_shape if len(q_shape) == 2 else (
+        q_shape[0], n_kv, *q_shape[2:])
+    if s_k is not None:
+        kv_shape = (*kv_shape[:-2], s_k, kv_shape[-1])
+    q, do = (torch.randn(q_shape, device=dev, generator=gen).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(kv_shape, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps at want's scale (its largest
+    magnitude), as chip_smoke.py's tolerance counts them."""
+    want = want.float()
+    scale = want.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale else 1.0
+    return (got.float() - want).abs().max().item() / ulp
+
+
+def _flash_bf16_kernels_match_plain(dev, gen):
+    """The bf16 kernels (the tensor-core forward and dk/dv, the CUDA-core
+    dq) on the shapes above, less the f32-o row, which stays on the
+    CUDA-core forward, plus s 1000 at hd 128, head dims that take the
+    plain-load staging (36, and 33 under shift -1), a window under
+    shift -1 with GQA, fewer queries than keys, and a q that is not
+    16-byte aligned: o, dq, dk and dv within two bf16 ulps at the
+    output's scale, lse within 2e-5 relative."""
+    shapes = [s for s in FLASH_SHAPES if s[-1] is None]
+    shapes += [((1, 4, 1000, 128), 2, True, 0, 0, None),
+               ((1, 2, 150, 36), 1, True, 0, 0, None),
+               ((1, 2, 77, 33), 2, True, -1, 0, None)]
+    shapes.append(((2, 8, 333, 128), 2, True, -1, 100, None))
+    for q_shape, n_kv, causal, shift, window, _out in shapes:
+        _check_bf16(*_flash_inputs(dev, gen, q_shape, n_kv, torch.bfloat16),
+                    (causal, shift, window))
+    _check_bf16(*_flash_inputs(dev, gen, (1, 4, 100, 64), 2, torch.bfloat16,
+                               s_k=300), (False, 0, 0))
+    q, k, v, do = _flash_inputs(dev, gen, (1, 2, 256, 64), 1,
+                                torch.bfloat16)
+    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:]
+    q_off = q_off.view(q.shape).copy_(q)
+    assert q_off.data_ptr() % 16 != 0
+    _check_bf16(q_off, k, v, do, (True, 0, 0))
+
+
+def _check_bf16(q, k, v, do, cfg):
+    from vtpu_torch.ops import attention as tat
+
+    what = (tuple(q.shape), tuple(k.shape), cfg)
+    o, lse = tat.flash_forward(q, k, v, *cfg)
+    ro, rlse = tat.flash_attention_reference(q, k, v, *cfg)
+    assert o.dtype == torch.bfloat16
+    assert _bf16_ulps(o, ro) <= 2, what
+    assert ((lse - rlse).abs() / rlse.abs().clamp_min(1)).max() <= 2e-5
+    delta = (do.float() * ro.float()).sum(-1, keepdim=True)
+    dq = tat.flash_bwd_dq(q, k, v, do, rlse, delta, *cfg)
+    rdq = tat.flash_bwd_dq_reference(q, k, v, do, rlse, delta, *cfg)
+    assert _bf16_ulps(dq, rdq) <= 2, what
+    dk, dv = tat.flash_bwd_dkv(q, k, v, do, rlse, delta, *cfg)
+    rdk, rdv = tat.flash_bwd_dkv_reference(q, k, v, do, rlse, delta, *cfg)
+    assert _bf16_ulps(dk, rdk) <= 2, what
+    assert _bf16_ulps(dv, rdv) <= 2, what
+
+
 def _flash_kernels_match_plain(dev, gen):
     """Forward, dq and dk/dv against their plain versions in f32: GQA,
     MHA in 2D, a ragged length, a window, the strict mask (shift -1, f32
-    o) and head dims below and at the widest tile."""
+    o) and head dims below and at the widest tile; then the bf16 pass."""
     from vtpu_torch.ops import attention as tat
 
-    for q_shape, n_kv, causal, shift, window, out in [
-            ((2, 8, 256, 128), 2, True, 0, 0, None),
-            ((192, 64), 1, False, 0, 0, None),
-            ((1, 4, 200, 64), 4, True, 0, 0, None),
-            ((1, 4, 300, 32), 1, True, 0, 70, None),
-            ((1, 2, 256, 128), 2, True, -1, 0, torch.float32),
-            ((1, 2, 130, 40), 2, False, 0, 0, None)]:
-        kv_shape = q_shape if len(q_shape) == 2 else (
-            q_shape[0], n_kv, *q_shape[2:])
-        q, do = (torch.randn(q_shape, device=dev, generator=gen)
-                 for _ in range(2))
-        k, v = (torch.randn(kv_shape, device=dev, generator=gen)
-                for _ in range(2))
+    for q_shape, n_kv, causal, shift, window, out in FLASH_SHAPES:
+        q, k, v, do = _flash_inputs(dev, gen, q_shape, n_kv)
         cfg = (causal, shift, window)
         o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=out)
         ro, rlse = tat.flash_attention_reference(q, k, v, *cfg,
@@ -167,6 +231,7 @@ def _flash_kernels_match_plain(dev, gen):
                                                *cfg)
         assert (dk - rdk).abs().max() <= 1e-4 * rdk.abs().max()
         assert (dv - rdv).abs().max() <= 1e-4 * rdv.abs().max()
+    _flash_bf16_kernels_match_plain(dev, gen)
     # shapes the kernels would read out of bounds raise instead
     q = torch.randn(2, 4, 64, 32, device=dev, generator=gen)
     k = torch.randn(2, 2, 64, 32, device=dev, generator=gen)

@@ -1,6 +1,17 @@
-// Flash attention for Hopper (sm_90a): the forward (o and the per-row
-// logsumexp) and the two backward kernels (dq; dk and dv), over f32 or
-// bf16 inputs, f32 accumulation.
+// Flash attention on the CUDA cores (sm_90a): the forward (o and the
+// per-row logsumexp) and the two backward kernels (dq; dk and dv), f32
+// arithmetic throughout.  The entries this source still serves:
+//
+//   vtpu_flash_fwd_f32, vtpu_flash_fwd_bf16_f32out      (flash_fwd)
+//   vtpu_flash_bwd_dq_f32, vtpu_flash_bwd_dq_bf16       (flash_bwd_dq)
+//   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
+//
+// The bf16 -> bf16 forward and dk/dv, the training path's dtype, run on
+// the tensor cores in flash_attention_sm90.cu.  The f32 entries stay
+// here because the f32 exactness checks rely on f32 products (TF32
+// tensor cores would not meet them); the f32-out forward stays because
+// its f32 o is held at 2e-5, which a kernel that rounds p to bf16
+// cannot meet; dq is next in line for the tensor cores.
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
 //   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
@@ -30,11 +41,9 @@
 // s 4096, hd 128 the forward does about 2*b*H*s^2*hd = 2.7e11 flops
 // (QK^T and PV over the kept half), dq 1.5x that (QK^T, dO V^T, dS K)
 // and dk/dv 2x (QK^T, dO V^T, P^T dO, dS^T Q); the bytes (q, k, v, o
-// once) are ~0.2 GB, 0.06 ms at 3.35 TB/s.  Against the bf16 tensor-core
-// peak (989 TFLOP/s) the forward's bound is 0.28 ms.  This first design
-// multiplies on the CUDA cores in f32, so its own ceiling is the f32
-// rate (67 TFLOP/s, ~4.1 ms for the forward); wgmma with TMA-fed tiles
-// is the later step to the tensor-core bound.  What the design does:
+// once) are ~0.2 GB, 0.06 ms at 3.35 TB/s.  These kernels multiply on
+// the CUDA cores in f32, so their own ceiling is the f32 rate
+// (67 TFLOP/s, ~4.1 ms for the forward).  What the design does:
 //
 //  - Tiles of 64 query rows by 64 keys staged in shared memory as f32
 //    (rows padded by 4 floats so the 16-byte reads of 8 neighbouring
@@ -61,59 +70,20 @@
 
 #include <initializer_list>
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
+
+using vtpu::flash::kNegInf;
+using vtpu::flash::Problem;
+using vtpu::flash::keep;
+using vtpu::flash::kv_range;
+using vtpu::flash::make_problem;
+using vtpu::flash::q_range;
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kTile = 64;      // query rows and keys per tile
 constexpr int kPS = kTile + 4; // row stride of the staged P / dS tiles
-constexpr float kNegInf = -1e30f;
-
-struct Problem {
-  int g;            // query heads per kv head
-  int seq_q, seq_k, hd;
-  int causal, shift, window;
-  float sm_scale;
-};
-
-__device__ __forceinline__ bool keep(const Problem& P, int q, int k) {
-  if (q >= P.seq_q || k >= P.seq_k) return false;
-  if (!P.causal) return true;
-  const int qp = q + P.shift;
-  return k <= qp && (P.window <= 0 || k > qp - P.window);
-}
-
-// kv tiles [lo, hi) that can hold a kept key for rows [q0, q0 + kTile)
-__device__ __forceinline__ void kv_range(const Problem& P, int q0, int& lo,
-                                         int& hi) {
-  const int n = (P.seq_k + kTile - 1) / kTile;
-  lo = 0;
-  hi = n;
-  if (!P.causal) return;
-  const int last = min(q0 + kTile - 1, P.seq_q - 1) + P.shift;
-  hi = last < 0 ? 0 : min(n, last / kTile + 1);
-  if (P.window > 0) {
-    const int first = q0 + P.shift - P.window + 1;
-    lo = first <= 0 ? 0 : first / kTile;
-  }
-}
-
-// q tiles [lo, hi) that can hold a kept row for keys [k0, k0 + kTile)
-__device__ __forceinline__ void q_range(const Problem& P, int k0, int& lo,
-                                        int& hi) {
-  const int n = (P.seq_q + kTile - 1) / kTile;
-  lo = 0;
-  hi = n;
-  if (!P.causal) return;
-  const int first = k0 - P.shift;
-  lo = first <= 0 ? 0 : min(n, first / kTile);
-  if (P.window > 0) {
-    const int last = min(k0 + kTile - 1, P.seq_k - 1) - P.shift +
-                     P.window - 1;
-    hi = last < 0 ? 0 : min(n, last / kTile + 1);
-  }
-}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -298,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   int lo, hi;
-  kv_range(P, q0, lo, hi);
+  kv_range(P, q0, kTile, kTile, lo, hi);
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's K, V and P are consumed
@@ -385,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
   int lo, hi;
-  kv_range(P, q0, lo, hi);
+  kv_range(P, q0, kTile, kTile, lo, hi);
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
@@ -447,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       dv_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   int lo, hi;
-  q_range(P, k0, lo, hi);
+  q_range(P, k0, kTile, kTile, lo, hi);
   for (int h = 0; h < P.g; ++h) {
     const int n = nk * P.g + h;
     const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
@@ -499,22 +469,6 @@ template <int HD>
 constexpr size_t smem_dkv() {
   return sizeof(float) *
          (4 * kTile * (HD + 4) + 2 * kTile * kPS + 2 * kTile);
-}
-
-bool make_problem(Problem& P, int n_q, int g, int seq_q, int seq_k, int hd,
-                  int causal, int shift, int window, float sm_scale) {
-  if (n_q <= 0 || g <= 0 || n_q % g != 0 || seq_q <= 0 || seq_k <= 0 ||
-      hd <= 0 || hd > 128 || n_q > 65535 || window < 0)
-    return false;
-  P.g = g;
-  P.seq_q = seq_q;
-  P.seq_k = seq_k;
-  P.hd = hd;
-  P.causal = causal;
-  P.shift = shift;
-  P.window = window;
-  P.sm_scale = sm_scale;
-  return true;
 }
 
 template <typename T>
@@ -658,9 +612,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   }
 
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, float, float)
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16, __nv_bfloat16, __nv_bfloat16)
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, __nv_bfloat16, float)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, float)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_bf16, __nv_bfloat16)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, float)
-VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_bf16, __nv_bfloat16)

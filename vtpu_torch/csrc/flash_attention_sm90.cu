@@ -1,0 +1,649 @@
+// Flash attention on Hopper's tensor cores (sm_90a), bf16 inputs and
+// bf16 outputs with f32 accumulation: the forward (o and the per-row
+// logsumexp) and the dk/dv backward, the training path's two heaviest
+// kernels.  The entries and the Pallas TPU kernels of
+// vtpu/ops/attention.py they replace:
+//
+//   vtpu_flash_fwd_bf16      flash_fwd_tc <- _attn_kernel (_flash_2d)
+//   vtpu_flash_bwd_dkv_bf16  flash_dkv_tc <- _attn_bwd_dkv_kernel
+//                                            (_flash_bwd_2d)
+//
+// The f32 entries, the bf16 -> f32-out forward and both dq entries stay
+// on the CUDA-core kernels of flash_attention.cu.  Layouts, masks and
+// numerics are that file's: q, o, do [N, seq_q, hd]; k, v, dk, dv
+// [N / g, seq_k, hd]; lse, delta [N, seq_q] f32; query head n reads kv
+// head n / g; m starts at -1e30, a masked p is forced to 0, l is clamped
+// at 1e-30, lse = m + log(l) in natural log.  Every sequence length,
+// window, shift 0 / -1, non-causal and hd <= 128 runs these kernels.
+//
+// What bounds them on an H100: operations.  The forward does 4 * hd
+// flops per kept (query, key) pair (Q K^T and P V), dk/dv 8 * hd (Q K^T,
+// dO V^T, P^T dO, dS^T Q).  Causal at b 2, H 32, s 4096, hd 128 that is
+// 537,001,984 kept pairs: 2.7e11 flops for the forward, 0.28 ms at the
+// 989 TFLOP/s bf16 tensor-core peak, and 0.56 ms for dk/dv; their bytes
+// (q, k, v, o, do, lse, delta once each) take ~0.06 ms at 3.35 TB/s.
+// What the design does about it:
+//
+//  - Products on the tensor cores: mma.sync m16n8k16 bf16 with f32
+//    accumulators, operands brought from shared memory by ldmatrix
+//    (.trans for V in P V, dO in P^T dO and Q in dS^T Q).  Tiles are
+//    staged in bf16, not widened (a 64 x 128 tile is 17 KB with its
+//    padding); each row is padded by 16 bytes so the eight 16-byte rows
+//    of one ldmatrix fall on distinct banks.
+//  - P and dS never touch shared memory: the m16n8 accumulator layout is
+//    the A-operand layout of m16n8k16, so they are rounded to bf16 pairs
+//    in registers and fed to the next product (FlashAttention-2's
+//    register reuse).
+//  - Online softmax on the fragments: each thread holds two rows of its
+//    warp's 16-row slab, so a row max is two quad shuffles; the row sum
+//    stays per thread until the end.  Scores are scaled by
+//    sm_scale * log2(e), so p = exp2(s - m) is one FMA and one MUFU op,
+//    and lse returns to natural log at the end.
+//  - An asynchronous ring of three stages (cp.async.cg 16-byte copies,
+//    one commit group a tile): tiles t + 1 and t + 2 are in flight while
+//    tile t is multiplied, and one barrier a tile both publishes tile t
+//    and frees the stage of tile t - 1 for the next copy.  K/V tiles for
+//    the forward; Q, dO, lse and delta tiles for dk/dv.  Rows past the
+//    end and columns past hd arrive as zeros.  Where hd % 8 != 0 or a
+//    pointer is not 16-byte aligned, the same tiles are staged by plain
+//    loads instead.
+//  - Masks only where needed: keep() runs on a warp's tile only when the
+//    tile straddles the causal diagonal, the window edge or the ragged
+//    end; tiles wholly outside the band are skipped with the reference's
+//    bounds (kv_range, q_range in flash_common.cuh).
+//  - Forward: one block of 8 warps per (128-row q tile, query head),
+//    16 rows a warp with its Q fragments held in registers, 64-key K/V
+//    tiles.  dk/dv: one block of 4 warps per (64-key tile, kv head),
+//    16 keys a warp, K and V resident in shared memory, looping over the
+//    g query heads of its group and their 32-row q tiles with dk and dv
+//    summed in registers and written once (no atomics).  32-row q tiles
+//    keep dk, dv (128 f32 a thread at hd 128) and the score fragments
+//    within the register file without spills.
+//  - Heavy first: under causal masking the forward's last q tiles and
+//    dk/dv's first k tiles do the most work; block indices map them to
+//    the first blocks launched, across heads, so the grid's tail is the
+//    light tiles.
+
+#include <climits>
+#include <initializer_list>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using vtpu::flash::all_kept;
+using vtpu::flash::keep;
+using vtpu::flash::kNegInf;
+using vtpu::flash::kv_range;
+using vtpu::flash::make_problem;
+using vtpu::flash::Problem;
+using vtpu::flash::q_range;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int kFwdThreads = 256;  // 8 warps x 16 query rows
+constexpr int kFwdM = 128;        // query rows per block
+constexpr int kFwdN = 64;         // keys per K/V tile
+constexpr int kDkvThreads = 128;  // 4 warps x 16 keys
+constexpr int kDkvN = 64;         // keys per block
+constexpr int kDkvQ = 32;         // query rows per Q/dO tile
+constexpr int kStages = 3;        // ring depth: two tiles in flight
+
+// -- PTX -------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, col-major): bf16, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 (or 4) bytes global -> shared, zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// -- staging ---------------------------------------------------------------
+// Stage rows [row0, row0 + ROWS) of a [rows, hd] bf16 matrix as ROWS rows
+// of HD columns (row stride HD + 8), zero past `rows` and past hd.  vec:
+// 16-byte cp.async copies; else plain loads (hd % 8 != 0 or unaligned).
+template <int ROWS, int HD, int NTHREADS>
+__device__ __forceinline__ void stage_tile(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int row0, int rows, int hd,
+                                           bool vec) {
+  constexpr int S = HD + 8;
+  if (vec) {
+    constexpr int CH = HD / 8;  // 16-byte chunks a row
+    constexpr int N = ROWS * CH;
+#pragma unroll
+    for (int it = 0; it < (N + NTHREADS - 1) / NTHREADS; ++it) {
+      const int i = threadIdx.x + it * NTHREADS;
+      if (N % NTHREADS != 0 && i >= N) break;
+      const int r = i / CH, c = (i % CH) * 8;
+      const int row = row0 + r;
+      const bool ok = row < rows && c < hd;
+      cp_async16(smem_u32(dst + r * S + c),
+                 ok ? src + static_cast<size_t>(row) * hd + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HD; i += NTHREADS) {
+      const int r = i / HD, c = i % HD;
+      const int row = row0 + r;
+      dst[r * S + c] = row < rows && c < hd
+                           ? src[static_cast<size_t>(row) * hd + c]
+                           : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// lse and delta of rows [row0, row0 + kDkvQ) into dst[0..Q) and
+// dst[Q..2Q), zero past `rows`
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           int row0, int rows) {
+  for (int i = threadIdx.x; i < 2 * kDkvQ; i += kDkvThreads) {
+    const float* src = i < kDkvQ ? lse : delta;
+    const int row = row0 + i % kDkvQ;
+    const bool ok = row < rows;
+    cp_async4(smem_u32(dst + i), ok ? src + row : src, ok);
+  }
+}
+
+// (a, b) as bf16 into columns col, col + 1 of row `row` of a [rows, hd]
+// matrix, dropping what lies outside it
+__device__ __forceinline__ void store_pair(bf16* __restrict__ dst, int row,
+                                           int col, float a, float b,
+                                           int rows, int hd) {
+  if (row >= rows || col >= hd) return;
+  bf16* p = dst + static_cast<size_t>(row) * hd + col;
+  if (hd % 2 == 0) {  // col is even, so col + 1 < hd and p is 4-aligned
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16_rn(a);
+    if (col + 1 < hd) p[1] = __float2bfloat16_rn(b);
+  }
+}
+
+// -- forward ---------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, Problem P, int n_q, bool vec) {
+  constexpr int S = HD + 8;   // staged row stride, elements
+  constexpr int RB = 2 * S;   // and bytes
+  constexpr int KT = HD / 16; // k-steps of Q K^T
+  constexpr int NT = HD / 8;  // 8-column tiles of o
+  constexpr int JT = kFwdN / 8;
+  extern __shared__ uint4 smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Ks = Qs + kFwdM * S;            // kStages stages of kFwdN rows
+  bf16* Vs = Ks + kStages * kFwdN * S;  // kStages stages of kFwdN rows
+
+  // heavy first: under causal masking the last q tiles see the most keys
+  const int tiles = (P.seq_q + kFwdM - 1) / kFwdM;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * kFwdM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w0 = q0 + warp * 16;       // the warp's 16 rows
+  const int r0 = w0 + lane / 4;        // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);       // and columns c2, c2 + 1 of a tile
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, kFwdM, kFwdN, lo, hi);
+  // K/V tile t into ring stage st (nothing past hi)
+  auto stage = [&](int t, int st) {
+    if (t >= hi) return;
+    stage_tile<kFwdN, HD, kFwdThreads>(Ks + st * kFwdN * S, kb, t * kFwdN,
+                                       P.seq_k, P.hd, vec);
+    stage_tile<kFwdN, HD, kFwdThreads>(Vs + st * kFwdN * S, vb, t * kFwdN,
+                                       P.seq_k, P.hd, vec);
+  };
+  // one commit group per tile: Q rides with the first
+  stage_tile<kFwdM, HD, kFwdThreads>(Qs, q + q_off, q0, P.seq_q, P.hd, vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage(lo + i, i);
+    cp_commit();
+  }
+  cp_wait<kStages - 2>();
+  __syncthreads();
+
+  uint32_t qf[KT][4];  // the warp's rows of Q as A fragments
+  {
+    const uint32_t a =
+        smem_u32(Qs) + (warp * 16 + lane % 16) * RB + (lane / 16) * 16;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) ldsm_x4(qf[kk], a + kk * 32);
+  }
+  // ldmatrix row addresses: K as the col-major B of Q K^T, V transposed
+  // as the B of P V (both stored keys x hd)
+  const uint32_t k_lane =
+      ((lane % 8) + (lane / 16) * 8) * RB + ((lane / 8) % 2) * 16;
+  const uint32_t v_lane =
+      ((lane % 8) + ((lane / 8) % 2) * 8) * RB + (lane / 16) * 16;
+  constexpr uint32_t kStage = kFwdN * RB;
+  const uint32_t ks = smem_u32(Ks) + k_lane, vs = smem_u32(Vs) + v_lane;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sc = P.sm_scale * kLog2e;
+
+  for (int t = lo, st = 0; t < hi;
+       ++t, st = st + 1 < kStages ? st + 1 : 0) {
+    cp_wait<kStages - 2>();
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copy takes
+    __syncthreads();
+    stage(t + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    cp_commit();
+
+    float s[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + st * kStage + j * 16 * RB + kk * 32);
+        mma(s[2 * j], qf[kk], b[0], b[1]);
+        mma(s[2 * j + 1], qf[kk], b[2], b[3]);
+      }
+
+    const int k0 = t * kFwdN;
+    const bool full = all_kept(P, w0, 16, k0, kFwdN);
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+    } else {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = keep(P, r0 + (e / 2) * 8, k0 + 8 * j + c2 + e % 2)
+                        ? s[j][e] * sc
+                        : kNegInf;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p =
+            full || x > kNegInf * 0.5f ? exp2f(x - m[e / 2]) : 0.f;
+        s[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // P as A fragments of P V, straight from the accumulators
+    uint32_t pa[JT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, vs + st * kStage + kk * 16 * RB + j * 32);
+        mma(acc[2 * j], pa[kk], b[0], b[1]);
+        mma(acc[2 * j + 1], pa[kk], b[2], b[3]);
+      }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float ls = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / ls;
+    const int row = r0 + 8 * h;
+    if (lane % 4 == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] =
+          (m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2) + logf(ls);
+  }
+  bf16* ob = o + q_off;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    store_pair(ob, r0, 8 * j + c2, acc[j][0] * inv[0], acc[j][1] * inv[0],
+               P.seq_q, P.hd);
+    store_pair(ob, r0 + 8, 8 * j + c2, acc[j][2] * inv[1],
+               acc[j][3] * inv[1], P.seq_q, P.hd);
+  }
+}
+
+// -- dk / dv ---------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 2)
+    flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, Problem P, int n_kv, bool vec) {
+  constexpr int S = HD + 8;
+  constexpr int RB = 2 * S;
+  constexpr int KT = HD / 16;   // k-steps of K Q^T and V dO^T
+  constexpr int NT = HD / 8;    // 8-column tiles of dk and dv
+  constexpr int JT = kDkvQ / 8; // 8-query tiles of S^T
+  extern __shared__ uint4 smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Vs = Ks + kDkvN * S;
+  bf16* Qs = Vs + kDkvN * S;             // kStages stages of kDkvQ rows
+  bf16* dOs = Qs + kStages * kDkvQ * S;  // kStages stages of kDkvQ rows
+  float* Rs = reinterpret_cast<float*>(dOs + kStages * kDkvQ * S);
+
+  // heavy first: under causal masking the first keys see the most rows
+  const int rank = blockIdx.x / n_kv, nk = blockIdx.x % n_kv;
+  const int k0 = rank * kDkvN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = k0 + warp * 16;   // the warp's 16 keys
+  const int kr = kw + lane / 4;    // this thread's keys kr, kr + 8
+  const int c2 = 2 * (lane % 4);   // and query columns c2, c2 + 1
+  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
+  stage_tile<kDkvN, HD, kDkvThreads>(Ks, k + kv_off, k0, P.seq_k, P.hd,
+                                     vec);
+  stage_tile<kDkvN, HD, kDkvThreads>(Vs, v + kv_off, k0, P.seq_k, P.hd,
+                                     vec);
+
+  int lo, hi;
+  q_range(P, k0, kDkvN, kDkvQ, lo, hi);
+  const int nt = max(hi - lo, 0), iters = P.g * nt;
+  // step i (query head nk * g + i / nt, q tile lo + i % nt) into ring
+  // stage st: Q, dO, and lse, delta (nothing past the last step)
+  auto stage = [&](int i, int st) {
+    if (i >= iters) return;
+    const int n = nk * P.g + i / nt;
+    const int q0 = (lo + i % nt) * kDkvQ;
+    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+    stage_tile<kDkvQ, HD, kDkvThreads>(Qs + st * kDkvQ * S, q + q_off, q0,
+                                       P.seq_q, P.hd, vec);
+    stage_tile<kDkvQ, HD, kDkvThreads>(dOs + st * kDkvQ * S, dout + q_off,
+                                       q0, P.seq_q, P.hd, vec);
+    stage_rows(Rs + st * 2 * kDkvQ, lse + r_off, delta + r_off, q0,
+               P.seq_q);
+  };
+  // one commit group per step: K and V ride with the first
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage(i, i);
+    cp_commit();
+  }
+
+  // ldmatrix row addresses: K and V as A (keys x hd); Q and dO as the
+  // col-major B of K Q^T and V dO^T, and transposed as the B of P^T dO
+  // and dS^T Q (all stored rows x hd)
+  const uint32_t a_lane = (warp * 16 + lane % 16) * RB + (lane / 16) * 16;
+  const uint32_t b_lane =
+      ((lane % 8) + (lane / 16) * 8) * RB + ((lane / 8) % 2) * 16;
+  const uint32_t t_lane =
+      ((lane % 8) + ((lane / 8) % 2) * 8) * RB + (lane / 16) * 16;
+  constexpr uint32_t kStage = kDkvQ * RB;
+  const uint32_t ka = smem_u32(Ks) + a_lane, va = smem_u32(Vs) + a_lane;
+  const uint32_t qs0 = smem_u32(Qs), ds0 = smem_u32(dOs);
+
+  float dka[NT][4], dva[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const float sc = P.sm_scale * kLog2e;
+
+  for (int i = 0, st = 0; i < iters;
+       ++i, st = st + 1 < kStages ? st + 1 : 0) {
+    cp_wait<kStages - 2>();
+    // step i's tiles have landed for every thread, and every warp is
+    // done with step i - 1, whose stage the next copy takes
+    __syncthreads();
+    stage(i + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    cp_commit();
+
+    const int q0 = (lo + i % nt) * kDkvQ;
+    const uint32_t qs = qs0 + st * kStage, dos = ds0 + st * kStage;
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x kDkvQ rows
+    float s[JT][4], dp[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a, ka + kk * 32);
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        ldsm_x4(b, qs + b_lane + j * 16 * RB + kk * 32);
+        mma(s[2 * j], a, b[0], b[1]);
+        mma(s[2 * j + 1], a, b[2], b[3]);
+      }
+      ldsm_x4(a, va + kk * 32);
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        ldsm_x4(b, dos + b_lane + j * 16 * RB + kk * 32);
+        mma(dp[2 * j], a, b[0], b[1]);
+        mma(dp[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta) sm_scale
+    const float* ls = Rs + st * 2 * kDkvQ;
+    const float* dl = ls + kDkvQ;
+    const bool full = all_kept(P, q0, kDkvQ, kw, 16);
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + c2 + e % 2;
+        float p = exp2f(s[j][e] * sc - ls[c] * kLog2e);
+        if (!full && !keep(P, q0 + c, kr + (e / 2) * 8)) p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl[c]) * P.sm_scale;
+      }
+    uint32_t pa[JT / 2][4], da[JT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      da[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      da[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      da[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      da[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    }
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, dos + t_lane + kk * 16 * RB + j * 32);
+        mma(dva[2 * j], pa[kk], b[0], b[1]);
+        mma(dva[2 * j + 1], pa[kk], b[2], b[3]);
+        ldsm_x4_t(b, qs + t_lane + kk * 16 * RB + j * 32);
+        mma(dka[2 * j], da[kk], b[0], b[1]);
+        mma(dka[2 * j + 1], da[kk], b[2], b[3]);
+      }
+  }
+  cp_wait<0>();  // with fewer steps than stages, copies may be in flight
+
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      store_pair(dk + kv_off, kr + 8 * h, 8 * j + c2, dka[j][2 * h],
+                 dka[j][2 * h + 1], P.seq_k, P.hd);
+      store_pair(dv + kv_off, kr + 8 * h, 8 * j + c2, dva[j][2 * h],
+                 dva[j][2 * h + 1], P.seq_k, P.hd);
+    }
+}
+
+// -- launch ----------------------------------------------------------------
+bool tc_vec(int hd, std::initializer_list<const void*> ptrs) {
+  if (hd % 8 != 0) return false;
+  for (const void* p : ptrs)
+    if (!vtpu::aligned16(p)) return false;
+  return true;
+}
+
+template <int HD>
+int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+           int n_q, const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_fwd_tc<HD>;
+  const size_t smem =
+      sizeof(bf16) * (HD + 8) * (kFwdM + 2 * kStages * kFwdN);
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks =
+      static_cast<long long>((P.seq_q + kFwdM - 1) / kFwdM) * n_q;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kFwdThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dk, void* dv,
+           int n_kv, const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_dkv_tc<HD>;
+  const size_t smem =
+      sizeof(bf16) * (HD + 8) * (2 * kDkvN + 2 * kStages * kDkvQ) +
+      sizeof(float) * 2 * kStages * kDkvQ;
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks =
+      static_cast<long long>((P.seq_k + kDkvN - 1) / kDkvN) * n_kv;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kDkvThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), P, n_kv, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int vtpu_flash_fwd_bf16(const void* q, const void* k,
+                                   const void* v, void* o, void* lse,
+                                   int n_q, int g, int seq_q, int seq_k,
+                                   int hd, int causal, int shift,
+                                   int window, float sm_scale,
+                                   void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tc_vec(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64 ? fwd_tc<64>(q, k, v, o, lse, n_q, P, vec, st)
+                  : fwd_tc<128>(q, k, v, o, lse, n_q, P, vec, st);
+}
+
+extern "C" int vtpu_flash_bwd_dkv_bf16(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int n_q, int g,
+                                       int seq_q, int seq_k, int hd,
+                                       int causal, int shift, int window,
+                                       float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tc_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_kv = n_q / g;
+  return hd <= 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, n_kv, P,
+                               vec, st)
+                  : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, n_kv, P,
+                                vec, st);
+}
