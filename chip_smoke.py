@@ -8,10 +8,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from ``vtpu_torch/csrc`` (nvcc, sm_90a) with its seconds
-   and, for each flash kernel, its registers and spill bytes (ptxas -v)
-   and its count of tensor-core instructions (HMMA / HGMMA in
-   ``cuobjdump -sass``); the tensor-core kernels must have some and
-   spill nothing;
+   and, for each flash kernel, its registers, stack bytes, local loads
+   and stores and tensor-core instructions (HMMA / HGMMA), all from one
+   ``cuobjdump -res-usage -sass`` of the library, so a reused build
+   reports the same; the tensor-core kernels must have some and spill
+   nothing;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it: max abs error against the stated
    tolerance, kernel/plain/library times (CUDA events, median of 30
@@ -61,7 +62,6 @@ import gc
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -133,57 +133,69 @@ def bound(nbytes: float, ops: float, dtype: str):
 TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dkv_tc")
 
 
-def _short(mangled: str, names: dict) -> str:
-    """``flash_fwd_tc<128>``-style name of a mangled kernel symbol."""
-    name = names.get(mangled, mangled).replace("(anonymous namespace)::", "")
-    return name.split("(")[0].replace("void ", "")
+def _short(sym: str) -> str:
+    """``flash_bwd_dq<bf16,128>``-style name of a mangled flash symbol."""
+    m = re.search(r"(flash_[a-z_]+?)I(\w+?)EE+v", sym)
+    if not m:
+        return sym
+    args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a.group(0), a.group(1))
+            for a in re.finditer(r"13__nv_bfloat16|f|Li(\d+)", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
-def flash_build_report(build_log: str, lib_path: str, nvcc_dir: str) -> dict:
-    """Registers and spill bytes (from ptxas -v in ``build_log``) and
-    tensor-core instruction counts (HMMA / HGMMA in ``cuobjdump -sass``
-    of ``lib_path``) of every flash kernel, keyed by its short name."""
-    ptx, cur = {}, None
-    for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+def parse_cuobjdump(text: str) -> dict:
+    """Per flash kernel in ``cuobjdump -res-usage -sass`` output:
+    ``registers`` and ``stack_bytes`` (REG and STACK; ptxas spills into
+    the stack frame), ``local_ops`` (LDL / STL in its SASS, the spill
+    loads and stores) and ``tensor_core_ops`` (HMMA / HGMMA)."""
+    out, row = {}, None
+    for line in text.splitlines():
+        # "Function name:" in the resource usage, "Function : name" in SASS
+        m = re.match(r"\s*Function\s*:?\s*(\S+?):?\s*$", line)
         if m:
-            cur = m.group(1) if "flash" in m.group(1) else None
-            if cur:
-                ptx[cur] = {"registers": None, "spill_bytes": None}
+            row = None
+            if "flash" in m.group(1):
+                row = out.setdefault(_short(m.group(1)), {
+                    "registers": None, "stack_bytes": None,
+                    "local_ops": 0, "tensor_core_ops": 0})
             continue
-        if cur is None:
+        if row is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            ptx[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            ptx[cur]["registers"] = int(m.group(1))
-    tc = {}
-    tool = os.path.join(nvcc_dir, "cuobjdump")
-    if lib_path and os.path.exists(tool):
-        res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                             text=True, timeout=300)
-        cur = None
-        for line in res.stdout.splitlines():
-            m = re.match(r"\s*Function : (\S+)", line)
+        for key, pat in (("registers", r"\bREG:(\d+)"),
+                         ("stack_bytes", r"\bSTACK:(\d+)")):
+            m = re.search(pat, line)
             if m:
-                cur = m.group(1) if "flash" in m.group(1) else None
-                if cur:
-                    tc[cur] = 0
-            elif cur and re.search(r"\bHG?MMA\b", line):
-                tc[cur] += 1
-    names = {}
-    filt = shutil.which("c++filt")
-    syms = sorted(set(ptx) | set(tc))
-    if filt and syms:
-        res = subprocess.run([filt], input="\n".join(syms),
-                             capture_output=True, text=True, timeout=60)
-        names = dict(zip(syms, res.stdout.splitlines()))
-    return {_short(sym, names): dict(ptx.get(sym, {}),
-                                     tensor_core_ops=tc.get(sym))
-            for sym in syms}
+                row[key] = int(m.group(1))
+        row["local_ops"] += bool(re.search(r"\b(LDL|STL)\b", line))
+        row["tensor_core_ops"] += bool(re.search(r"\bHG?MMA\b", line))
+    return out
+
+
+def flash_build_report(so_path: str, nvcc_dir: str) -> dict:
+    """:func:`parse_cuobjdump` of the loaded library: the same whether
+    this process built it or reused an earlier build."""
+    res = subprocess.run(
+        [os.path.join(nvcc_dir, "cuobjdump"), "-res-usage", "-sass", so_path],
+        capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump: {res.stderr.strip()}")
+    return parse_cuobjdump(res.stdout)
+
+
+def build_failures(report: dict) -> list:
+    """Each tensor-core kernel must be in the library, hold tensor-core
+    instructions and spill nothing (no stack frame, no LDL / STL)."""
+    bad = []
+    for name in TENSOR_CORE_KERNELS:
+        rows = {k: r for k, r in report.items() if name in k}
+        if not rows:
+            bad.append(f"{name}: not in the library")
+        for k, r in rows.items():
+            if not r["tensor_core_ops"]:
+                bad.append(f"{k}: no tensor-core instructions in its SASS")
+            if r["stack_bytes"] != 0 or r["local_ops"]:
+                bad.append(f"{k}: spills (stack {r['stack_bytes']} bytes, "
+                           f"{r['local_ops']} local loads/stores)")
+    return bad
 
 
 # -- phase 1: kernels against their plain versions ------------------------
@@ -869,21 +881,16 @@ def main() -> int:
     emit(phase="card", nvidia_smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    _build.lib()
+    so_path = _build.lib()._name
     build_s = time.perf_counter() - t0
-    report = flash_build_report(_build.build_log, _build.lib_path,
-                                os.path.dirname(_build._nvcc()))
+    report = flash_build_report(so_path, os.path.dirname(_build._nvcc()))
     emit(phase="build", seconds=build_s,
          built_now=_build.build_seconds is not None, flash_kernels=report,
          card=card)
     if _build.build_log:
         print(_build.build_log, file=sys.stderr)
-    for name in TENSOR_CORE_KERNELS:
-        rows = [r for k, r in report.items() if name in k]
-        check(bool(rows) and all(r.get("tensor_core_ops") for r in rows),
-              f"{name}: no tensor-core instructions in its SASS ({rows})")
-        check(all(r.get("spill_bytes") == 0 for r in rows),
-              f"{name}: ptxas reports spills ({rows})")
+    failures = build_failures(report)
+    check(not failures, "; ".join(failures))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {"fused_layernorm": layernorm_phase(card, gen),

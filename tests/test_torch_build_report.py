@@ -1,0 +1,133 @@
+"""``chip_smoke.py``'s report of the flash kernels in the built library.
+
+The report comes from ``cuobjdump -res-usage -sass`` of the library
+alone, so a library reused from an earlier build reports the same
+registers, spills and tensor-core instructions as a fresh one.  These
+tests feed it ``cuobjdump`` output in the tool's layout.
+"""
+
+import importlib.util
+import os
+import subprocess
+
+import pytest
+
+_PATH = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                     "chip_smoke.py")
+_spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+_NS_TC = "_ZN56_GLOBAL__N__32543659_23_flash_attention_sm90_cu_7f0596a5"
+_NS_CC = "_ZN51_GLOBAL__N__2949fed5_18_flash_attention_cu_393d3e2b"
+FWD_TC = (_NS_TC + "12flash_fwd_tcILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pf"
+          "N4vtpu5flash7ProblemEib")
+DKV_TC = (_NS_TC + "12flash_dkv_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKf"
+          "S5_PS1_S6_N4vtpu5flash7ProblemEib")
+DQ_BF16 = (_NS_CC + "12flash_bwd_dqI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_"
+           "PKfS6_PS2_N4vtpu5flash7ProblemEb")
+FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
+              "N4vtpu5flash7ProblemEb")
+LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
+
+
+def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for four flash kernels and one
+    other kernel."""
+    usage = [" Function {}:".format(LN),
+             "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
+    sass = []
+    for sym, reg, stack, body in (
+            (FWD_TC, 240, 0, ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 3
+             if fwd_mma else ["FFMA R1, R2, R3, R1 ;"]),
+            (DKV_TC, 245, dkv_stack,
+             ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 2
+             + (["STL.64 [R1+0x8], R4 ;", "LDL.LU R5, [R1+0x8] ;"]
+                if dkv_spills else [])),
+            (DQ_BF16, 168, 0, ["FFMA R1, R2, R3, R1 ;"]),
+            (FWD_F32OUT, 128, 0, ["LDS.128 R4, [R2] ;"])):
+        usage += [" Function {}:".format(sym),
+                  "  REG:{} STACK:{} SHARED:0 LOCAL:0 CONSTANT[0]:612 "
+                  "TEXTURE:0 SURFACE:0 SAMPLER:0".format(reg, stack)]
+        sass += ["\t\tFunction : {}".format(sym),
+                 "\t.headerflags\t@\"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\""]
+        sass += ["        /*{:04x}*/  {}".format(16 * i, ins)
+                 for i, ins in enumerate(["LDC R1, c[0x0][0x28] ;", *body,
+                                          "EXIT ;"])]
+    return "\n".join(["", "Fatbin elf code:", "================",
+                      "arch = sm_90a", "", "Resource usage:", " Common:",
+                      "  GLOBAL:0", *usage, "", "Fatbin elf code:",
+                      "================", "arch = sm_90a", "", "\tcode for sm_90a",
+                      *sass, ""])
+
+
+@pytest.mark.parametrize("sym, short", [
+    (FWD_TC, "flash_fwd_tc<128>"),
+    (DKV_TC, "flash_dkv_tc<128>"),
+    (DQ_BF16, "flash_bwd_dq<bf16,128>"),
+    (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
+    ("not_a_mangled_name", "not_a_mangled_name"),
+])
+def test_short_names_of_the_mangled_kernels(sym, short):
+    assert chip_smoke._short(sym) == short
+
+
+def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
+    report = chip_smoke.parse_cuobjdump(_dump())
+    assert report == {
+        "flash_fwd_tc<128>": dict(registers=240, stack_bytes=0, local_ops=0,
+                                  tensor_core_ops=3),
+        "flash_dkv_tc<128>": dict(registers=245, stack_bytes=0, local_ops=0,
+                                  tensor_core_ops=2),
+        "flash_bwd_dq<bf16,128>": dict(registers=168, stack_bytes=0,
+                                       local_ops=0, tensor_core_ops=0),
+        "flash_fwd<bf16,f32,64>": dict(registers=128, stack_bytes=0,
+                                       local_ops=0, tensor_core_ops=0),
+    }
+    assert chip_smoke.build_failures(report) == []
+
+
+def test_a_spilling_tensor_core_kernel_fails_the_build_check():
+    report = chip_smoke.parse_cuobjdump(_dump(dkv_stack=16, dkv_spills=True))
+    row = report["flash_dkv_tc<128>"]
+    assert row["stack_bytes"] == 16 and row["local_ops"] == 2
+    (bad,) = chip_smoke.build_failures(report)
+    assert bad.startswith("flash_dkv_tc<128>: spills")
+
+
+def test_a_kernel_without_tensor_core_ops_or_missing_fails():
+    report = chip_smoke.parse_cuobjdump(_dump(fwd_mma=False))
+    assert chip_smoke.build_failures(report) == [
+        "flash_fwd_tc<128>: no tensor-core instructions in its SASS"]
+    del report["flash_dkv_tc<128>"]
+    assert "flash_dkv_tc: not in the library" in \
+        chip_smoke.build_failures(report)
+
+
+def test_a_report_without_resource_usage_is_not_taken_for_no_spills():
+    """SASS alone leaves the stack unknown, and unknown is not zero."""
+    text = _dump()
+    report = chip_smoke.parse_cuobjdump(text[text.index("code for sm_90a"):])
+    assert report["flash_fwd_tc<128>"]["stack_bytes"] is None
+    assert any("spills" in b for b in chip_smoke.build_failures(report))
+
+
+def test_the_report_needs_only_the_library(monkeypatch):
+    """No build log is read: a reused library (``build_log`` empty)
+    reports its spills all the same."""
+    from vtpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "build_log", "")
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(
+            cmd, 0, _dump(dkv_stack=16, dkv_spills=True), "")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    report = chip_smoke.flash_build_report("/lib/libk.so", "/cuda/bin")
+    assert calls == [["/cuda/bin/cuobjdump", "-res-usage", "-sass",
+                      "/lib/libk.so"]]
+    assert report["flash_dkv_tc<128>"]["stack_bytes"] == 16
+    assert chip_smoke.build_failures(report)

@@ -55,7 +55,6 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-lib_path = None       # the loaded shared library (for cuobjdump -sass)
 build_seconds = None  # wall time of the build this process ran, if any
 build_log = ""        # ptxas register/shared-memory report of that build
 
@@ -128,7 +127,7 @@ def _build(so_path: str, srcs) -> None:
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call if its hash is new."""
-    global _lib, lib_path
+    global _lib
     with _lock:
         if _lib is None:
             srcs = _sources()
@@ -138,7 +137,6 @@ def lib() -> ctypes.CDLL:
             if not os.path.exists(so_path):
                 _build(so_path, srcs)
             handle = ctypes.CDLL(so_path)
-            lib_path = so_path
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
