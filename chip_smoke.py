@@ -16,7 +16,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it: max abs error against the stated
    tolerance, kernel/plain/library times (CUDA events, median of 30
-   after warm-up) and the least time the card could take (bound);
+   after warm-up, with the device held busy first so that the calls are
+   queued and each time is the device's) and the least time the card
+   could take (bound);
 2. the serving path at full width -- TransformerLM with the widths of
    docs/workloads.md (vocab 32000, d_model 4096, depth 32, 32 heads, 8 kv
    heads, rope), seeded random bf16 weights, PagedBatcher(max_batch=8)
@@ -36,7 +38,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    library time of scaled_dot_product_attention and of its backward, and
    correctness rows at s 1024 (window 256, shift -1 with f32 o, ragged
    s 1000); ``err_to_tol`` is the worst output's error over its own
-   tolerance (dk and dv each against their own scale);
+   tolerance (dk and dv each against their own scale); and the bf16 ->
+   f32-out forward timed at the training path's shape;
 6. the training path at full width (the same widths, attn_window 4096,
    depth 16, bf16, b 2 x s 4096): TransformerLM(tokens, decode=False),
    lm_loss, backward and torch.optim.Adam(lr=1e-4), 4 steps on one
@@ -72,6 +75,7 @@ PEAK_OPS = {"float32": 67e12,      # f32 outside the tensor cores
             "bfloat16": 989e12,    # dense tensor cores
             "int8": 1979e12}
 TOL_F32 = 2e-5                     # as tests/test_paged.py
+HOLD_CYCLES = 40_000_000           # ~20 ms at the H100's 1.98 GHz clock
 LN_D = 4096
 
 
@@ -95,12 +99,17 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call (CUDA events around each call)."""
+    """Median device time of one call (CUDA events around each call).
+    The device is held busy first, so the host has queued the calls
+    before the device reaches them: a call whose Python side takes longer
+    than its kernels (the LN wrapper's does at 8192 x 4096) is timed by
+    its kernels, not by the host."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     pairs = []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
@@ -130,7 +139,7 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 # -- phase 0: what the build made ------------------------------------------
-TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dkv_tc")
+TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc")
 
 
 def _short(sym: str) -> str:
@@ -443,6 +452,44 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
     return rows
 
 
+def flash_f32out_row(gen, card: str) -> None:
+    """The bf16 -> f32-out forward (ring attention's inner op) at the
+    training path's shape: o against the plain version at 2e-5, its
+    time, the plain version's and the bound (no library call returns an
+    f32 o from bf16 inputs)."""
+    import torch
+
+    from vtpu_torch.ops import attention as tat
+
+    q, k, v, _do = flash_inputs(gen, torch.bfloat16, **FLASH)
+    cfg = (True, 0, 0)
+    f32 = torch.float32
+    o, _lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
+    ro, _rlse = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
+    torch.cuda.synchronize()
+    err = float((o - ro).abs().max())
+    b, h, s, hd = q.shape
+    pairs = flash_work(b, h, s, k.shape[2], hd, *cfg)
+    nbytes = (q.numel() + 2 * k.numel()) * q.element_size() \
+        + o.numel() * 4 + b * h * s * 4
+    b_ms, b_by = bound(nbytes, 4.0 * hd * pairs, "bfloat16")
+    row = dict(phase="kernel", kernel="flash_forward", b=b, heads=h,
+               kv_heads=k.shape[1], s=s, hd=hd, causal=True, shift=0,
+               window=0, dtype="bfloat16", out_dtype="float32",
+               max_abs_err=err, tol=TOL_F32,
+               ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
+                                                    out_dtype=f32),
+                          iters=5, warmup=1),
+               plain_ms=time_ms(lambda: tat.flash_attention_reference(
+                   q, k, v, *cfg, out_dtype=f32), iters=3, warmup=1),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               kept_pairs=pairs, card=card)
+    emit(**row)
+    check(err <= TOL_F32, f"flash_forward bf16 -> f32: err {err}")
+    del q, k, v, _do, o, ro
+    torch.cuda.empty_cache()
+
+
 def flash_phase(card: str, gen) -> dict:
     import torch
 
@@ -451,6 +498,7 @@ def flash_phase(card: str, gen) -> dict:
         rows = flash_check(gen, dtype, FLASH, time_it=True, card=card)
         if dtype == torch.bfloat16:
             summary = rows
+    flash_f32out_row(gen, card)
     small = dict(FLASH, b=1, s=1024)
     for dtype in (torch.float32, torch.bfloat16):
         flash_check(gen, dtype, small, window=256, card=card)
@@ -915,7 +963,7 @@ def main() -> int:
                             "vtpu/ops/paged_attention.py:87"),
         "flash_forward": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:48"),
-        "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention.cu",
+        "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                          "vtpu/ops/attention.py:91"),
         "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:130"),

@@ -24,15 +24,17 @@ FWD_TC = (_NS_TC + "12flash_fwd_tcILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pf"
           "N4vtpu5flash7ProblemEib")
 DKV_TC = (_NS_TC + "12flash_dkv_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKf"
           "S5_PS1_S6_N4vtpu5flash7ProblemEib")
-DQ_BF16 = (_NS_CC + "12flash_bwd_dqI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_"
-           "PKfS6_PS2_N4vtpu5flash7ProblemEb")
+DQ_TC = (_NS_TC + "11flash_dq_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_"
+         "PS1_N4vtpu5flash7ProblemEib")
+DQ_F32 = (_NS_CC + "12flash_bwd_dqIfLi128EEEvPKT_S2_S2_S2_PKfS4_PS0_"
+          "N4vtpu5flash7ProblemEb")
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for four flash kernels and one
+    """cuobjdump -res-usage -sass output for five flash kernels and one
     other kernel."""
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
@@ -44,7 +46,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
              ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 2
              + (["STL.64 [R1+0x8], R4 ;", "LDL.LU R5, [R1+0x8] ;"]
                 if dkv_spills else [])),
-            (DQ_BF16, 168, 0, ["FFMA R1, R2, R3, R1 ;"]),
+            (DQ_TC, 244, 0, ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 4),
+            (DQ_F32, 168, 0, ["FFMA R1, R2, R3, R1 ;"]),
             (FWD_F32OUT, 128, 0, ["LDS.128 R4, [R2] ;"])):
         usage += [" Function {}:".format(sym),
                   "  REG:{} STACK:{} SHARED:0 LOCAL:0 CONSTANT[0]:612 "
@@ -64,7 +67,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
 @pytest.mark.parametrize("sym, short", [
     (FWD_TC, "flash_fwd_tc<128>"),
     (DKV_TC, "flash_dkv_tc<128>"),
-    (DQ_BF16, "flash_bwd_dq<bf16,128>"),
+    (DQ_TC, "flash_dq_tc<128>"),
+    (DQ_F32, "flash_bwd_dq<f32,128>"),
     (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
     ("not_a_mangled_name", "not_a_mangled_name"),
 ])
@@ -79,8 +83,10 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
                                   tensor_core_ops=3),
         "flash_dkv_tc<128>": dict(registers=245, stack_bytes=0, local_ops=0,
                                   tensor_core_ops=2),
-        "flash_bwd_dq<bf16,128>": dict(registers=168, stack_bytes=0,
-                                       local_ops=0, tensor_core_ops=0),
+        "flash_dq_tc<128>": dict(registers=244, stack_bytes=0, local_ops=0,
+                                 tensor_core_ops=4),
+        "flash_bwd_dq<f32,128>": dict(registers=168, stack_bytes=0,
+                                      local_ops=0, tensor_core_ops=0),
         "flash_fwd<bf16,f32,64>": dict(registers=128, stack_bytes=0,
                                        local_ops=0, tensor_core_ops=0),
     }
@@ -102,6 +108,15 @@ def test_a_kernel_without_tensor_core_ops_or_missing_fails():
     del report["flash_dkv_tc<128>"]
     assert "flash_dkv_tc: not in the library" in \
         chip_smoke.build_failures(report)
+
+
+def test_a_library_without_the_tensor_core_dq_fails():
+    """The bf16 dq entry runs flash_dq_tc: a library that lacks it (one
+    built from sources that still send bf16 dq to the CUDA cores) fails."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report["flash_dq_tc<128>"]
+    assert chip_smoke.build_failures(report) == [
+        "flash_dq_tc: not in the library"]
 
 
 def test_a_report_without_resource_usage_is_not_taken_for_no_spills():

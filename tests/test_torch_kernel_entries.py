@@ -79,10 +79,11 @@ def test_the_scanner_sees_both_forms_and_skips_comments(tmp_path,
 
 
 def test_the_flash_entries_are_split_by_route():
-    """bf16 -> bf16 forward and dk/dv on the tensor cores; the f32, the
-    f32-out and the dq entries on the CUDA cores."""
+    """bf16 -> bf16 forward, dq and dk/dv on the tensor cores; the f32
+    and the f32-out entries on the CUDA cores."""
     where = {name: path.rsplit("/", 1)[-1] for name, path in _definitions()}
-    tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dkv_bf16"}
+    tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dq_bf16",
+              "vtpu_flash_bwd_dkv_bf16"}
     for name in _build.SIGNATURES:
         if not name.startswith("vtpu_flash_"):
             continue

@@ -133,6 +133,40 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     _flash_kernels_match_plain(cuda_card, gen)
 
 
+@pytest.mark.cuda
+def test_bf16_layernorm_matches_plain_on_the_card(cuda_card):
+    """The bf16 LayerNorm kernel against ``_reference_ln`` within two bf16
+    ulps at the output's scale: the train path's rows (8192 x 4096), a
+    decode batch (8 x 4096), the widest row of the register path (d 8192)
+    and rows that take the shared-memory path (d 100 and d 33, whose
+    width is no whole number of 16-byte chunks; an x that is not 16-byte
+    aligned; d 8200, wider than the register path).  Two calls give the
+    same bits."""
+    from vtpu_torch.ops import layernorm as tln
+
+    gen = torch.Generator(device=cuda_card).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_card, generator=gen)
+
+    cases = [(3 * rnd(rows, d) + 1).bfloat16()
+             for rows, d in [(8192, 4096), (8, 4096), (5, 8192), (37, 100),
+                             (9, 33), (3, 8200), (64, 4096)]]
+    x = cases.pop()
+    x_off = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_card)[1:]
+    x_off = x_off.view(x.shape).copy_(x)
+    assert x_off.data_ptr() % 16 != 0
+    cases.append(x_off)
+    for x in cases:
+        d = x.shape[-1]
+        g = (1 + 0.1 * rnd(d)).bfloat16()
+        b = (0.1 * rnd(d)).bfloat16()
+        got = tln.fused_layernorm(x, g, b)
+        assert got.dtype == torch.bfloat16
+        assert _bf16_ulps(got, tln._reference_ln(x, g, b)) <= 2, x.shape
+        assert torch.equal(got, tln.fused_layernorm(x, g, b)), x.shape
+
+
 FLASH_SHAPES = [  # q shape, kv heads, causal, shift, window, o dtype
     ((2, 8, 256, 128), 2, True, 0, 0, None),
     ((192, 64), 1, False, 0, 0, None),
@@ -164,8 +198,8 @@ def _bf16_ulps(got, want):
 
 
 def _flash_bf16_kernels_match_plain(dev, gen):
-    """The bf16 kernels (the tensor-core forward and dk/dv, the CUDA-core
-    dq) on the shapes above, less the f32-o row, which stays on the
+    """The bf16 kernels (the tensor-core forward, dq and dk/dv) on the
+    shapes above, less the f32-o row, which stays on the
     CUDA-core forward, plus s 1000 at hd 128, head dims that take the
     plain-load staging (36, and 33 under shift -1), a window under
     shift -1 with GQA, fewer queries than keys, and a q that is not

@@ -1,17 +1,17 @@
 // Flash attention on the CUDA cores (sm_90a): the forward (o and the
 // per-row logsumexp) and the two backward kernels (dq; dk and dv), f32
-// arithmetic throughout.  The entries this source still serves:
+// arithmetic throughout.  The entries this source serves:
 //
 //   vtpu_flash_fwd_f32, vtpu_flash_fwd_bf16_f32out      (flash_fwd)
-//   vtpu_flash_bwd_dq_f32, vtpu_flash_bwd_dq_bf16       (flash_bwd_dq)
+//   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
 //   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
-// The bf16 -> bf16 forward and dk/dv, the training path's dtype, run on
-// the tensor cores in flash_attention_sm90.cu.  The f32 entries stay
-// here because the f32 exactness checks rely on f32 products (TF32
-// tensor cores would not meet them); the f32-out forward stays because
-// its f32 o is held at 2e-5, which a kernel that rounds p to bf16
-// cannot meet; dq is next in line for the tensor cores.
+// The bf16 -> bf16 entries, the training path's dtype, run on the tensor
+// cores in flash_attention_sm90.cu: the forward, dq and dk/dv.  The f32
+// entries stay here because the f32 exactness checks rely on f32
+// products (TF32 tensor cores would not meet them); the f32-out forward
+// stays because its f32 o is held at 2e-5, which a kernel that rounds p
+// to bf16 cannot meet.
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
 //   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
@@ -614,5 +614,4 @@ int launch_dkv(const void* q, const void* k, const void* v,
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, float, float)
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, __nv_bfloat16, float)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, float)
-VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_bf16, __nv_bfloat16)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, float)

@@ -1,15 +1,17 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16 inputs and
 // bf16 outputs with f32 accumulation: the forward (o and the per-row
-// logsumexp) and the dk/dv backward, the training path's two heaviest
-// kernels.  The entries and the Pallas TPU kernels of
-// vtpu/ops/attention.py they replace:
+// logsumexp) and both backward kernels (dq; dk and dv), the training
+// path's three attention kernels.  The entries and the Pallas TPU
+// kernels of vtpu/ops/attention.py they replace:
 //
 //   vtpu_flash_fwd_bf16      flash_fwd_tc <- _attn_kernel (_flash_2d)
+//   vtpu_flash_bwd_dq_bf16   flash_dq_tc  <- _attn_bwd_dq_kernel
+//                                            (_flash_bwd_2d)
 //   vtpu_flash_bwd_dkv_bf16  flash_dkv_tc <- _attn_bwd_dkv_kernel
 //                                            (_flash_bwd_2d)
 //
-// The f32 entries, the bf16 -> f32-out forward and both dq entries stay
-// on the CUDA-core kernels of flash_attention.cu.  Layouts, masks and
+// The f32 entries (forward, dq, dk/dv) and the bf16 -> f32-out forward
+// stay on the CUDA-core kernels of flash_attention.cu.  Layouts, masks and
 // numerics are that file's: q, o, do [N, seq_q, hd]; k, v, dk, dv
 // [N / g, seq_k, hd]; lse, delta [N, seq_q] f32; query head n reads kv
 // head n / g; m starts at -1e30, a masked p is forced to 0, l is clamped
@@ -17,19 +19,20 @@
 // window, shift 0 / -1, non-causal and hd <= 128 runs these kernels.
 //
 // What bounds them on an H100: operations.  The forward does 4 * hd
-// flops per kept (query, key) pair (Q K^T and P V), dk/dv 8 * hd (Q K^T,
-// dO V^T, P^T dO, dS^T Q).  Causal at b 2, H 32, s 4096, hd 128 that is
-// 537,001,984 kept pairs: 2.7e11 flops for the forward, 0.28 ms at the
-// 989 TFLOP/s bf16 tensor-core peak, and 0.56 ms for dk/dv; their bytes
-// (q, k, v, o, do, lse, delta once each) take ~0.06 ms at 3.35 TB/s.
+// flops per kept (query, key) pair (Q K^T and P V), dq 6 * hd (Q K^T,
+// dO V^T, dS K), dk/dv 8 * hd (Q K^T, dO V^T, P^T dO, dS^T Q).  Causal at
+// b 2, H 32, s 4096, hd 128 that is 537,001,984 kept pairs: 2.7e11 flops
+// for the forward, 0.28 ms at the 989 TFLOP/s bf16 tensor-core peak,
+// 0.42 ms for dq and 0.56 ms for dk/dv; their bytes (q, k, v, o, do,
+// lse, delta once each) take ~0.06 ms at 3.35 TB/s.
 // What the design does about it:
 //
 //  - Products on the tensor cores: mma.sync m16n8k16 bf16 with f32
 //    accumulators, operands brought from shared memory by ldmatrix
-//    (.trans for V in P V, dO in P^T dO and Q in dS^T Q).  Tiles are
-//    staged in bf16, not widened (a 64 x 128 tile is 17 KB with its
-//    padding); each row is padded by 16 bytes so the eight 16-byte rows
-//    of one ldmatrix fall on distinct banks.
+//    (.trans for V in P V, K in dS K, dO in P^T dO and Q in dS^T Q).
+//    Tiles are staged in bf16, not widened (a 64 x 128 tile is 17 KB
+//    with its padding); each row is padded by 16 bytes so the eight
+//    16-byte rows of one ldmatrix fall on distinct banks.
 //  - P and dS never touch shared memory: the m16n8 accumulator layout is
 //    the A-operand layout of m16n8k16, so they are rounded to bf16 pairs
 //    in registers and fed to the next product (FlashAttention-2's
@@ -43,9 +46,9 @@
 //    one commit group a tile): tiles t + 1 and t + 2 are in flight while
 //    tile t is multiplied, and one barrier a tile both publishes tile t
 //    and frees the stage of tile t - 1 for the next copy.  K/V tiles for
-//    the forward; Q, dO, lse and delta tiles for dk/dv.  Rows past the
-//    end and columns past hd arrive as zeros.  Where hd % 8 != 0 or a
-//    pointer is not 16-byte aligned, the same tiles are staged by plain
+//    the forward and dq; Q, dO, lse and delta tiles for dk/dv.  Rows past
+//    the end and columns past hd arrive as zeros.  Where hd % 8 != 0 or
+//    a pointer is not 16-byte aligned, the same tiles are staged by plain
 //    loads instead.
 //  - Masks only where needed: keep() runs on a warp's tile only when the
 //    tile straddles the causal diagonal, the window edge or the ragged
@@ -58,9 +61,19 @@
 //    g query heads of its group and their 32-row q tiles with dk and dv
 //    summed in registers and written once (no atomics).  32-row q tiles
 //    keep dk, dv (128 f32 a thread at hd 128) and the score fragments
-//    within the register file without spills.
-//  - Heavy first: under causal masking the forward's last q tiles and
-//    dk/dv's first k tiles do the most work; block indices map them to
+//    within the register file without spills.  dq: one block of 8 warps
+//    per (128-row q tile, query head), 16 rows a warp, 64-key K/V tiles
+//    on the forward's ring; lse and delta of a thread's two rows read
+//    once into registers; dq (64 f32 a thread at hd 128) summed in
+//    registers and written once (no atomics: one block owns its rows).
+//    Q and dO stay in shared memory and their A fragments are reloaded
+//    each k-step, as dk/dv reloads K and V, so dq, S and dP (64 + 32 +
+//    32 f32) are the only large live state: 244 registers at hd 128
+//    (211 at 64), no spills.  Q, dO and the three-stage ring of 64-key K
+//    and V tiles take 174,080 bytes of shared memory at hd 128, so one
+//    block (8 warps) an SM.
+//  - Heavy first: under causal masking the last q tiles (forward, dq)
+//    and dk/dv's first k tiles do the most work; block indices map them to
 //    the first blocks launched, across heads, so the grid's tail is the
 //    light tiles.
 
@@ -89,6 +102,9 @@ constexpr int kFwdN = 64;         // keys per K/V tile
 constexpr int kDkvThreads = 128;  // 4 warps x 16 keys
 constexpr int kDkvN = 64;         // keys per block
 constexpr int kDkvQ = 32;         // query rows per Q/dO tile
+constexpr int kDqThreads = 256;   // 8 warps x 16 query rows
+constexpr int kDqM = 128;         // query rows per block
+constexpr int kDqN = 64;          // keys per K/V tile
 constexpr int kStages = 3;        // ring depth: two tiles in flight
 
 // -- PTX -------------------------------------------------------------------
@@ -563,6 +579,167 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
     }
 }
 
+// -- dq --------------------------------------------------------------------
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                Problem P, int n_q, bool vec) {
+  constexpr int S = HD + 8;
+  constexpr int RB = 2 * S;
+  constexpr int KT = HD / 16;   // k-steps of Q K^T and dO V^T
+  constexpr int NT = HD / 8;    // 8-column tiles of dq
+  constexpr int JT = kDqN / 8;  // 8-key tiles of S and dP
+  extern __shared__ uint4 smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* dOs = Qs + kDqM * S;
+  bf16* Ks = dOs + kDqM * S;           // kStages stages of kDqN rows
+  bf16* Vs = Ks + kStages * kDqN * S;  // kStages stages of kDqN rows
+
+  // heavy first, as the forward: the last q tiles see the most keys
+  const int tiles = (P.seq_q + kDqM - 1) / kDqM;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * kDqM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w0 = q0 + warp * 16;       // the warp's 16 rows
+  const int r0 = w0 + lane / 4;        // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);       // and columns c2, c2 + 1 of a tile
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, kDqM, kDqN, lo, hi);
+  // K/V tile t into ring stage st (nothing past hi)
+  auto stage = [&](int t, int st) {
+    if (t >= hi) return;
+    stage_tile<kDqN, HD, kDqThreads>(Ks + st * kDqN * S, kb, t * kDqN,
+                                     P.seq_k, P.hd, vec);
+    stage_tile<kDqN, HD, kDqThreads>(Vs + st * kDqN * S, vb, t * kDqN,
+                                     P.seq_k, P.hd, vec);
+  };
+  // one commit group per tile: Q and dO ride with the first
+  stage_tile<kDqM, HD, kDqThreads>(Qs, q + q_off, q0, P.seq_q, P.hd, vec);
+  stage_tile<kDqM, HD, kDqThreads>(dOs, dout + q_off, q0, P.seq_q, P.hd,
+                                   vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage(lo + i, i);
+    cp_commit();
+  }
+
+  // lse (in log2 units) and delta of rows r0 and r0 + 8
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t i = static_cast<size_t>(n) * P.seq_q + row;
+    lse2[h] = row < P.seq_q ? lse[i] * kLog2e : 0.f;
+    dl[h] = row < P.seq_q ? delta[i] : 0.f;
+  }
+  // ldmatrix row addresses: Q and dO as A (rows x hd, reloaded each
+  // k-step, as dk/dv reloads K and V); K and V as the col-major B of
+  // Q K^T and dO V^T; K transposed as the B of dS K (as V in the
+  // forward's P V)
+  const uint32_t a_lane = (warp * 16 + lane % 16) * RB + (lane / 16) * 16;
+  const uint32_t b_lane =
+      ((lane % 8) + (lane / 16) * 8) * RB + ((lane / 8) % 2) * 16;
+  const uint32_t t_lane =
+      ((lane % 8) + ((lane / 8) % 2) * 8) * RB + (lane / 16) * 16;
+  constexpr uint32_t kStage = kDqN * RB;
+  const uint32_t qa = smem_u32(Qs) + a_lane, da = smem_u32(dOs) + a_lane;
+  const uint32_t ks0 = smem_u32(Ks), vs0 = smem_u32(Vs);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float sc = P.sm_scale * kLog2e;
+
+  for (int t = lo, st = 0; t < hi;
+       ++t, st = st + 1 < kStages ? st + 1 : 0) {
+    cp_wait<kStages - 2>();
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copy takes
+    __syncthreads();
+    stage(t + kStages - 1, st == 0 ? kStages - 1 : st - 1);
+    cp_commit();
+
+    const uint32_t ks = ks0 + st * kStage, vs = vs0 + st * kStage;
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows x kDqN keys
+    float s[JT][4], dp[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm_x4(a, qa + kk * 32);
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        ldsm_x4(b, ks + b_lane + j * 16 * RB + kk * 32);
+        mma(s[2 * j], a, b[0], b[1]);
+        mma(s[2 * j + 1], a, b[2], b[3]);
+      }
+      ldsm_x4(a, da + kk * 32);
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        ldsm_x4(b, vs + b_lane + j * 16 * RB + kk * 32);
+        mma(dp[2 * j], a, b[0], b[1]);
+        mma(dp[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // P = exp(S - lse), dS = P (dP - delta) sm_scale; a masked p is set
+    // to 0 after the exp2, which overflows where lse is ~-1e30
+    const int k0 = t * kDqN;
+    const bool full = all_kept(P, w0, 16, k0, kDqN);
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        float p = exp2f(s[j][e] * sc - lse2[h]);
+        if (!full && !keep(P, r0 + 8 * h, k0 + 8 * j + c2 + e % 2)) p = 0.f;
+        dp[j][e] = p * (dp[j][e] - dl[h]) * P.sm_scale;
+      }
+    // dS as A fragments of dS K, straight from the accumulators
+    uint32_t dsa[JT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk) {
+      dsa[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      dsa[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      dsa[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      dsa[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    }
+    // dq += dS K
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, ks + t_lane + kk * 16 * RB + j * 32);
+        mma(acc[2 * j], dsa[kk], b[0], b[1]);
+        mma(acc[2 * j + 1], dsa[kk], b[2], b[3]);
+      }
+  }
+  cp_wait<0>();  // with fewer tiles than stages, copies may be in flight
+
+  // one block owns its rows: dq is written once, no atomics
+  bf16* out = dq + q_off;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    store_pair(out, r0, 8 * j + c2, acc[j][0], acc[j][1], P.seq_q, P.hd);
+    store_pair(out, r0 + 8, 8 * j + c2, acc[j][2], acc[j][3], P.seq_q,
+               P.hd);
+  }
+}
+
 // -- launch ----------------------------------------------------------------
 bool tc_vec(int hd, std::initializer_list<const void*> ptrs) {
   if (hd % 8 != 0) return false;
@@ -610,6 +787,26 @@ int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int dq_tc(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dq, int n_q,
+          const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_dq_tc<HD>;
+  const size_t smem =
+      sizeof(bf16) * (HD + 8) * (2 * kDqM + 2 * kStages * kDqN);
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks =
+      static_cast<long long>((P.seq_q + kDqM - 1) / kDqM) * n_q;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kDqThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int vtpu_flash_fwd_bf16(const void* q, const void* k,
@@ -646,4 +843,22 @@ extern "C" int vtpu_flash_bwd_dkv_bf16(const void* q, const void* k,
                                vec, st)
                   : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, n_kv, P,
                                 vec, st);
+}
+
+extern "C" int vtpu_flash_bwd_dq_bf16(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, int n_q, int g, int seq_q,
+                                      int seq_k, int hd, int causal,
+                                      int shift, int window, float sm_scale,
+                                      void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tc_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64
+             ? dq_tc<64>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st)
+             : dq_tc<128>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st);
 }

@@ -1,6 +1,7 @@
-"""Flash attention: the wrappers of ``csrc/flash_attention.cu`` (forward,
-dq, dk/dv), the autograd functions built on them, and their plain
-PyTorch versions.
+"""Flash attention: the wrappers of the flash kernels (forward, dq,
+dk/dv; bf16 -> bf16 on the tensor cores in ``csrc/flash_attention_sm90.cu``,
+f32 and the bf16 -> f32-out forward in ``csrc/flash_attention.cu``), the
+autograd functions built on them, and their plain PyTorch versions.
 
 Counterpart of ``vtpu/ops/attention.py``, with its layouts: q, k, v
 ``[b, h, s, d]`` or ``[s, d]`` (any leading dims), lse ``[..., s, 1]`` in
