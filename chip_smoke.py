@@ -2,19 +2,22 @@
 """Drive the PyTorch port's paged serving and training paths on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, full width (one card)
+    python3 chip_smoke.py                # all phases, full width (one card)
+    python3 chip_smoke.py --paged-sweep  # the paged kernel's split / tile
 
 Phases (each prints one JSON line; any failure exits non-zero):
 
 0. the card's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from ``vtpu_torch/csrc`` (nvcc, sm_90a) with its seconds
-   and, for each flash kernel, its registers, stack bytes, local loads
-   and stores and tensor-core instructions (HMMA / HGMMA), all from one
-   ``cuobjdump -res-usage -sass`` of the library, so a reused build
-   reports the same; the tensor-core kernels must have some and spill
-   nothing;
+   and, for each flash and paged kernel, its registers, stack bytes,
+   local loads and stores and tensor-core instructions (HMMA / HGMMA),
+   all from one ``cuobjdump -res-usage -sass`` of the library, so a
+   reused build reports the same; the tensor-core and paged kernels must
+   spill nothing, and the tensor-core kernels must hold such
+   instructions;
 1. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it: max abs error against the stated
+   shapes the serving path gives it (the paged kernels at the kernel
+   phase's lengths and at the serve phase's): max abs error against the stated
    tolerance, kernel/plain/library times (CUDA events, median of 30
    after warm-up, with the device held busy first so that the calls are
    queued and each time is the device's) and the least time the card
@@ -140,20 +143,33 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 # -- phase 0: what the build made ------------------------------------------
 TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc")
+PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
 def _short(sym: str) -> str:
-    """``flash_bwd_dq<bf16,128>``-style name of a mangled flash symbol."""
-    m = re.search(r"(flash_[a-z_]+?)I(\w+?)EE+v", sym)
+    """``flash_bwd_dq<bf16,128>``- or ``paged_partial<bf16,i8,true,4,4>``-
+    style name of a mangled kernel symbol."""
+    m = re.search(r"((?:flash|paged)_[a-z_]+?)I(\w+?)EE+v", sym)
     if not m:
         return sym
-    args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a.group(0), a.group(1))
-            for a in re.finditer(r"13__nv_bfloat16|f|Li(\d+)", m.group(2))]
+    args = []
+    for a in re.finditer(r"13__nv_bfloat16|S\d*_|Lb([01])E|Li(\d+)E?|[fa]",
+                         m.group(2)):
+        tok = a.group(0)
+        if tok.startswith("S"):     # a substitution: the type just named
+            args.append(args[-1] if args else tok)
+        elif tok.startswith("Lb"):
+            args.append("true" if a.group(1) == "1" else "false")
+        elif tok.startswith("Li"):
+            args.append(a.group(2))
+        else:
+            args.append({"13__nv_bfloat16": "bf16", "f": "f32",
+                         "a": "i8"}[tok])
     return f"{m.group(1)}<{','.join(args)}>"
 
 
 def parse_cuobjdump(text: str) -> dict:
-    """Per flash kernel in ``cuobjdump -res-usage -sass`` output:
+    """Per flash and paged kernel in ``cuobjdump -res-usage -sass`` output:
     ``registers`` and ``stack_bytes`` (REG and STACK; ptxas spills into
     the stack frame), ``local_ops`` (LDL / STL in its SASS, the spill
     loads and stores) and ``tensor_core_ops`` (HMMA / HGMMA)."""
@@ -163,7 +179,7 @@ def parse_cuobjdump(text: str) -> dict:
         m = re.match(r"\s*Function\s*:?\s*(\S+?):?\s*$", line)
         if m:
             row = None
-            if "flash" in m.group(1):
+            if re.search(r"flash|paged_(partial|combine)", m.group(1)):
                 row = out.setdefault(_short(m.group(1)), {
                     "registers": None, "stack_bytes": None,
                     "local_ops": 0, "tensor_core_ops": 0})
@@ -180,7 +196,7 @@ def parse_cuobjdump(text: str) -> dict:
     return out
 
 
-def flash_build_report(so_path: str, nvcc_dir: str) -> dict:
+def kernel_build_report(so_path: str, nvcc_dir: str) -> dict:
     """:func:`parse_cuobjdump` of the loaded library: the same whether
     this process built it or reused an earlier build."""
     res = subprocess.run(
@@ -191,15 +207,16 @@ def flash_build_report(so_path: str, nvcc_dir: str) -> dict:
 
 
 def build_failures(report: dict) -> list:
-    """Each tensor-core kernel must be in the library, hold tensor-core
-    instructions and spill nothing (no stack frame, no LDL / STL)."""
+    """Each tensor-core kernel and each paged kernel must be in the
+    library and spill nothing (no stack frame, no LDL / STL); the
+    tensor-core kernels must hold tensor-core instructions."""
     bad = []
-    for name in TENSOR_CORE_KERNELS:
+    for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
         if not rows:
             bad.append(f"{name}: not in the library")
         for k, r in rows.items():
-            if not r["tensor_core_ops"]:
+            if name in TENSOR_CORE_KERNELS and not r["tensor_core_ops"]:
                 bad.append(f"{k}: no tensor-core instructions in its SASS")
             if r["stack_bytes"] != 0 or r["local_ops"]:
                 bad.append(f"{k}: spills (stack {r['stack_bytes']} bytes, "
@@ -246,21 +263,31 @@ def layernorm_phase(card: str, gen) -> dict:
     return summary
 
 
-def paged_inputs(gen, dtype, quant: bool):
+PAGED = dict(b=8, heads=32, kv_heads=8, hd=128, block=16, nb_max=256)
+# 0, a block boundary, the last slot, and ragged lengths between
+KERNEL_LENGTHS = [0, 16, 4095, 1023, 777, 2048, 31, 3000]
+
+
+def serve_lengths(seed: int) -> list:
+    """The positions the serving path gives the kernel: the first eight
+    prompts of the serve phase, 16 tokens into their decode."""
+    return [len(p) + 16 for _rid, p, _n in make_requests(seed)[:8]]
+
+
+def paged_inputs(gen, dtype, quant: bool, lengths):
     import torch
 
     from vtpu_torch.ops.quant import quantize_int8
 
-    b, nh, n_kv, hd, bs, nb_max = 8, 32, 8, 128, 16, 256
+    b, nh, n_kv, hd, bs, nb_max = (PAGED[k] for k in (
+        "b", "heads", "kv_heads", "hd", "block", "nb_max"))
     P = 1 + b * nb_max
     q = torch.randn(b, nh, hd, device="cuda", generator=gen).to(dtype)
     k = torch.randn(P, n_kv, bs, hd, device="cuda", generator=gen)
     v = torch.randn(P, n_kv, bs, hd, device="cuda", generator=gen)
     perm = torch.randperm(P - 1, device="cuda", generator=gen) + 1
     tables = perm.to(torch.int32).reshape(b, nb_max)  # shuffled blocks
-    # 0, a block boundary, the last slot, and ragged lengths between
-    lengths = torch.tensor([0, bs, nb_max * bs - 1, 1023, 777, 2048, 31,
-                            3000], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if quant:
         kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
         return (q, kq.q, vq.q, tables, lengths, kq.scale, vq.scale)
@@ -282,38 +309,130 @@ def paged_bytes_ops(args, quant: bool):
     return nbytes, ops
 
 
-def paged_phase(card: str, gen) -> dict:
+def paged_phase(card: str, gen, seed: int) -> dict:
+    """Both paged kernels in f32 and bf16 at the kernel-phase lengths and
+    at the serving path's; returns the kernel-phase bf16 rows."""
     import torch
 
     from vtpu_torch.ops.paged_attention import (
         paged_attention_decode, paged_attention_reference)
 
     summary = {}
-    for quant in (False, True):
-        name = "paged_decode_q8" if quant else "paged_decode"
-        for dtype in (torch.float32, torch.bfloat16):
-            args = paged_inputs(gen, dtype, quant)
-            got = paged_attention_decode(*args)
-            ref = paged_attention_reference(*args)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            tol = TOL_F32 if dtype == torch.float32 else bf16_tol(ref.float())
-            nbytes, ops = paged_bytes_ops(args, quant)
-            b_ms, b_by = bound(nbytes, ops,
-                               "int8" if quant else str(dtype).split(".")[1])
-            row = dict(
-                phase="kernel", kernel=name, b=8, heads=32, kv_heads=8,
-                hd=128, block=16, nb_max=256,
-                lengths=args[4].tolist(), dtype=str(dtype).split(".")[1],
-                max_abs_err=err, tol=tol,
-                ms=time_ms(lambda: paged_attention_decode(*args)),
-                plain_ms=time_ms(lambda: paged_attention_reference(*args)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, card=card)
-            emit(**row)
-            check(err <= tol, f"{name} {row['dtype']}: err {err} > {tol}")
-            if dtype == torch.bfloat16:
-                summary[name] = row
+    for shape, lengths in (("kernel", KERNEL_LENGTHS),
+                           ("serve", serve_lengths(seed))):
+        for quant in (False, True):
+            name = "paged_decode_q8" if quant else "paged_decode"
+            for dtype in (torch.float32, torch.bfloat16):
+                args = paged_inputs(gen, dtype, quant, lengths)
+                got = paged_attention_decode(*args)
+                ref = paged_attention_reference(*args)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                tol = (TOL_F32 if dtype == torch.float32
+                       else bf16_tol(ref.float()))
+                nbytes, ops = paged_bytes_ops(args, quant)
+                b_ms, b_by = bound(nbytes, ops, "int8" if quant
+                                   else str(dtype).split(".")[1])
+                row = dict(
+                    phase="kernel", kernel=name, shape=shape, **PAGED,
+                    lengths=lengths, dtype=str(dtype).split(".")[1],
+                    max_abs_err=err, tol=tol,
+                    ms=time_ms(lambda: paged_attention_decode(*args)),
+                    plain_ms=time_ms(
+                        lambda: paged_attention_reference(*args)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    card=card)
+                emit(**row)
+                check(err <= tol, f"{name} {shape} {row['dtype']}: "
+                                  f"err {err} > {tol}")
+                if dtype == torch.bfloat16 and shape == "kernel":
+                    summary[name] = row
     return summary
+
+
+def paged_breakdown(card: str, gen, seed: int) -> None:
+    """The port's paged kernel, bf16, split into its two launches by
+    torch.profiler (median device time of each over 20 calls) at the
+    kernel-phase lengths, the serve lengths, one split a row (255) and
+    one key a row (0, the fixed cost of a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vtpu_torch.ops.paged_attention import paged_attention_decode
+
+    for shape, lengths in (("kernel", KERNEL_LENGTHS),
+                           ("serve", serve_lengths(seed)),
+                           ("one_split", [255] * 8), ("one_key", [0] * 8)):
+        for quant in (False, True):
+            args = paged_inputs(gen, torch.bfloat16, quant, lengths)
+            ms = time_ms(lambda: paged_attention_decode(*args))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    paged_attention_decode(*args)
+                torch.cuda.synchronize()
+            us = {"paged_partial": [], "paged_combine": []}
+            for e in prof.events():
+                for k, v in us.items():
+                    if (e.device_type == torch.autograd.DeviceType.CUDA
+                            and k in e.name):
+                        v.append(e.time_range.elapsed_us())
+            emit(phase="paged_breakdown", shape=shape,
+                 kernel="paged_decode_q8" if quant else "paged_decode",
+                 dtype="bfloat16", lengths=lengths, ms=ms,
+                 **{f"{k}_us": sorted(v)[len(v) // 2] for k, v in us.items()},
+                 card=card)
+
+
+def paged_sweep(card: str, gen, seed: int) -> None:
+    """``--paged-sweep``: :func:`paged_breakdown`, then the paged kernel
+    built with each split (128,
+    256, 512 keys), tile (32, 64 keys) and block (4, 8 warps), timed in
+    bf16, native and int8,
+    at the kernel-phase and serve lengths.  Each variant is timed twice,
+    in turns (all variants, then all again in reverse order), on the same
+    inputs, and held to the plain version's tolerance."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from vtpu_torch.ops import _build
+    from vtpu_torch.ops.paged_attention import (
+        launch, paged_attention_reference)
+
+    paged_breakdown(card, gen, seed)
+    variants = [(split, tile, warps) for split in (128, 256, 512)
+                for tile in (32, 64) for warps in (4, 8)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        libs = list(ex.map(lambda v: _build.paged_variant(
+            [f"-DVTPU_PAGED_SPLIT={v[0]}", f"-DVTPU_PAGED_TILE={v[1]}",
+             f"-DVTPU_PAGED_WARPS={v[2]}"]), variants))
+    emit(phase="paged_sweep_build", seconds=time.perf_counter() - t0,
+         card=card)
+    for shape, lengths in (("kernel", KERNEL_LENGTHS),
+                           ("serve", serve_lengths(seed))):
+        for quant in (False, True):
+            args = paged_inputs(gen, torch.bfloat16, quant, lengths)
+            ref = paged_attention_reference(*args).float()
+            nbytes, ops = paged_bytes_ops(args, quant)
+            b_ms, b_by = bound(nbytes, ops, "int8" if quant else "bfloat16")
+            times = {v: [] for v in variants}
+            errs = {}
+            for order in (variants, variants[::-1]):
+                for v in order:
+                    lib = libs[variants.index(v)]
+                    got = launch(lib, *args).float()
+                    errs[v] = float((got - ref).abs().max())
+                    times[v].append(time_ms(lambda: launch(lib, *args)))
+            for v in variants:
+                emit(phase="paged_sweep", shape=shape,
+                     kernel="paged_decode_q8" if quant else "paged_decode",
+                     dtype="bfloat16", split=v[0], tile=v[1], warps=v[2],
+                     ms=times[v], max_abs_err=errs[v], tol=bf16_tol(ref),
+                     bound_ms=b_ms, bound_by=b_by, lengths=lengths,
+                     card=card)
+                check(errs[v] <= bf16_tol(ref),
+                      f"paged sweep {v} {shape}: err {errs[v]}")
 
 
 # -- phase 5: the flash-attention kernels ----------------------------------
@@ -909,6 +1028,9 @@ def train_exactness_bf16_phase(card: str, seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged-sweep", action="store_true",
+                    help="only time the paged kernel's split and tile "
+                         "sizes (builds one library per pair)")
     args = ap.parse_args()
 
     import torch
@@ -931,18 +1053,20 @@ def main() -> int:
     t0 = time.perf_counter()
     so_path = _build.lib()._name
     build_s = time.perf_counter() - t0
-    report = flash_build_report(so_path, os.path.dirname(_build._nvcc()))
+    report = kernel_build_report(so_path, os.path.dirname(_build._nvcc()))
     emit(phase="build", seconds=build_s,
-         built_now=_build.build_seconds is not None, flash_kernels=report,
+         built_now=_build.build_seconds is not None, kernel_report=report,
          card=card)
     if _build.build_log:
         print(_build.build_log, file=sys.stderr)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.paged_sweep:
+        paged_sweep(card, gen, args.seed)
+        return 0
     failures = build_failures(report)
     check(not failures, "; ".join(failures))
-
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = {"fused_layernorm": layernorm_phase(card, gen),
-            **paged_phase(card, gen), **flash_phase(card, gen)}
+            **paged_phase(card, gen, args.seed), **flash_phase(card, gen)}
     model, reqs, results, launches = serve_phase(card, args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s report of the flash kernels in the built library.
+"""``chip_smoke.py``'s report of the flash and paged kernels in the
+built library.
 
 The report comes from ``cuobjdump -res-usage -sass`` of the library
 alone, so a library reused from an earlier build reports the same
@@ -30,12 +31,20 @@ DQ_F32 = (_NS_CC + "12flash_bwd_dqIfLi128EEEvPKT_S2_S2_S2_PKfS4_PS0_"
           "N4vtpu5flash7ProblemEb")
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
+_NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
+PARTIAL_BF16 = (_NS_PA + "13paged_partialI13__nv_bfloat16S1_Lb0ELi4ELi4EEEvPKT_"
+                "PKT0_S7_PKfS9_PKiSB_PfSC_NS_8GeometryENS_6LayoutEifb")
+PARTIAL_Q8 = (_NS_PA + "13paged_partialIfaLb1ELi8ELi2EEEvPKT_PKT0_S5_PKfS7_"
+              "PKiS9_PfSA_NS_8GeometryENS_6LayoutEifb")
+COMBINE_BF16 = (_NS_PA + "13paged_combineI13__nv_bfloat16EEvPKfS3_PKiPT_"
+                "NS_8GeometryE")
 LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 
-def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for five flash kernels and one
-    other kernel."""
+def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
+          paged_spills=False) -> str:
+    """cuobjdump -res-usage -sass output for five flash kernels, three
+    paged kernels and one other kernel."""
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
     sass = []
@@ -48,7 +57,12 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
                 if dkv_spills else [])),
             (DQ_TC, 244, 0, ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 4),
             (DQ_F32, 168, 0, ["FFMA R1, R2, R3, R1 ;"]),
-            (FWD_F32OUT, 128, 0, ["LDS.128 R4, [R2] ;"])):
+            (FWD_F32OUT, 128, 0, ["LDS.128 R4, [R2] ;"]),
+            (PARTIAL_BF16, 96, 0, ["SHFL.BFLY PT, R4, R5, 0x10, 0x1f ;"]),
+            (PARTIAL_Q8, 118, paged_stack,
+             ["PRMT R4, R5, 0x7440, R6 ;"]
+             + (["STL [R1+0x4], R4 ;"] if paged_spills else [])),
+            (COMBINE_BF16, 30, 0, ["MUFU.EX2 R4, R5 ;"])):
         usage += [" Function {}:".format(sym),
                   "  REG:{} STACK:{} SHARED:0 LOCAL:0 CONSTANT[0]:612 "
                   "TEXTURE:0 SURFACE:0 SAMPLER:0".format(reg, stack)]
@@ -70,6 +84,9 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True) -> str:
     (DQ_TC, "flash_dq_tc<128>"),
     (DQ_F32, "flash_bwd_dq<f32,128>"),
     (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
+    (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
+    (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
+    (COMBINE_BF16, "paged_combine<bf16>"),
     ("not_a_mangled_name", "not_a_mangled_name"),
 ])
 def test_short_names_of_the_mangled_kernels(sym, short):
@@ -89,6 +106,12 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
                                       local_ops=0, tensor_core_ops=0),
         "flash_fwd<bf16,f32,64>": dict(registers=128, stack_bytes=0,
                                        local_ops=0, tensor_core_ops=0),
+        "paged_partial<bf16,bf16,false,4,4>": dict(
+            registers=96, stack_bytes=0, local_ops=0, tensor_core_ops=0),
+        "paged_partial<f32,i8,true,8,2>": dict(
+            registers=118, stack_bytes=0, local_ops=0, tensor_core_ops=0),
+        "paged_combine<bf16>": dict(registers=30, stack_bytes=0,
+                                    local_ops=0, tensor_core_ops=0),
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -119,6 +142,26 @@ def test_a_library_without_the_tensor_core_dq_fails():
         "flash_dq_tc: not in the library"]
 
 
+def test_a_spilling_paged_kernel_fails_the_build_check():
+    """The paged kernels need no tensor-core instructions, but a spill
+    (a stack frame or a local load / store) fails them."""
+    report = chip_smoke.parse_cuobjdump(_dump(paged_stack=8,
+                                              paged_spills=True))
+    row = report["paged_partial<f32,i8,true,8,2>"]
+    assert row["stack_bytes"] == 8 and row["local_ops"] == 1
+    assert chip_smoke.build_failures(report) == [
+        "paged_partial<f32,i8,true,8,2>: spills (stack 8 bytes, 1 local "
+        "loads/stores)"]
+
+
+@pytest.mark.parametrize("name", ["paged_partial", "paged_combine"])
+def test_a_library_without_a_paged_kernel_fails(name):
+    report = {k: r for k, r in chip_smoke.parse_cuobjdump(_dump()).items()
+              if not k.startswith(name)}
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+
+
 def test_a_report_without_resource_usage_is_not_taken_for_no_spills():
     """SASS alone leaves the stack unknown, and unknown is not zero."""
     text = _dump()
@@ -141,7 +184,7 @@ def test_the_report_needs_only_the_library(monkeypatch):
             cmd, 0, _dump(dkv_stack=16, dkv_spills=True), "")
 
     monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
-    report = chip_smoke.flash_build_report("/lib/libk.so", "/cuda/bin")
+    report = chip_smoke.kernel_build_report("/lib/libk.so", "/cuda/bin")
     assert calls == [["/cuda/bin/cuobjdump", "-res-usage", "-sass",
                       "/lib/libk.so"]]
     assert report["flash_dkv_tc<128>"]["stack_bytes"] == 16

@@ -167,6 +167,67 @@ def test_bf16_layernorm_matches_plain_on_the_card(cuda_card):
         assert torch.equal(got, tln.fused_layernorm(x, g, b)), x.shape
 
 
+PAGED_KERNEL_LENGTHS = [0, 16, 4095, 1023, 777, 2048, 31, 3000]
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data does not start on 16 bytes."""
+    off = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    off = off.view(t.shape).copy_(t)
+    assert off.data_ptr() % 16 != 0
+    return off
+
+
+def _check_paged_bf16(dev, gen, b, nh, n_kv, hd, bs, nb, lengths, quant,
+                      unaligned=False):
+    from vtpu_torch.ops import paged_attention as tpa
+    from vtpu_torch.ops.quant import quantize_int8
+
+    P = 1 + b * nb
+    q = torch.randn(b, nh, hd, device=dev, generator=gen).bfloat16()
+    k = torch.randn(P, n_kv, bs, hd, device=dev, generator=gen)
+    v = torch.randn(P, n_kv, bs, hd, device=dev, generator=gen)
+    tables = (torch.randperm(P - 1, device=dev, generator=gen)
+              + 1).to(torch.int32).reshape(b, nb)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if quant:
+        kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+        pools, scales = (kq.q, vq.q), (kq.scale, vq.scale)
+    else:
+        pools, scales = (k.bfloat16(), v.bfloat16()), ()
+    if unaligned:
+        pools = tuple(_unaligned(p) for p in pools)
+    args = (q, *pools, tables, lengths, *scales)
+    what = (b, nh, n_kv, hd, bs, nb, quant, unaligned)
+    got = tpa.paged_attention_decode(*args)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, tpa.paged_attention_reference(*args)) <= 2, what
+    assert torch.equal(got, tpa.paged_attention_decode(*args)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["native", "int8"])
+def test_bf16_paged_kernels_match_plain_on_the_card(cuda_card, quant):
+    """The paged kernel with a bf16 q over native bf16 pools and over int8
+    pools, within two bf16 ulps at the output's scale: the kernel-phase
+    shape of chip_smoke.py; hd 36 and hd 40, which are no whole number of
+    16-byte vectors in one of the two pool types and take the plain-load
+    staging there; block sizes 32 and 64; 8 and 1 query heads a kv head;
+    a row whose position overshoots nb_max * bs - 1; pools that are not
+    16-byte aligned.  Two calls give the same bits."""
+    gen = torch.Generator(device=cuda_card).manual_seed(1)
+    for case in [(8, 32, 8, 128, 16, 256, PAGED_KERNEL_LENGTHS),
+                 (3, 8, 2, 36, 16, 12, [0, 100, 12 * 16 + 5]),
+                 (3, 8, 2, 40, 16, 12, [17, 191, 64]),
+                 (2, 8, 2, 128, 32, 20, [20 * 32 + 7, 300]),
+                 (2, 8, 2, 128, 64, 10, [639, 64]),
+                 (2, 16, 2, 64, 16, 40, [639, 5]),
+                 (2, 4, 4, 256, 16, 40, [1, 600])]:
+        _check_paged_bf16(cuda_card, gen, *case, quant)
+    _check_paged_bf16(cuda_card, gen, 2, 8, 2, 128, 16, 40, [639, 200],
+                      quant, unaligned=True)
+
+
 FLASH_SHAPES = [  # q shape, kv heads, causal, shift, window, o dtype
     ((2, 8, 256, 128), 2, True, 0, 0, None),
     ((192, 64), 1, False, 0, 0, None),

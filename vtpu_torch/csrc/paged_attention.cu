@@ -11,25 +11,54 @@
 //
 // What bounds it on an H100: bytes.  Each row must read its valid K/V
 // (2 * (lengths[i] + 1) * n_kv * hd * element size, plus the scales for
-// int8); the flops are ~4 * H * hd per key, far below the card's rate.
-// At decode batch sizes a block per (row, kv head) would leave most of
-// the 132 SMs idle and walk a long row's blocks one after another, so
-// the work is split along the sequence as well (split-K, as in
-// flash-decoding):
+// int8); the flops are ~4 * H * hd per key, far below the card's rate,
+// so the design keeps as many bytes in flight as the SM can hold and
+// spends few instructions on each key:
 //
-//  1. paged_partial: one thread block per (split, kv head, row).  A split
-//     covers kSplitTokens consecutive key slots of the row.  The block
-//     reads the row's physical block ids from the table itself (Hopper
-//     has no scalar prefetch), stages tiles of up to 64 keys (whole
-//     logical blocks) of K and V in shared memory as f32 (int8 tiles are
-//     dequantized by their per-token scales on the way in), and the
-//     g = H / n_kv query heads of the kv head all score against each
-//     tile: one thread per (head, key) dot product, K rows padded by one
-//     float so those reads hit distinct banks.  Softmax is the
-//     reference's f32 online softmax with the -1e30 mask and scale
-//     hd^-0.5; the split's (m, l, acc) go to a scratch buffer.
-//  2. paged_combine: one block per (kv head, row) rescales the splits'
-//     partials by exp(m_s - max m) and writes acc / max(l, 1e-30).
+//  1. paged_partial: the work is split along the sequence as well
+//     (split-K, as in flash-decoding) so that a decode batch fills the
+//     card.  A split covers kSplitTokens consecutive key slots; a work
+//     item is one (row, split, kv head) that holds a valid key.  The grid
+//     is persistent, as many blocks of 4 warps as the card holds at once,
+//     and each block walks the items from its index in steps of the grid,
+//     so no block is spent on the splits past a row's end, which would
+//     hold an SM's shared memory only to exit.  For an item the block
+//     reads the split's physical block ids from the table once into
+//     shared memory (Hopper has no scalar prefetch).  K and V tiles of
+//     kTileTokens keys
+//     (whole logical blocks; each (block, kv head) is one contiguous run
+//     of bs * hd elements) are copied into shared memory in the pool's
+//     own type by 16-byte cp.async, int8 scales by 4-byte cp.async beside
+//     them, through a ring of three stages: tiles t + 1 and t + 2 are in
+//     flight while tile t is scored, and one block barrier a tile both
+//     publishes tile t and frees the stage of tile t - 1.  A split of two
+//     tiles (the 128-key split of 64-key tiles) is wholly in flight from
+//     the start and takes two stages, so more blocks fit an SM.  Where hd
+//     is no whole number of 16-byte vectors or a pool is not 16-byte
+//     aligned, the same stages are filled by plain loads.
+//  2. Warps that run alone.  Each warp takes groups of 32 / G keys of
+//     the tile (G: the g = H / n_kv query heads of the kv head, padded to
+//     4 or 8) and keeps its own f32 online softmax (m, l) and accumulator
+//     in registers.  A lane owns D = hd / 32 dims of q (pre-scaled by
+//     hd^-0.5 * log2 e, so p = exp2(s - m)) and of the accumulator for
+//     all G heads, and reads each K and V element of its keys from shared
+//     memory once.  A group's G x (32 / G) partial dot products are
+//     summed across the warp by a shuffle reduce-scatter (31 shuffles
+//     leave lane l with the score of (head l / (32 / G), key l % (32 /
+//     G))), so the softmax of a group costs one exp2 a lane; the
+//     probabilities reach all lanes through a per-warp slot in shared
+//     memory.  The warps' (m, l, acc) merge once, at the end of the split,
+//     through shared memory; the split's partial goes to a scratch buffer.
+//  3. int8 pools are never dequantized into a tile: K and V stay int8 in
+//     shared memory (four bytes become four floats with one byte_perm and
+//     one add each), the key scale multiplies the score,
+//     s = (q . k_int8) * k_scale * hd^-0.5, and the value scale the
+//     probability, acc += (p * v_scale) * v_int8.  This differs from the
+//     reference's dequantize-then-dot only by f32 rounding.
+//  4. paged_combine: one block per (kv head, row) reads each split's (m, l)
+//     for its g heads once, computes each split's weight exp2(m_s - max m)
+//     once into shared memory, and makes one coalesced pass over the
+//     splits' acc; a row with one split skips the rescale.
 //
 // Early exit: the TPU kernel walks all nb_max logical blocks; this one
 // stops after block lengths[i] / bs, the last that holds a valid key.
@@ -41,17 +70,38 @@
 // valid key by construction.  The logical block walk never passes
 // nb_max - 1, so a row whose position overshoots the table reads every
 // block it owns, as the reference's clamped gather does.
+//
+// kSplitTokens, kTileTokens and kWarps are compile-time constants (the
+// VTPU_PAGED_SPLIT, VTPU_PAGED_TILE and VTPU_PAGED_WARPS defines), chosen
+// on the card from 128 / 256 / 512 keys, 32 / 64 keys and 4 / 8 warps by
+// `chip_smoke.py --paged-sweep`: 128, 64 and 4 were fastest at the
+// serving path's lengths.  Supported: g <= 8 and hd <= 128, or g <= 4
+// and hd <= 256, where the staged tiles fit in shared memory (227 KB).
+
+#include <type_traits>
 
 #include "common.cuh"
 
+#ifndef VTPU_PAGED_SPLIT
+#define VTPU_PAGED_SPLIT 128
+#endif
+#ifndef VTPU_PAGED_TILE
+#define VTPU_PAGED_TILE 64
+#endif
+#ifndef VTPU_PAGED_WARPS
+#define VTPU_PAGED_WARPS 4
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileTokens = 64;     // keys staged per tile (whole blocks)
-constexpr int kSplitTokens = 128;   // keys per split (whole tiles)
-constexpr int kMaxAcc = 4;          // g * hd <= kMaxAcc * kThreads
+constexpr int kWarps = VTPU_PAGED_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 3;                      // two tiles in flight
+constexpr int kTileTokens = VTPU_PAGED_TILE;    // keys a tile (whole blocks)
+constexpr int kSplitTokens = VTPU_PAGED_SPLIT;  // keys a split (whole tiles)
+constexpr int kCombineThreads = 256;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Geometry {
   int g, hd, bs, nb_max, n_kv, n_heads;
@@ -77,184 +127,402 @@ inline Geometry geometry(int n_heads, int n_kv, int hd, int bs, int nb_max) {
   return G;
 }
 
+// Byte offsets of one ring stage and of the block's shared memory:
+// [ring (or, after the loop, the warps' partials)][block ids][p slots]
+// [rows' lengths and first splits]
+struct Layout {
+  int kv;      // one K or V tile, [tk, hd] in the pool's type
+  int sc;      // one scale tile, [tk] f32 (int8 pools), else 0
+  int stage;   // K, V, then the K and V scales
+  int region;  // max(ring, the warps' partials)
+  int ids;     // split_blocks block ids
+  int rows;    // offset of the rows' lengths and first splits, 2 b + 1 ints
+  int total;
+};
+
+inline int round16(int n) { return (n + 15) & ~15; }
+
+inline Layout layout(const Geometry& G, int b, int elt, bool q8, int heads,
+                     int d) {
+  Layout L;
+  const int tk = G.tile_blocks * G.bs;
+  L.kv = round16(tk * G.hd * elt);
+  L.sc = q8 ? round16(tk * 4) : 0;
+  L.stage = 2 * L.kv + 2 * L.sc;
+  // a split of fewer tiles than stages never wraps the ring: it is all
+  // in flight from the start, in as many stages as it has tiles
+  const int split_tiles = G.split_blocks / G.tile_blocks;
+  const int ring = L.stage * (split_tiles < kStages ? split_tiles : kStages);
+  const int partials = 4 * kWarps * heads * (32 * d + 2);
+  L.region = round16(ring > partials ? ring : partials);
+  L.ids = round16(4 * G.split_blocks);
+  L.rows = L.region + L.ids + 4 * kWarps * 64;
+  L.total = L.rows + 4 * (2 * b + 1);
+  return L;
+}
+
 __device__ __forceinline__ int valid_blocks(int len, const Geometry& G) {
   if (len < 0) return 0;
   const int n = len / G.bs + 1;
   return n < G.nb_max ? n : G.nb_max;
 }
 
-// Stage logical blocks [lb0, lb0 + nblk) of one kv head of a pool as f32
-// rows of `stride` floats (token t of the tile at dst[t * stride]).
-// SCALE multiplies each token by its scale (int8 pools).
-template <typename ELT, bool SCALE>
-__device__ __forceinline__ void load_tile(
-    float* dst, int stride, const ELT* __restrict__ pool,
-    const float* __restrict__ scale, const int* __restrict__ table_row,
-    int lb0, int nblk, int kvh, const Geometry& G, bool vec) {
-  constexpr int EPV = 16 / sizeof(ELT);  // elements per 16-byte vector
+// -- staging -----------------------------------------------------------------
+// Logical blocks ids[0 .. nb) of kv head kvh of one pool into dst as
+// [nb * bs, hd] in the pool's type: 16-byte cp.async copies (vec), else
+// plain loads.
+template <typename ELT>
+__device__ __forceinline__ void stage_pool(ELT* dst,
+                                           const ELT* __restrict__ pool,
+                                           const int* ids, int nb, int kvh,
+                                           const Geometry& G, bool vec) {
   const int per_block = G.bs * G.hd;
-  const int n = nblk * per_block;
-  if (vec) {
-    for (int i = threadIdx.x; i < n / EPV; i += kThreads) {
-      const int c0 = i * EPV;
-      const int blk = c0 / per_block, r = c0 % per_block;
-      const size_t phys = static_cast<size_t>(table_row[lb0 + blk]);
-      const size_t base = (phys * G.n_kv + kvh) * per_block;
-      uint4 u = *reinterpret_cast<const uint4*>(pool + base + r);
-      const ELT* e = reinterpret_cast<const ELT*>(&u);
-      const int tok = blk * G.bs + r / G.hd;
-      const int dim = r % G.hd;  // hd % EPV == 0: one token per vector
-      const float s =
-          SCALE ? scale[(phys * G.n_kv + kvh) * G.bs + r / G.hd] : 1.f;
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) {
-        float f = vtpu::to_f32(e[j]);
-        if (SCALE) f *= s;
-        dst[tok * stride + dim + j] = f;
-      }
-    }
-  } else {
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      const int blk = c / per_block, r = c % per_block;
-      const size_t phys = static_cast<size_t>(table_row[lb0 + blk]);
-      const size_t base = (phys * G.n_kv + kvh) * per_block;
-      float f = vtpu::to_f32(pool[base + r]);
-      if (SCALE) f *= scale[(phys * G.n_kv + kvh) * G.bs + r / G.hd];
-      dst[(blk * G.bs + r / G.hd) * stride + r % G.hd] = f;
+  for (int blk = 0; blk < nb; ++blk) {
+    const ELT* src =
+        pool + (static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * per_block;
+    ELT* d = dst + blk * per_block;
+    if (vec) {
+      constexpr int EPV = 16 / sizeof(ELT);
+      for (int c = threadIdx.x * EPV; c < per_block; c += kThreads * EPV)
+        vtpu::cp_async16(vtpu::smem_u32(d + c), src + c, true);
+    } else {
+      for (int c = threadIdx.x; c < per_block; c += kThreads) d[c] = src[c];
     }
   }
 }
 
-template <typename T, typename ELT, bool Q8>
-__global__ void __launch_bounds__(kThreads)
+// The per-token scales of the same blocks, [nb * bs] f32
+__device__ __forceinline__ void stage_scales(float* dst,
+                                             const float* __restrict__ sc,
+                                             const int* ids, int nb, int kvh,
+                                             const Geometry& G) {
+  for (int i = threadIdx.x; i < nb * G.bs; i += kThreads) {
+    const int blk = i / G.bs, t = i - blk * G.bs;
+    const size_t src = (static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * G.bs;
+    vtpu::cp_async4(vtpu::smem_u32(dst + i), sc + src + t, true);
+  }
+}
+
+// -- one lane's dims of a key row -------------------------------------------
+template <int W>
+__device__ __forceinline__ void load_words(uint32_t (&w)[W], const void* p) {
+  if constexpr (W == 1) {
+    w[0] = *static_cast<const uint32_t*>(p);
+  } else if constexpr (W == 2) {
+    const uint2 u = *static_cast<const uint2*>(p);
+    w[0] = u.x, w[1] = u.y;
+  } else {
+    static_assert(W % 4 == 0, "whole 16-byte vectors");
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 u = static_cast<const uint4*>(p)[i];
+      w[4 * i] = u.x, w[4 * i + 1] = u.y, w[4 * i + 2] = u.z,
+      w[4 * i + 3] = u.w;
+    }
+  }
+}
+
+// f[d] = row[d0 + d] as f32 for d < D; zero past hd or when !ok.  Where
+// hd == 32 * D the lane's D elements are one aligned vector: bf16 pairs
+// widen by a shift and a mask, int8 quads by a byte_perm into the
+// mantissa of 2^23 and one subtraction (exact for -128..127).
+template <typename ELT, int D>
+__device__ __forceinline__ void load_dims(float (&f)[D],
+                                          const ELT* __restrict__ row,
+                                          int d0, int hd, bool ok) {
+  constexpr int B = D * static_cast<int>(sizeof(ELT));
+  if constexpr (B >= 4) {
+    if (ok && hd == 32 * D) {
+      uint32_t w[B / 4];
+      load_words<B / 4>(w, row + d0);
+      if constexpr (std::is_same_v<ELT, float>) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) f[d] = __uint_as_float(w[d]);
+      } else if constexpr (std::is_same_v<ELT, __nv_bfloat16>) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          f[2 * i] = __uint_as_float(w[i] << 16);
+          f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < D / 4; ++i) {
+          const uint32_t u = w[i] ^ 0x80808080u;  // b + 128 in each byte
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            f[4 * i + j] =
+                __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) -
+                8388736.f;  // 2^23 + 128
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    f[d] = ok && d0 + d < hd ? vtpu::to_f32(row[d0 + d]) : 0.f;
+}
+
+// Reduce-scatter across the warp: on entry each lane holds 32 partial
+// sums v[0..32); on return v[0] of lane l is the warp's sum of slot l.
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[32], int lane) {
+  const bool hi = lane & N;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = hi ? v[i] : v[i + N];
+    const float keep = hi ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, N);
+  }
+  if constexpr (N > 1) reduce_scatter<N / 2>(v, lane);
+}
+
+// max / sum over the KG lanes of a lane's segment (aligned, KG a power of 2)
+template <int KG>
+__device__ __forceinline__ float seg_max(float x) {
+#pragma unroll
+  for (int o = KG / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+template <int KG>
+__device__ __forceinline__ float seg_sum(float x) {
+#pragma unroll
+  for (int o = KG / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// -- the split's partial -----------------------------------------------------
+// G: query heads a kv head, padded (g <= G; heads past g hold q = 0 and
+// are never written); D: dims a lane (hd <= 32 * D).
+template <typename T, typename ELT, bool Q8, int G, int D>
+__device__ __forceinline__ void split_partial(
+    unsigned char* smem, const T* __restrict__ q, const ELT* __restrict__ kp,
+    const ELT* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ tables,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    const Geometry& Gm, const Layout& L, float sm_scale, bool vec, int row,
+    int kvh, int split, int len) {
+  constexpr int KG = 32 / G;  // keys of a group: G * KG = 32 score slots
+  const int lb_begin = split * Gm.split_blocks;
+  const int nsb = min(Gm.split_blocks, valid_blocks(len, Gm) - lb_begin);
+  const int ntiles = (nsb + Gm.tile_blocks - 1) / Gm.tile_blocks;
+  const int g = Gm.g, hd = Gm.hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d0 = lane * D;
+
+  int* ids = reinterpret_cast<int*>(smem + L.region);
+  float* slots = reinterpret_cast<float*>(smem + L.region + L.ids) +
+                 warp * 64;  // [32] p (times v_scale), [32] alpha
+  const int* trow = tables + static_cast<size_t>(row) * Gm.nb_max + lb_begin;
+  __syncthreads();  // the block's previous split is done with its memory
+  for (int i = threadIdx.x; i < nsb; i += kThreads) ids[i] = trow[i];
+
+  float qr[G][D], acc[G][D];
+  const T* qrow = q + (static_cast<size_t>(row) * Gm.n_heads + kvh * g) * hd;
+  const float qscale = sm_scale * kLog2e;
+#pragma unroll
+  for (int h = 0; h < G; ++h)
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      qr[h][d] = h < g && d0 + d < hd
+                     ? vtpu::to_f32(qrow[h * hd + d0 + d]) * qscale
+                     : 0.f;
+      acc[h][d] = 0.f;
+    }
+  float m = kNegInf, l = 0.f;  // of head lane / KG, in log2 units
+  __syncthreads();             // ids
+
+  auto issue = [&](int t) {
+    unsigned char* st = smem + (t % kStages) * L.stage;
+    const int lb0 = t * Gm.tile_blocks;
+    const int nb = min(Gm.tile_blocks, nsb - lb0);
+    stage_pool(reinterpret_cast<ELT*>(st), kp, ids + lb0, nb, kvh, Gm, vec);
+    stage_pool(reinterpret_cast<ELT*>(st + L.kv), vp, ids + lb0, nb, kvh, Gm,
+               vec);
+    if constexpr (Q8) {
+      stage_scales(reinterpret_cast<float*>(st + 2 * L.kv), ks, ids + lb0,
+                   nb, kvh, Gm);
+      stage_scales(reinterpret_cast<float*>(st + 2 * L.kv + L.sc), vs,
+                   ids + lb0, nb, kvh, Gm);
+    }
+  };
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) issue(t);
+    vtpu::cp_commit();
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    vtpu::cp_wait<kStages - 2>();  // this thread's copies of tile t landed
+    __syncthreads();  // everyone's have; tile t - 1's stage is free
+    if (t + kStages - 1 < ntiles) issue(t + kStages - 1);
+    vtpu::cp_commit();
+
+    const unsigned char* st = smem + (t % kStages) * L.stage;
+    const ELT* k_s = reinterpret_cast<const ELT*>(st);
+    const ELT* v_s = reinterpret_cast<const ELT*>(st + L.kv);
+    const float* ks_s = reinterpret_cast<const float*>(st + 2 * L.kv);
+    const float* vs_s = reinterpret_cast<const float*>(st + 2 * L.kv + L.sc);
+    const int lb0 = t * Gm.tile_blocks;
+    const int key0 = (lb_begin + lb0) * Gm.bs;
+    // keys [0, last) of the tile are valid
+    const int last = min(min(Gm.tile_blocks, nsb - lb0) * Gm.bs,
+                         len - key0 + 1);
+    for (int j0 = warp * KG; j0 < last; j0 += kWarps * KG) {
+      float v[32];
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {
+        float kf[D];
+        load_dims<ELT, D>(kf, k_s + (j0 + kk) * hd, d0, hd, j0 + kk < last);
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) s = fmaf(qr[h][d], kf[d], s);
+          v[h * KG + kk] = s;
+        }
+      }
+      reduce_scatter<16>(v, lane);
+      const int j = j0 + lane % KG;  // this lane's key; head lane / KG
+      const bool ok = j < last;
+      float s = v[0];
+      if constexpr (Q8) s *= ok ? ks_s[j] : 0.f;
+      s = ok ? s : kNegInf;
+      const float m_new = fmaxf(m, seg_max<KG>(s));
+      const float p = ok ? exp2f(s - m_new) : 0.f;
+      const float alpha = exp2f(m - m_new);
+      l = l * alpha + seg_sum<KG>(p);
+      m = m_new;
+      __syncwarp();  // the previous group's slots are read
+      slots[lane] = Q8 && ok ? p * vs_s[j] : p;
+      slots[32 + lane] = alpha;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {  // every slot's p, as broadcast reads
+        const float4 x = reinterpret_cast<const float4*>(slots)[i];
+        v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
+        v[4 * i + 3] = x.w;
+      }
+      if (__any_sync(0xffffffffu, alpha != 1.f)) {  // a head's max rose
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          const float a = slots[32 + h * KG];
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[h][d] *= a;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KG; ++kk) {  // p = 0 and v = 0 past `last`
+        float vf[D];
+        load_dims<ELT, D>(vf, v_s + (j0 + kk) * hd, d0, hd, j0 + kk < last);
+#pragma unroll
+        for (int h = 0; h < G; ++h)
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            acc[h][d] = fmaf(v[h * KG + kk], vf[d], acc[h][d]);
+      }
+    }
+  }
+
+  // merge the warps' (m, l, acc) through the ring's memory
+  vtpu::cp_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* red_acc = reinterpret_cast<float*>(smem);  // [kWarps, G, 32 * D]
+  float* red_m = red_acc + kWarps * G * 32 * D;     // [kWarps, G]
+  float* red_l = red_m + kWarps * G;                // [kWarps, G]
+#pragma unroll
+  for (int h = 0; h < G; ++h)
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      red_acc[(warp * G + h) * 32 * D + d0 + d] = acc[h][d];
+  if (lane % KG == 0) {
+    red_m[warp * G + lane / KG] = m;
+    red_l[warp * G + lane / KG] = l;
+  }
+  __syncthreads();
+  const size_t part =
+      (static_cast<size_t>(row) * Gm.n_kv + kvh) * Gm.n_splits + split;
+  if (threadIdx.x < g) {  // weights of the warps, in place of their m
+    const int h = threadIdx.x;
+    float mx = kNegInf;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w * G + h]);
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(red_m[w * G + h] - mx);
+      red_m[w * G + h] = wt;
+      sum += red_l[w * G + h] * wt;
+    }
+    part_ml[(part * g + h) * 2] = mx;
+    part_ml[(part * g + h) * 2 + 1] = sum;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < g * hd; e += kThreads) {
+    const int h = e / hd, c = e - h * hd;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      a += red_acc[(w * G + h) * 32 * D + c] * red_m[w * G + h];
+    part_acc[part * g * hd + e] = a;
+  }
+}
+
+// One block of kThreads per resident slot of the card (a persistent
+// grid): every block reads the rows' lengths, counts each row's splits
+// (splits past a row's last valid key are no work) and walks the work
+// items (row, split, kv head), kv head fastest, from blockIdx.x in steps
+// of gridDim.x.  Items are equal in size but for a row's last split.
+template <typename T, typename ELT, bool Q8, int G, int D>
+__global__ void __launch_bounds__(kThreads, 1)
     paged_partial(const T* __restrict__ q, const ELT* __restrict__ kp,
                   const ELT* __restrict__ vp, const float* __restrict__ ks,
                   const float* __restrict__ vs,
                   const int* __restrict__ tables,
                   const int* __restrict__ lengths,
                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  Geometry G, float sm_scale, bool vec) {
-  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
-  const int len = lengths[row];
-  const int nblk = valid_blocks(len, G);
-  const int lb_begin = split * G.split_blocks;
-  if (lb_begin >= nblk) return;  // nothing valid in this split
-  const int lb_end = min(lb_begin + G.split_blocks, nblk);
-  const int g = G.g, hd = G.hd;
-  const int tk = G.tile_blocks * G.bs;  // keys per full tile
-  const int kstride = hd + 1;           // padded K rows: conflict-free dots
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [g, hd]
-  float* k_s = q_s + g * hd;         // [tk, hd + 1]
-  float* v_s = k_s + tk * kstride;   // [tk, hd]
-  float* p_s = v_s + tk * hd;        // [g, tk] scores, then probabilities
-  float* m_s = p_s + g * tk;         // [g]
-  float* l_s = m_s + g;              // [g]
-  float* a_s = l_s + g;              // [g] rescale of the current tile
-
-  const T* qr = q + (static_cast<size_t>(row) * G.n_heads + kvh * g) * hd;
-  for (int e = threadIdx.x; e < g * hd; e += kThreads)
-    q_s[e] = vtpu::to_f32(qr[e]);
-  if (threadIdx.x < g) {
-    m_s[threadIdx.x] = kNegInf;
-    l_s[threadIdx.x] = 0.f;
-  }
-  float acc[kMaxAcc];
+                  Geometry Gm, Layout L, int b, float sm_scale, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* lens = reinterpret_cast<int*>(smem + L.rows);  // [b]
+  int* first = lens + b;  // [b + 1]: the row's first split in the walk
+  if (threadIdx.x < 32) {  // one warp scans the rows' split counts
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int base = 0; base < b; base += 32) {
+      const int i = base + lane;
+      const int len = i < b ? lengths[i] : -1;
+      int n = (valid_blocks(len, Gm) + Gm.split_blocks - 1) / Gm.split_blocks;
 #pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
-
-  const int* table_row = tables + static_cast<size_t>(row) * G.nb_max;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* ks_h = Q8 ? ks : nullptr;
-  const float* vs_h = Q8 ? vs : nullptr;
-
-  for (int lb0 = lb_begin; lb0 < lb_end; lb0 += G.tile_blocks) {
-    const int nb = min(G.tile_blocks, lb_end - lb0);
-    const int key0 = lb0 * G.bs;
-    __syncthreads();  // the previous tile is consumed (and q_s is set)
-    load_tile<ELT, Q8>(k_s, kstride, kp, ks_h, table_row, lb0, nb, kvh, G,
-                       vec);
-    load_tile<ELT, Q8>(v_s, hd, vp, vs_h, table_row, lb0, nb, kvh, G, vec);
-    __syncthreads();
-
-    // scores: one thread per (head, key)
-    for (int pi = threadIdx.x; pi < g * tk; pi += kThreads) {
-      const int h = pi / tk, j = pi % tk;
-      float s = kNegInf;
-      if (j < nb * G.bs && key0 + j <= len) {
-        const float* qh = q_s + h * hd;
-        const float* kj = k_s + j * kstride;
-        float d = 0.f;
-        for (int c = 0; c < hd; ++c) d += qh[c] * kj[c];
-        s = d * sm_scale;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, n, o);
+        if (lane >= o) n += up;
       }
-      p_s[pi] = s;
+      if (i < b) {
+        lens[i] = len;
+        first[i + 1] = carry + n;
+      }
+      carry += __shfl_sync(0xffffffffu, n, 31);
     }
-    __syncthreads();
-
-    // online softmax bookkeeping: one warp per query head
-    for (int h = warp; h < g; h += kWarps) {
-      float mx = kNegInf;
-      for (int j = lane; j < tk; j += 32) mx = fmaxf(mx, p_s[h * tk + j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[h];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < tk; j += 32) {
-        const bool ok = j < nb * G.bs && key0 + j <= len;
-        const float p = ok ? expf(p_s[h * tk + j] - m_new) : 0.f;
-        p_s[h * tk + j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[h] = l_s[h] * alpha + sum;
-        m_s[h] = m_new;
-        a_s[h] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ V; thread owns (head, dim) slots
-#pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < g * hd) {
-        const int h = e / hd, c = e % hd;
-        float a = acc[i] * a_s[h];
-        const float* ph = p_s + h * tk;
-        const int nk = nb * G.bs;
-        for (int j = 0; j < nk; ++j) {
-          const float p = ph[j];
-          if (p != 0.f) a += p * v_s[j * hd + c];
-        }
-        acc[i] = a;
-      }
-    }
+    if (lane == 0) first[0] = 0;
   }
-
-  const size_t part =
-      ((static_cast<size_t>(row) * G.n_kv + kvh) * G.n_splits + split);
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    if (e < g * hd) part_acc[part * g * hd + e] = acc[i];
-  }
-  __syncthreads();  // l_s / m_s final
-  if (threadIdx.x < g) {
-    part_ml[(part * g + threadIdx.x) * 2] = m_s[threadIdx.x];
-    part_ml[(part * g + threadIdx.x) * 2 + 1] = l_s[threadIdx.x];
+  __syncthreads();
+  const int items = first[b] * Gm.n_kv;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int kvh = it % Gm.n_kv, s = it / Gm.n_kv;
+    int lo = 0, hi = b;  // the row: the last with first[row] <= s
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (first[mid] <= s) lo = mid;
+      else hi = mid;
+    }
+    split_partial<T, ELT, Q8, G, D>(smem, q, kp, vp, ks, vs, tables,
+                                    part_acc, part_ml, Gm, L, sm_scale, vec,
+                                    lo, kvh, s - first[lo], lens[lo]);
   }
 }
 
+// -- the splits' merge -------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCombineThreads)
     paged_combine(const float* __restrict__ part_acc,
                   const float* __restrict__ part_ml,
                   const int* __restrict__ lengths, T* __restrict__ out,
@@ -265,20 +533,98 @@ __global__ void __launch_bounds__(kThreads)
   const int ns = (nblk + G.split_blocks - 1) / G.split_blocks;
   const size_t part0 =
       (static_cast<size_t>(row) * G.n_kv + kvh) * G.n_splits;
+  const float* acc = part_acc + part0 * g * hd;
+  const float* ml = part_ml + part0 * g * 2;
   T* orow = out + (static_cast<size_t>(row) * G.n_heads + kvh * g) * hd;
-  for (int e = threadIdx.x; e < g * hd; e += kThreads) {
-    const int h = e / hd;
-    float m = kNegInf;
-    for (int s = 0; s < ns; ++s)
-      m = fmaxf(m, part_ml[((part0 + s) * g + h) * 2]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      const float w = expf(part_ml[((part0 + s) * g + h) * 2] - m);
-      l += part_ml[((part0 + s) * g + h) * 2 + 1] * w;
-      a += part_acc[(part0 + s) * g * hd + e] * w;
-    }
-    orow[e] = vtpu::from_f32<T>(a / fmaxf(l, 1e-30f));
+  if (ns == 1) {  // the one split's partial is the row's whole sum
+    for (int e = threadIdx.x; e < g * hd; e += kCombineThreads)
+      orow[e] = vtpu::from_f32<T>(acc[e] / fmaxf(ml[(e / hd) * 2 + 1],
+                                                 1e-30f));
+    return;
   }
+  extern __shared__ float w_s[];  // [ns, g] weights, then [g] l
+  float* l_s = w_s + ns * g;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int h = warp; h < g; h += kCombineThreads / 32) {
+    float mx = kNegInf;
+    for (int s = lane; s < ns; s += 32) mx = fmaxf(mx, ml[(s * g + h) * 2]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int s = lane; s < ns; s += 32) {
+      const float w = exp2f(ml[(s * g + h) * 2] - mx);
+      w_s[s * g + h] = w;
+      sum += ml[(s * g + h) * 2 + 1] * w;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) l_s[h] = fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < g * hd; e += kCombineThreads) {
+    const int h = e / hd;
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < ns; ++s) a += acc[s * g * hd + e] * w_s[s * g + h];
+    orow[e] = vtpu::from_f32<T>(a / l_s[h]);
+  }
+}
+
+// Blocks of `kernel` the card holds at once with `smem` bytes each: the
+// grid of a persistent kernel
+template <typename K>
+int resident_blocks(K kernel, int threads, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return sms * per_sm;
+}
+
+template <typename T, typename ELT, bool Q8, int G, int D>
+int run(const void* q, const void* kp, const void* vp, const void* ks,
+        const void* vs, const void* tables, const void* lengths, void* out,
+        void* scratch, int b, const Geometry& Gm, float sm_scale,
+        cudaStream_t st) {
+  constexpr int EPV = 16 / sizeof(ELT);
+  const bool vec =
+      Gm.hd % EPV == 0 && vtpu::aligned16(kp) && vtpu::aligned16(vp);
+  const Layout L = layout(Gm, b, sizeof(ELT), Q8, G, D);
+  auto partial = paged_partial<T, ELT, Q8, G, D>;
+  cudaError_t e = vtpu::allow_smem(partial, L.total);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t combine_smem =
+      sizeof(float) * (static_cast<size_t>(Gm.n_splits) + 1) * Gm.g;
+  e = vtpu::allow_smem(paged_combine<T>, combine_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long most = static_cast<long long>(b) * Gm.n_kv * Gm.n_splits;
+  // computed once for each shared memory size (a wrong count after a
+  // change of device costs time, not results)
+  static int cached_smem = -1, resident = 0;
+  if (L.total != cached_smem) {
+    resident = resident_blocks(partial, kThreads, L.total);
+    cached_smem = L.total;
+  }
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = most < resident ? static_cast<int>(most) : resident;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + static_cast<size_t>(b) * Gm.n_kv *
+                                  Gm.n_splits * Gm.g * Gm.hd;
+  partial<<<grid, kThreads, L.total, st>>>(
+      static_cast<const T*>(q), static_cast<const ELT*>(kp),
+      static_cast<const ELT*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), part_acc, part_ml, Gm, L, b,
+      sm_scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  paged_combine<T><<<dim3(Gm.n_kv, b), kCombineThreads, combine_smem, st>>>(
+      part_acc, part_ml, static_cast<const int*>(lengths),
+      static_cast<T*>(out), Gm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename ELT, bool Q8>
@@ -290,33 +636,22 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
       nb_max <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geometry G = geometry(n_heads, n_kv, hd, bs, nb_max);
-  if (G.g * hd > kMaxAcc * kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int EPV = 16 / sizeof(ELT);
-  const bool vec = hd % EPV == 0 && vtpu::aligned16(kp) &&
-                   vtpu::aligned16(vp);
-  const size_t tk = static_cast<size_t>(G.tile_blocks) * bs;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(G.g) * hd + tk * (hd + 1) +
-                       tk * hd + G.g * tk + 3 * G.g);
-  auto partial = paged_partial<T, ELT, Q8>;
-  cudaError_t e = vtpu::allow_smem(partial, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  float* part_acc = static_cast<float*>(scratch);
-  float* part_ml =
-      part_acc + static_cast<size_t>(b) * n_kv * G.n_splits * G.g * hd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  partial<<<dim3(G.n_splits, n_kv, b), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const ELT*>(kp),
-      static_cast<const ELT*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), part_acc, part_ml, G, sm_scale, vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  paged_combine<T><<<dim3(n_kv, b), kThreads, 0, st>>>(
-      part_acc, part_ml, static_cast<const int*>(lengths),
-      static_cast<T*>(out), G);
-  return static_cast<int>(cudaGetLastError());
+#define VTPU_PAGED_RUN(GG, DD)                                            \
+  return run<T, ELT, Q8, GG, DD>(q, kp, vp, ks, vs, tables, lengths, out, \
+                                 scratch, b, G, sm_scale, st)
+  if (G.g <= 4) {
+    if (hd <= 32) VTPU_PAGED_RUN(4, 1);
+    if (hd <= 64) VTPU_PAGED_RUN(4, 2);
+    if (hd <= 128) VTPU_PAGED_RUN(4, 4);
+    if (hd <= 256) VTPU_PAGED_RUN(4, 8);
+  } else if (G.g <= 8) {
+    if (hd <= 32) VTPU_PAGED_RUN(8, 1);
+    if (hd <= 64) VTPU_PAGED_RUN(8, 2);
+    if (hd <= 128) VTPU_PAGED_RUN(8, 4);
+  }
+#undef VTPU_PAGED_RUN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
