@@ -2,8 +2,7 @@
 """Drive the PyTorch port's paged serving and training paths on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py                # all phases, full width (one card)
-    python3 chip_smoke.py --paged-sweep  # the paged kernel's split / tile
+    python3 chip_smoke.py            # all phases, full width (one card)
 
 Phases (each prints one JSON line; any failure exits non-zero):
 
@@ -348,91 +347,6 @@ def paged_phase(card: str, gen, seed: int) -> dict:
                 if dtype == torch.bfloat16 and shape == "kernel":
                     summary[name] = row
     return summary
-
-
-def paged_breakdown(card: str, gen, seed: int) -> None:
-    """The port's paged kernel, bf16, split into its two launches by
-    torch.profiler (median device time of each over 20 calls) at the
-    kernel-phase lengths, the serve lengths, one split a row (255) and
-    one key a row (0, the fixed cost of a call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from vtpu_torch.ops.paged_attention import paged_attention_decode
-
-    for shape, lengths in (("kernel", KERNEL_LENGTHS),
-                           ("serve", serve_lengths(seed)),
-                           ("one_split", [255] * 8), ("one_key", [0] * 8)):
-        for quant in (False, True):
-            args = paged_inputs(gen, torch.bfloat16, quant, lengths)
-            ms = time_ms(lambda: paged_attention_decode(*args))
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    paged_attention_decode(*args)
-                torch.cuda.synchronize()
-            us = {"paged_partial": [], "paged_combine": []}
-            for e in prof.events():
-                for k, v in us.items():
-                    if (e.device_type == torch.autograd.DeviceType.CUDA
-                            and k in e.name):
-                        v.append(e.time_range.elapsed_us())
-            emit(phase="paged_breakdown", shape=shape,
-                 kernel="paged_decode_q8" if quant else "paged_decode",
-                 dtype="bfloat16", lengths=lengths, ms=ms,
-                 **{f"{k}_us": sorted(v)[len(v) // 2] for k, v in us.items()},
-                 card=card)
-
-
-def paged_sweep(card: str, gen, seed: int) -> None:
-    """``--paged-sweep``: :func:`paged_breakdown`, then the paged kernel
-    built with each split (128,
-    256, 512 keys), tile (32, 64 keys) and block (4, 8 warps), timed in
-    bf16, native and int8,
-    at the kernel-phase and serve lengths.  Each variant is timed twice,
-    in turns (all variants, then all again in reverse order), on the same
-    inputs, and held to the plain version's tolerance."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-
-    from vtpu_torch.ops import _build
-    from vtpu_torch.ops.paged_attention import (
-        launch, paged_attention_reference)
-
-    paged_breakdown(card, gen, seed)
-    variants = [(split, tile, warps) for split in (128, 256, 512)
-                for tile in (32, 64) for warps in (4, 8)]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as ex:
-        libs = list(ex.map(lambda v: _build.paged_variant(
-            [f"-DVTPU_PAGED_SPLIT={v[0]}", f"-DVTPU_PAGED_TILE={v[1]}",
-             f"-DVTPU_PAGED_WARPS={v[2]}"]), variants))
-    emit(phase="paged_sweep_build", seconds=time.perf_counter() - t0,
-         card=card)
-    for shape, lengths in (("kernel", KERNEL_LENGTHS),
-                           ("serve", serve_lengths(seed))):
-        for quant in (False, True):
-            args = paged_inputs(gen, torch.bfloat16, quant, lengths)
-            ref = paged_attention_reference(*args).float()
-            nbytes, ops = paged_bytes_ops(args, quant)
-            b_ms, b_by = bound(nbytes, ops, "int8" if quant else "bfloat16")
-            times = {v: [] for v in variants}
-            errs = {}
-            for order in (variants, variants[::-1]):
-                for v in order:
-                    lib = libs[variants.index(v)]
-                    got = launch(lib, *args).float()
-                    errs[v] = float((got - ref).abs().max())
-                    times[v].append(time_ms(lambda: launch(lib, *args)))
-            for v in variants:
-                emit(phase="paged_sweep", shape=shape,
-                     kernel="paged_decode_q8" if quant else "paged_decode",
-                     dtype="bfloat16", split=v[0], tile=v[1], warps=v[2],
-                     ms=times[v], max_abs_err=errs[v], tol=bf16_tol(ref),
-                     bound_ms=b_ms, bound_by=b_by, lengths=lengths,
-                     card=card)
-                check(errs[v] <= bf16_tol(ref),
-                      f"paged sweep {v} {shape}: err {errs[v]}")
 
 
 # -- phase 5: the flash-attention kernels ----------------------------------
@@ -1028,9 +942,6 @@ def train_exactness_bf16_phase(card: str, seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--paged-sweep", action="store_true",
-                    help="only time the paged kernel's split and tile "
-                         "sizes (builds one library per pair)")
     args = ap.parse_args()
 
     import torch
@@ -1060,9 +971,6 @@ def main() -> int:
     if _build.build_log:
         print(_build.build_log, file=sys.stderr)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    if args.paged_sweep:
-        paged_sweep(card, gen, args.seed)
-        return 0
     failures = build_failures(report)
     check(not failures, "; ".join(failures))
     rows = {"fused_layernorm": layernorm_phase(card, gen),

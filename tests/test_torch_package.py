@@ -110,10 +110,15 @@ def test_kernels_match_plain_on_the_card(cuda_card):
         err = (tln.fused_layernorm(x, g, b)
                - tln._reference_ln(x, g, b)).abs().max().item()
         assert err <= 2e-5
-    # one split and several; block sizes below and at the tile width
+    # one split and several; block sizes below and at the tile width;
+    # hd 256, whose K and V tiles take turns in one stage; 16 and 32
+    # query heads a kv head
     for bsz, nh, n_kv, hd, bs, nb in [(3, 8, 2, 64, 16, 4),
                                       (4, 32, 8, 128, 16, 64),
-                                      (2, 4, 4, 32, 8, 80)]:
+                                      (2, 4, 4, 32, 8, 80),
+                                      (4, 4, 1, 256, 16, 20),
+                                      (4, 32, 2, 64, 16, 20),
+                                      (4, 32, 1, 32, 16, 20)]:
         P = 1 + bsz * nb
         q = torch.randn(bsz, nh, hd, device=cuda_card, generator=gen)
         k = torch.randn(P, n_kv, bs, hd, device=cuda_card, generator=gen)
@@ -212,7 +217,8 @@ def test_bf16_paged_kernels_match_plain_on_the_card(cuda_card, quant):
     pools, within two bf16 ulps at the output's scale: the kernel-phase
     shape of chip_smoke.py; hd 36 and hd 40, which are no whole number of
     16-byte vectors in one of the two pool types and take the plain-load
-    staging there; block sizes 32 and 64; 8 and 1 query heads a kv head;
+    staging there; block sizes 32 and 64; 32, 8 and 1 query heads a kv
+    head;
     a row whose position overshoots nb_max * bs - 1; pools that are not
     16-byte aligned.  Two calls give the same bits."""
     gen = torch.Generator(device=cuda_card).manual_seed(1)
@@ -222,7 +228,8 @@ def test_bf16_paged_kernels_match_plain_on_the_card(cuda_card, quant):
                  (2, 8, 2, 128, 32, 20, [20 * 32 + 7, 300]),
                  (2, 8, 2, 128, 64, 10, [639, 64]),
                  (2, 16, 2, 64, 16, 40, [639, 5]),
-                 (2, 4, 4, 256, 16, 40, [1, 600])]:
+                 (2, 4, 4, 256, 16, 40, [1, 600]),
+                 (2, 32, 1, 32, 16, 20, [300, 7])]:
         _check_paged_bf16(cuda_card, gen, *case, quant)
     _check_paged_bf16(cuda_card, gen, 2, 8, 2, 128, 16, 40, [639, 200],
                       quant, unaligned=True)

@@ -58,12 +58,15 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Hopper's most dynamic shared memory a block
+constexpr size_t kMaxSmem = 227 * 1024;
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when it
-// asks for it (Hopper allows up to 227 KB a block).
+// asks for it.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

@@ -29,16 +29,16 @@
 //     (whole logical blocks; each (block, kv head) is one contiguous run
 //     of bs * hd elements) are copied into shared memory in the pool's
 //     own type by 16-byte cp.async, int8 scales by 4-byte cp.async beside
-//     them, through a ring of three stages: tiles t + 1 and t + 2 are in
-//     flight while tile t is scored, and one block barrier a tile both
-//     publishes tile t and frees the stage of tile t - 1.  A split of two
-//     tiles (the 128-key split of 64-key tiles) is wholly in flight from
-//     the start and takes two stages, so more blocks fit an SM.  Where hd
-//     is no whole number of 16-byte vectors or a pool is not 16-byte
-//     aligned, the same stages are filled by plain loads.
+//     them.  A split is at most two tiles, and both are issued at once,
+//     each in its own stage and cp.async group, so the second is in flight
+//     while the first is scored and the only block barrier a tile is the
+//     one that publishes it.  Where two stages do not fit in shared memory
+//     (f32 at hd 256) the tiles take turns in one stage.
+//     Where hd is no whole number of 16-byte vectors or a pool is not
+//     16-byte aligned, the stages are filled by plain loads.
 //  2. Warps that run alone.  Each warp takes groups of 32 / G keys of
 //     the tile (G: the g = H / n_kv query heads of the kv head, padded to
-//     4 or 8) and keeps its own f32 online softmax (m, l) and accumulator
+//     a power of two from 4 to 32) and keeps its own f32 online softmax (m, l) and accumulator
 //     in registers.  A lane owns D = hd / 32 dims of q (pre-scaled by
 //     hd^-0.5 * log2 e, so p = exp2(s - m)) and of the accumulator for
 //     all G heads, and reads each K and V element of its keys from shared
@@ -71,34 +71,24 @@
 // nb_max - 1, so a row whose position overshoots the table reads every
 // block it owns, as the reference's clamped gather does.
 //
-// kSplitTokens, kTileTokens and kWarps are compile-time constants (the
-// VTPU_PAGED_SPLIT, VTPU_PAGED_TILE and VTPU_PAGED_WARPS defines), chosen
-// on the card from 128 / 256 / 512 keys, 32 / 64 keys and 4 / 8 warps by
-// `chip_smoke.py --paged-sweep`: 128, 64 and 4 were fastest at the
-// serving path's lengths.  Supported: g <= 8 and hd <= 128, or g <= 4
-// and hd <= 256, where the staged tiles fit in shared memory (227 KB).
+// The split (128 keys), tile (64 keys) and block (4 warps) were chosen on
+// an H100 from 128 / 256 / 512, 32 / 64 and 4 / 8 by the kernel's times at
+// the serving path's lengths (PERF.md, PR 5).  Supported: hd <= 256 and
+// g padded to a power of two (at least 4) times hd at most 1024, wherever
+// one stage of K and V fits in shared memory (227 KB).  A lane holds
+// 2 * G * D <= 64 floats of q and acc; at G * D = 64 ptxas spills.
 
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
 
-#ifndef VTPU_PAGED_SPLIT
-#define VTPU_PAGED_SPLIT 128
-#endif
-#ifndef VTPU_PAGED_TILE
-#define VTPU_PAGED_TILE 64
-#endif
-#ifndef VTPU_PAGED_WARPS
-#define VTPU_PAGED_WARPS 4
-#endif
-
 namespace {
 
-constexpr int kWarps = VTPU_PAGED_WARPS;
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 3;                      // two tiles in flight
-constexpr int kTileTokens = VTPU_PAGED_TILE;    // keys a tile (whole blocks)
-constexpr int kSplitTokens = VTPU_PAGED_SPLIT;  // keys a split (whole tiles)
+constexpr int kTileTokens = 64;    // keys a tile (whole blocks)
+constexpr int kSplitTokens = 128;  // keys a split (one or two tiles)
 constexpr int kCombineThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -119,24 +109,23 @@ inline Geometry geometry(int n_heads, int n_kv, int hd, int bs, int nb_max) {
   G.n_kv = n_kv;
   G.n_heads = n_heads;
   G.tile_blocks = bs >= kTileTokens ? 1 : kTileTokens / bs;
-  const int tiles = (kSplitTokens / (G.tile_blocks * bs)) > 0
-                        ? kSplitTokens / (G.tile_blocks * bs)
-                        : 1;
-  G.split_blocks = tiles * G.tile_blocks;
+  const int tiles = kSplitTokens / (G.tile_blocks * bs);
+  G.split_blocks = (tiles < 1 ? 1 : tiles > 2 ? 2 : tiles) * G.tile_blocks;
   G.n_splits = (nb_max + G.split_blocks - 1) / G.split_blocks;
   return G;
 }
 
-// Byte offsets of one ring stage and of the block's shared memory:
-// [ring (or, after the loop, the warps' partials)][block ids][p slots]
+// Byte offsets of one stage and of the block's shared memory:
+// [stages (or, after the loop, the warps' partials)][block ids][p slots]
 // [rows' lengths and first splits]
 struct Layout {
   int kv;      // one K or V tile, [tk, hd] in the pool's type
   int sc;      // one scale tile, [tk] f32 (int8 pools), else 0
   int stage;   // K, V, then the K and V scales
-  int region;  // max(ring, the warps' partials)
+  int stages;  // tiles in flight: the split's tiles (1 or 2) if they fit
+  int region;  // max(stages, the warps' partials)
   int ids;     // split_blocks block ids
-  int rows;    // offset of the rows' lengths and first splits, 2 b + 1 ints
+  int rows;    // offset of the rows' lengths and first splits
   int total;
 };
 
@@ -149,15 +138,18 @@ inline Layout layout(const Geometry& G, int b, int elt, bool q8, int heads,
   L.kv = round16(tk * G.hd * elt);
   L.sc = q8 ? round16(tk * 4) : 0;
   L.stage = 2 * L.kv + 2 * L.sc;
-  // a split of fewer tiles than stages never wraps the ring: it is all
-  // in flight from the start, in as many stages as it has tiles
-  const int split_tiles = G.split_blocks / G.tile_blocks;
-  const int ring = L.stage * (split_tiles < kStages ? split_tiles : kStages);
   const int partials = 4 * kWarps * heads * (32 * d + 2);
-  L.region = round16(ring > partials ? ring : partials);
   L.ids = round16(4 * G.split_blocks);
-  L.rows = L.region + L.ids + 4 * kWarps * 64;
-  L.total = L.rows + 4 * (2 * b + 1);
+  // 2 b + 1 ints, sized for b rounded up to 64 rows so that the layout,
+  // and the occupancy cached for it, changes only every 64 rows
+  const int rows_bytes = 4 * (2 * ((b + 63) / 64 * 64) + 1);
+  for (L.stages = G.split_blocks / G.tile_blocks;; --L.stages) {
+    const int ring = L.stage * L.stages;
+    L.region = round16(ring > partials ? ring : partials);
+    L.rows = L.region + L.ids + 4 * kWarps * 64;
+    L.total = L.rows + rows_bytes;
+    if (L.stages == 1 || L.total <= static_cast<int>(vtpu::kMaxSmem)) break;
+  }
   return L;
 }
 
@@ -334,8 +326,8 @@ __device__ __forceinline__ void split_partial(
   float m = kNegInf, l = 0.f;  // of head lane / KG, in log2 units
   __syncthreads();             // ids
 
-  auto issue = [&](int t) {
-    unsigned char* st = smem + (t % kStages) * L.stage;
+  auto issue = [&](int t) {  // tile t into its stage, as one cp.async group
+    unsigned char* st = smem + (t % L.stages) * L.stage;
     const int lb0 = t * Gm.tile_blocks;
     const int nb = min(Gm.tile_blocks, nsb - lb0);
     stage_pool(reinterpret_cast<ELT*>(st), kp, ids + lb0, nb, kvh, Gm, vec);
@@ -347,19 +339,23 @@ __device__ __forceinline__ void split_partial(
       stage_scales(reinterpret_cast<float*>(st + 2 * L.kv + L.sc), vs,
                    ids + lb0, nb, kvh, Gm);
     }
-  };
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < ntiles) issue(t);
     vtpu::cp_commit();
-  }
+  };
+  // ntiles <= 2: with two stages both tiles are in flight from the start
+  const bool both = L.stages == 2 && ntiles == 2;
+  issue(0);
+  if (both) issue(1);
 
   for (int t = 0; t < ntiles; ++t) {
-    vtpu::cp_wait<kStages - 2>();  // this thread's copies of tile t landed
-    __syncthreads();  // everyone's have; tile t - 1's stage is free
-    if (t + kStages - 1 < ntiles) issue(t + kStages - 1);
-    vtpu::cp_commit();
+    if (t > 0 && !both) {
+      __syncthreads();  // every warp is done with the one stage
+      issue(t);
+    }
+    if (both && t == 0) vtpu::cp_wait<1>();  // this thread's tile 0 landed
+    else vtpu::cp_wait<0>();
+    __syncthreads();  // everyone's copies of tile t have
 
-    const unsigned char* st = smem + (t % kStages) * L.stage;
+    const unsigned char* st = smem + (t % L.stages) * L.stage;
     const ELT* k_s = reinterpret_cast<const ELT*>(st);
     const ELT* v_s = reinterpret_cast<const ELT*>(st + L.kv);
     const float* ks_s = reinterpret_cast<const float*>(st + 2 * L.kv);
@@ -425,9 +421,8 @@ __device__ __forceinline__ void split_partial(
     }
   }
 
-  // merge the warps' (m, l, acc) through the ring's memory
-  vtpu::cp_wait<0>();
-  __syncthreads();  // every warp is done with the ring
+  // merge the warps' (m, l, acc) through the stages' memory
+  __syncthreads();  // every warp is done with the stages
   float* red_acc = reinterpret_cast<float*>(smem);  // [kWarps, G, 32 * D]
   float* red_m = red_acc + kWarps * G * 32 * D;     // [kWarps, G]
   float* red_l = red_m + kWarps * G;                // [kWarps, G]
@@ -601,13 +596,18 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
   e = vtpu::allow_smem(paged_combine<T>, combine_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long most = static_cast<long long>(b) * Gm.n_kv * Gm.n_splits;
-  // computed once for each shared memory size (a wrong count after a
-  // change of device costs time, not results)
-  static int cached_smem = -1, resident = 0;
-  if (L.total != cached_smem) {
-    resident = resident_blocks(partial, kThreads, L.total);
-    cached_smem = L.total;
+  // (shared memory bytes << 32) | resident blocks, of the last layout
+  // seen: one word, so a concurrent caller reads a matching pair (a count
+  // left from another device costs time, not results)
+  static std::atomic<unsigned long long> cache{0};
+  unsigned long long c = cache.load(std::memory_order_relaxed);
+  if (c >> 32 != static_cast<unsigned long long>(L.total)) {
+    const int n = resident_blocks(partial, kThreads, L.total);
+    c = static_cast<unsigned long long>(L.total) << 32 |
+        static_cast<unsigned>(n > 0 ? n : 0);
+    cache.store(c, std::memory_order_relaxed);
   }
+  const int resident = static_cast<int>(c & 0xffffffffu);
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = most < resident ? static_cast<int>(most) : resident;
   float* part_acc = static_cast<float*>(scratch);
@@ -640,16 +640,23 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 #define VTPU_PAGED_RUN(GG, DD)                                            \
   return run<T, ELT, Q8, GG, DD>(q, kp, vp, ks, vs, tables, lengths, out, \
                                  scratch, b, G, sm_scale, st)
-  if (G.g <= 4) {
+  // G * D <= 32: 2 * G * D floats of q and acc a lane
+  if (G.g <= 4 && hd <= 256) {
     if (hd <= 32) VTPU_PAGED_RUN(4, 1);
     if (hd <= 64) VTPU_PAGED_RUN(4, 2);
     if (hd <= 128) VTPU_PAGED_RUN(4, 4);
-    if (hd <= 256) VTPU_PAGED_RUN(4, 8);
-  } else if (G.g <= 8) {
+    VTPU_PAGED_RUN(4, 8);
+  }
+  if (G.g <= 8 && hd <= 128) {
     if (hd <= 32) VTPU_PAGED_RUN(8, 1);
     if (hd <= 64) VTPU_PAGED_RUN(8, 2);
-    if (hd <= 128) VTPU_PAGED_RUN(8, 4);
+    VTPU_PAGED_RUN(8, 4);
   }
+  if (G.g <= 16 && hd <= 64) {
+    if (hd <= 32) VTPU_PAGED_RUN(16, 1);
+    VTPU_PAGED_RUN(16, 2);
+  }
+  if (G.g <= 32 && hd <= 32) VTPU_PAGED_RUN(32, 1);
 #undef VTPU_PAGED_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -79,8 +79,8 @@ def _nvcc() -> str:
     )
 
 
-def _digest(srcs, defines=()) -> str:
-    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
@@ -88,9 +88,8 @@ def _digest(srcs, defines=()) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(so_path: str, srcs, defines=()) -> tuple:
-    """Compile and link ``srcs`` into ``so_path``; returns (seconds, the
-    ptxas log)."""
+def _build(so_path: str, srcs) -> None:
+    global build_seconds, build_log
     t0 = time.perf_counter()
     nvcc = _nvcc()
     tmp = f"{so_path}.{os.getpid()}.tmp"
@@ -99,7 +98,7 @@ def _build(so_path: str, srcs, defines=()) -> tuple:
     procs = []
     for src in units:
         obj = os.path.join(tmp, os.path.basename(src) + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", CSRC, "-c", src, "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -122,22 +121,13 @@ def _build(so_path: str, srcs, defines=()) -> tuple:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
     os.replace(os.path.join(tmp, "lib.so"), so_path)
     shutil.rmtree(tmp, ignore_errors=True)
-    return time.perf_counter() - t0, "\n".join(logs)
-
-
-def _bind(handle: ctypes.CDLL, names) -> ctypes.CDLL:
-    for name in names:
-        fn = getattr(handle, name)
-        fn.argtypes = list(SIGNATURES[name])
-        fn.restype = ctypes.c_int
-    handle.vtpu_paged_decode_scratch.argtypes = [I] * 6
-    handle.vtpu_paged_decode_scratch.restype = ctypes.c_longlong
-    return handle
+    build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(logs)
 
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call if its hash is new."""
-    global _lib, build_seconds, build_log
+    global _lib
     with _lock:
         if _lib is None:
             srcs = _sources()
@@ -145,29 +135,18 @@ def lib() -> ctypes.CDLL:
             so_path = os.path.join(
                 BUILD_DIR, f"libvtpu_kernels_{_digest(srcs)}.so")
             if not os.path.exists(so_path):
-                build_seconds, build_log = _build(so_path, srcs)
-            handle = _bind(ctypes.CDLL(so_path), SIGNATURES)
+                _build(so_path, srcs)
+            handle = ctypes.CDLL(so_path)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.vtpu_paged_decode_scratch.argtypes = [I] * 6
+            handle.vtpu_paged_decode_scratch.restype = ctypes.c_longlong
             handle.vtpu_error_string.argtypes = [ctypes.c_int]
             handle.vtpu_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib
-
-
-def paged_variant(defines) -> ctypes.CDLL:
-    """A library of ``paged_attention.cu`` alone, built with extra ``-D``
-    flags (``-DVTPU_PAGED_SPLIT=512``): for choosing the paged kernel's
-    compile-time sizes on the card (``chip_smoke.py --paged-sweep``).
-    The port itself never loads one."""
-    srcs = [s for s in _sources()
-            if os.path.basename(s) == "paged_attention.cu"
-            or s.endswith(".cuh")]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(
-        BUILD_DIR, f"libvtpu_paged_{_digest(srcs, defines)}.so")
-    if not os.path.exists(so_path):
-        _build(so_path, srcs, defines)
-    return _bind(ctypes.CDLL(so_path),
-                 [n for n in SIGNATURES if n.startswith("vtpu_paged_")])
 
 
 def check(err: int, what: str) -> None:

@@ -112,21 +112,6 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, lengths,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode: unsupported device "
                          f"{q.device}")
-    out = launch(_build.lib(), q, k_pool, v_pool, block_tables, lengths,
-                 k_scale, v_scale)
-    paged_attention_decode.launches[
-        "native" if k_scale is None else "int8"] += 1
-    return out
-
-
-paged_attention_decode.launches = {"native": 0, "int8": 0}
-
-
-def launch(lib, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
-           v_scale=None):
-    """One launch of the kernel entry of ``lib`` for these CUDA operands
-    (the port's library, or a build of other compile-time sizes); counts
-    nothing."""
     _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
     quant = k_scale is not None
     entry = _ENTRY.get((q.dtype, quant))
@@ -140,6 +125,7 @@ def launch(lib, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
     ks = k_scale.contiguous() if quant else None
     vs = v_scale.contiguous() if quant else None
     out = torch.empty_like(qc)
+    lib = _build.lib()
     # split-K partials (m, l, acc per split), written before they are read
     scratch = torch.empty(
         (lib.vtpu_paged_decode_scratch(b, n_heads, n_kv, hd, bs, nb_max),),
@@ -151,4 +137,8 @@ def launch(lib, q, k_pool, v_pool, block_tables, lengths, k_scale=None,
         b, n_heads, n_kv, hd, bs, nb_max, float(hd ** -0.5),
         _build.stream_ptr(qc))
     _build.check(err, "paged decode kernel")
+    paged_attention_decode.launches["int8" if quant else "native"] += 1
     return out
+
+
+paged_attention_decode.launches = {"native": 0, "int8": 0}
