@@ -25,15 +25,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
    docs/workloads.md (vocab 32000, d_model 4096, depth 32, 32 heads, 8 kv
    heads, rope), seeded random bf16 weights, PagedBatcher(max_batch=8)
    over a 1 + 8*256 block pool -- once with a native pool and once with
-   an int8 pool, 16 requests each; every kernel's launch count is set to
-   0 just before each run and read just after;
-3. torch.profiler over one admission round and four decode steps at
-   full width: device busy time, wall time, idle share and the kernels
-   that take the most device time;
+   an int8 pool, 16 requests each, each decode window one CUDA graph
+   replay after the first window of its length (eager, then captured);
+   every kernel's launch count is set to 0 just before each run and read
+   just after, a replay adding the launches its graph holds;
+3. torch.profiler over one admission round and four (graphed) decode
+   steps at full width: device busy time, wall time, idle share and the
+   kernels that take the most device time; paged_partial must be among
+   the decode steps' kernels;
 4. exactness: depth 2, f32, the kernel path against the plain path
-   (paged_kernel="off", ln_kernel="off"), greedy tokens identical; and,
-   as information, the share of tokens on which the full-depth bf16
-   kernel and plain paths agree;
+   (paged_kernel="off", ln_kernel="off") and graphed windows against
+   eager ones (decode_graph="off"), greedy tokens identical; the count of
+   full-depth bf16 serve tokens that differ between graphed and eager
+   windows (expected 0); and, as information, the share of tokens on
+   which the full-depth bf16 kernel and plain paths agree;
 5. (with phase 1) the flash-attention kernels -- forward, dq, dk/dv --
    against their plain versions at the training path's shape (b 2, 32
    heads, 8 kv heads, s 4096, hd 128, causal) in bf16 and f32, with the
@@ -41,7 +46,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    correctness rows at s 1024 (window 256, shift -1 with f32 o, ragged
    s 1000); ``err_to_tol`` is the worst output's error over its own
    tolerance (dk and dv each against their own scale); and the bf16 ->
-   f32-out forward timed at the training path's shape;
+   f32-out forward timed at the training path's shape; then one small
+   row per head dim or group that only the chunked and head-grouped
+   kernels take (``shape: "wide_heads"``: paged at g 8 / hd 256, g 4 /
+   hd 512, g 1 / hd 512, g 32 / hd 128; flash at hd 192, 256, 512);
 6. the training path at full width (the same widths, attn_window 4096,
    depth 16, bf16, b 2 x s 4096): TransformerLM(tokens, decode=False),
    lm_loss, backward and torch.optim.Adam(lr=1e-4), 4 steps on one
@@ -273,12 +281,12 @@ def serve_lengths(seed: int) -> list:
     return [len(p) + 16 for _rid, p, _n in make_requests(seed)[:8]]
 
 
-def paged_inputs(gen, dtype, quant: bool, lengths):
+def paged_inputs(gen, dtype, quant: bool, lengths, geom=None):
     import torch
 
     from vtpu_torch.ops.quant import quantize_int8
 
-    b, nh, n_kv, hd, bs, nb_max = (PAGED[k] for k in (
+    b, nh, n_kv, hd, bs, nb_max = (dict(geom or PAGED)[k] for k in (
         "b", "heads", "kv_heads", "hd", "block", "nb_max"))
     P = 1 + b * nb_max
     q = torch.randn(b, nh, hd, device="cuda", generator=gen).to(dtype)
@@ -349,6 +357,60 @@ def paged_phase(card: str, gen, seed: int) -> dict:
     return summary
 
 
+# head dims and query-head groups beyond the kernels' register tiles (the
+# chunked flash kernels, the paged kernel's head groups and smaller
+# tiles): one small row each, error against the plain version, times and
+# bound
+WIDE_PAGED = [dict(b=4, heads=2 * g, kv_heads=2, hd=hd, block=16, nb_max=64)
+              for g, hd in ((8, 256), (4, 512), (1, 512), (32, 128))]
+WIDE_PAGED_LENGTHS = [0, 300, 1023, 517]
+WIDE_FLASH = [dict(b=1, heads=8, kv_heads=2, s=512, hd=hd)
+              for hd in (192, 256, 512)]
+
+
+def wide_heads_phase(card: str, gen) -> None:
+    """The paged kernels at (g 8, hd 256), (g 4, hd 512), (g 1, hd 512)
+    and (g 32, hd 128), native and int8, f32 and bf16 q; the flash
+    forward, dq and dk/dv at hd 192, 256 and 512 in f32 and bf16."""
+    import torch
+
+    from vtpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_reference)
+
+    for geom in WIDE_PAGED:
+        for quant in (False, True):
+            name = "paged_decode_q8" if quant else "paged_decode"
+            for dtype in (torch.float32, torch.bfloat16):
+                args = paged_inputs(gen, dtype, quant, WIDE_PAGED_LENGTHS,
+                                    geom)
+                got = paged_attention_decode(*args)
+                ref = paged_attention_reference(*args)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                tol = (TOL_F32 if dtype == torch.float32
+                       else bf16_tol(ref.float()))
+                nbytes, ops = paged_bytes_ops(args, quant)
+                b_ms, b_by = bound(nbytes, ops, "int8" if quant
+                                   else str(dtype).split(".")[1])
+                row = dict(
+                    phase="kernel", kernel=name, shape="wide_heads", **geom,
+                    g=geom["heads"] // geom["kv_heads"],
+                    lengths=WIDE_PAGED_LENGTHS,
+                    dtype=str(dtype).split(".")[1], max_abs_err=err,
+                    tol=tol, ms=time_ms(lambda: paged_attention_decode(*args)),
+                    plain_ms=time_ms(
+                        lambda: paged_attention_reference(*args)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    card=card)
+                emit(**row)
+                check(err <= tol, f"{name} {geom} {row['dtype']}: "
+                                  f"err {err} > {tol}")
+    for geom in WIDE_FLASH:
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_check(gen, dtype, geom, time_it=True, card=card,
+                        shape_tag="wide_heads")
+
+
 # -- phase 5: the flash-attention kernels ----------------------------------
 FLASH = dict(b=2, heads=32, kv_heads=8, s=4096, hd=128)
 
@@ -379,7 +441,7 @@ def flash_inputs(gen, dtype, b, heads, kv_heads, s, hd):
 
 
 def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
-                out_dtype=None, time_it=False, card=""):
+                out_dtype=None, time_it=False, card="", shape_tag=None):
     """Forward, dq and dk/dv kernels against their plain versions on the
     same inputs (the backward from the kernel's own o and lse).  Returns
     one row per kernel."""
@@ -466,6 +528,8 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
                    card=card)
         if name == "flash_forward":
             row["lse_rel_err"] = lse_err
+        if shape_tag:
+            row["shape"] = shape_tag
         if time_it:
             nbytes, ops = io[name]
             b_ms, b_by = bound(nbytes, ops, dt)
@@ -586,19 +650,27 @@ def read_counts() -> dict:
             "flash_bwd_dkv": tat.flash_bwd_dkv.launches}
 
 
-def serve(model, reqs, *, count: bool):
-    """Serve ``reqs`` (all submitted at t=0) on a fresh PagedBatcher.
-    Returns (outputs, metrics).  With ``count``, the kernels' launch
-    counts are zeroed just before and read just after."""
+def serve(model, reqs, *, count: bool, decode_graph: str = "auto"):
+    """Serve ``reqs`` (all submitted at t=0) on a fresh PagedBatcher
+    whose decode windows are CUDA graphs (``decode_graph="auto"``) or
+    eager.  Returns (outputs, metrics).  With ``count``, the kernels'
+    launch counts are zeroed just before and read just after: a replay
+    adds the launches its graph holds.  The engine and its graphs are
+    released before returning."""
     import torch
 
     from vtpu_torch.serving.paged import PagedBatcher
 
-    eng = PagedBatcher(model, max_batch=8)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    eng = PagedBatcher(model, max_batch=8, decode_graph=decode_graph)
     free0 = eng.pool_stats()["free"]
-    forwards = [0]
+    # forwards outside the decode windows (admission), by a hook; a
+    # window makes one forward a step, which a replay runs without Python
+    prefill_forwards, in_window = [0], [False]
     hook = model.register_forward_hook(
-        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        lambda *_: prefill_forwards.__setitem__(
+            0, prefill_forwards[0] + (not in_window[0])))
     windows = []
     step_k = eng._step_k
 
@@ -606,10 +678,15 @@ def serve(model, reqs, *, count: bool):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         active = sum(eng.active)
+        replay = k in eng._graphs
+        in_window[0] = True
+        t = time.perf_counter()
         s.record()
         out = step_k(k)
         e.record()
-        windows.append((k, active, s, e))
+        host_s = time.perf_counter() - t
+        in_window[0] = False
+        windows.append((k, active, s, e, replay, host_s))
         return out
 
     eng._step_k = timed_step_k
@@ -632,25 +709,44 @@ def serve(model, reqs, *, count: bool):
     wall = time.perf_counter() - t0
     counts = read_counts() if count else None
     hook.remove()
-    dec_ms = sum(s.elapsed_time(e) for _k, _a, s, e in windows)
-    dec_tokens = sum(k * a for k, a, _s, _e in windows)
+
+    def decode(ws):
+        ms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in ws)
+        toks = sum(k * a for k, a, *_ in ws)
+        steps = sum(k for k, *_ in ws)
+        return (toks / (ms / 1e3) if ms else None,
+                ms / steps if steps else None)
+
+    replays = [w for w in windows if w[4]]
+    tps, step_ms = decode(windows)
+    tps_replay, step_ms_replay = decode(replays)
     ttfts = sorted(ttft.values())
     metrics = dict(
         requests=len(reqs), finished=sum(
             len(out.get(rid, [])) == n for rid, _p, n in reqs),
         pool_free_before=free0, pool_free_after=eng.pool_stats()["free"],
-        decode_steps=eng.steps, forwards=forwards[0], wall_s=wall,
-        tokens=sum(len(t) for t in out.values()),
+        decode_steps=eng.steps, forwards=prefill_forwards[0] + eng.steps,
+        wall_s=wall, tokens=sum(len(t) for t in out.values()),
         tokens_per_s=sum(len(t) for t in out.values()) / wall,
-        decode_tokens_per_s=dec_tokens / (dec_ms / 1e3) if dec_ms else None,
-        decode_step_ms=dec_ms / max(1, sum(k for k, *_ in windows)),
+        decode_graph=decode_graph, decode_graphs=eng.stats()["decode_graphs"],
+        windows=len(windows), replayed_windows=len(replays),
+        # the first window of each length: eager, then captured
+        first_windows_host_s=[w[5] for w in windows if not w[4]],
+        decode_tokens_per_s=tps, decode_step_ms=step_ms,
+        decode_tokens_per_s_replayed=tps_replay,
+        decode_step_ms_replayed=step_ms_replay,
         ttft_s_min=ttfts[0] if ttfts else None,
         ttft_s_p50=ttfts[len(ttfts) // 2] if ttfts else None,
         ttft_s_max=ttfts[-1] if ttfts else None,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=counts)
-    del eng
+    # the wrapper (an attribute of the engine) and the bound method it
+    # calls both hold the engine: drop them with it
+    del eng._step_k
+    del eng, step_k, timed_step_k
     torch.cuda.empty_cache()
+    metrics["mem_left_after_release_gb"] = (
+        torch.cuda.memory_allocated() - alloc0) / 1e9
     return out, metrics
 
 
@@ -688,6 +784,11 @@ def serve_phase(card: str, seed: int):
         paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
         check(c[paged] >= depth * met["decode_steps"] > 0,
               f"{pool}: {paged} launches {c[paged]}")
+        check(met["replayed_windows"] > 0 and met["decode_graphs"],
+              f"{pool}: no decode window was a graph replay")
+        check(met["mem_left_after_release_gb"] < 0.5,
+              f"{pool}: the engine kept {met['mem_left_after_release_gb']} "
+              f"GB after release")
         results[pool] = out
         for k, v in c.items():
             launches[k] = launches.get(k, 0) + v
@@ -695,10 +796,11 @@ def serve_phase(card: str, seed: int):
 
 
 # -- phase 3: where the time goes ------------------------------------------
-def profile_window(card: str, name: str, fn) -> None:
+def profile_window(card: str, name: str, fn, require=()) -> None:
     """torch.profiler around ``fn``: device busy time (the union of the
     kernels' intervals), wall time, idle share and the kernels that take
-    the most device time."""
+    the most device time; each kernel named in ``require`` (a part of its
+    name) must have run in the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -726,11 +828,19 @@ def profile_window(card: str, name: str, fn) -> None:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    required = {}
+    for part in require:
+        hits = [e for e in kernels if part in e.name]
+        required[part] = [len(hits), sum(e.time_range.elapsed_us()
+                                         for e in hits) / 1e3]
     emit(phase="profile", window=name, wall_ms=wall_ms,
          device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / wall_ms if wall_ms else None,
          kernel_launches=len(kernels),
-         top_kernels_ms=[[n[:80], ms] for n, ms in top], card=card)
+         top_kernels_ms=[[n[:80], ms] for n, ms in top],
+         required_kernels=required, card=card)
+    for part, (n, _ms) in required.items():
+        check(n > 0, f"profile {name}: no {part} kernel in the window")
 
 
 def profile_phase(card: str, model, reqs) -> None:
@@ -745,8 +855,10 @@ def profile_phase(card: str, model, reqs) -> None:
                    lambda: [eng.submit(rid, p, n) for rid, p, n in reqs[:8]])
     for _ in range(2):  # the admission's first harvest, then steady state
         eng.step()
+    check(eng.stats()["decode_graphs"] == [1], "profile: no decode graph")
     profile_window(card, "decode_4_steps",
-                   lambda: [eng.step() for _ in range(4)])
+                   lambda: [eng.step() for _ in range(4)],
+                   require=("paged_partial",))
     del eng
     torch.cuda.empty_cache()
 
@@ -765,12 +877,24 @@ def exactness_phase(card: str, seed: int, model_bf16, reqs, kernel_out):
         plain = kern.clone(paged_kernel="off", ln_kernel="off")
         a, _ = serve(kern, reqs, count=False)
         b, _ = serve(plain, reqs, count=False)
+        eager, _ = serve(kern, reqs, count=False, decode_graph="off")
         same = all(a[rid] == b[rid] for rid, *_ in reqs)
+        graph_same = all(a[rid] == eager[rid] for rid, *_ in reqs)
         emit(phase="exactness", depth=2, dtype="float32", pool=pool,
-             requests=len(reqs), token_identical=same, card=card)
+             requests=len(reqs), token_identical=same,
+             graphed_equals_eager=graph_same, card=card)
         check(same, f"f32 {pool}: kernel and plain tokens differ")
+        check(graph_same, f"f32 {pool}: graphed and eager tokens differ")
     del small, kern, plain
     torch.cuda.empty_cache()
+    eager, _ = serve(model_bf16, reqs, count=False, decode_graph="off")
+    pairs = [(x, y) for rid, *_ in reqs
+             for x, y in zip(kernel_out[rid], eager[rid])]
+    emit(phase="graph_agreement", depth=model_bf16.depth, dtype="bfloat16",
+         pool="native", tokens=len(pairs),
+         differing_tokens=sum(x != y for x, y in pairs),
+         note="the serve phase's graphed tokens against an eager run; "
+              "expected 0", card=card)
     plain = model_bf16.clone(paged_kernel="off", ln_kernel="off")
     b, _ = serve(plain, reqs, count=False)
     pairs = [(x, y) for rid, *_ in reqs
@@ -975,6 +1099,7 @@ def main() -> int:
     check(not failures, "; ".join(failures))
     rows = {"fused_layernorm": layernorm_phase(card, gen),
             **paged_phase(card, gen, args.seed), **flash_phase(card, gen)}
+    wide_heads_phase(card, gen)
     model, reqs, results, launches = serve_phase(card, args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])

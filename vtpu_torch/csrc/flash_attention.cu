@@ -6,6 +6,13 @@
 //   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
 //   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
+// and, for every dtype at 128 < hd <= 512, where the tensor-core kernels
+// and the register tiles above stop, the head dim in 128-column chunks:
+//
+//   vtpu_flash_fwd_wide_{f32,bf16,bf16_f32out}          (flash_fwd_wide)
+//   vtpu_flash_bwd_dq_wide_{f32,bf16}                   (flash_bwd_dq_wide)
+//   vtpu_flash_bwd_dkv_wide_{f32,bf16}                  (flash_bwd_dkv_wide)
+//
 // The bf16 -> bf16 entries, the training path's dtype, run on the tensor
 // cores in flash_attention_sm90.cu: the forward, dq and dk/dv.  The f32
 // entries stay here because the f32 exactness checks rely on f32
@@ -96,12 +103,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Stage rows [row0, row0 + kTile) of a [rows, hd] matrix as f32 rows of
-// `stride` floats, HD columns, zero past rows and past hd.
+// Stage rows [row0, row0 + kTile) of a [rows, ld] matrix, columns
+// [0, hd), as f32 rows of `stride` floats, HD columns, zero past rows and
+// past hd.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const T* __restrict__ src,
-                                          int row0, int rows, int hd,
+                                          int row0, int rows, int ld, int hd,
                                           bool vec) {
   constexpr int kGroups = HD / 4;
   for (int i = threadIdx.x; i < kTile * kGroups; i += kThreads) {
@@ -109,7 +117,7 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
     const int row = row0 + r;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < rows && d < hd) {
-      const T* p = src + static_cast<size_t>(row) * hd + d;
+      const T* p = src + static_cast<size_t>(row) * ld + d;
       if (vec) {
         f = load4(p);
       } else {
@@ -147,15 +155,11 @@ __device__ __forceinline__ void axpy4(float4& o, float p, float4 v) {
   o.w = fmaf(p, v.w, o.w);
 }
 
-// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over HD columns.
+// c[i][j] += sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over HD columns.
 template <int HD>
-__device__ __forceinline__ void tile_dot(float (&c)[4][4],
-                                         const float* A, const float* B,
-                                         int stride, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+__device__ __forceinline__ void tile_dot_add(float (&c)[4][4],
+                                             const float* A, const float* B,
+                                             int stride, int ty, int tx) {
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
     float4 a[4], b[4];
@@ -170,6 +174,18 @@ __device__ __forceinline__ void tile_dot(float (&c)[4][4],
 #pragma unroll
       for (int j = 0; j < 4; ++j) c[i][j] = dot4(a[i], b[j], c[i][j]);
   }
+}
+
+// c[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over HD columns.
+template <int HD>
+__device__ __forceinline__ void tile_dot(float (&c)[4][4],
+                                         const float* A, const float* B,
+                                         int stride, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+  tile_dot_add<HD>(c, A, B, stride, ty, tx);
 }
 
 // acc[i][u] += sum_c W[ty + 16 i][c] * M[c][4 tx + 64 u .. + 3]: a
@@ -216,18 +232,18 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // Write acc[i][u] (rows row0 + ty + 16 i, columns 4 tx + 64 u) times
-// scale[i] into a [rows, hd] matrix.
+// scale[i] into columns [0, hd) of a [rows, ld] matrix.
 template <typename O, int HD>
 __device__ __forceinline__ void store_tile(O* __restrict__ dst,
                                            const float4 (&acc)[4][HD / 64],
                                            const float (&scale)[4],
-                                           int row0, int rows, int hd,
+                                           int row0, int rows, int ld, int hd,
                                            int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= rows) continue;
-    O* out = dst + static_cast<size_t>(row) * hd;
+    O* out = dst + static_cast<size_t>(row) * ld;
 #pragma unroll
     for (int u = 0; u < HD / 64; ++u) {
       const int d = 4 * tx + 64 * u;
@@ -236,6 +252,74 @@ __device__ __forceinline__ void store_tile(O* __restrict__ dst,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (d + e < hd) out[d + e] = vtpu::from_f32<O>(v[e] * scale[i]);
+    }
+  }
+}
+
+// One score tile into the online softmax: masks s, raises the rows' max
+// m, rescales l and acc, and writes the tile's p into Ps.
+template <int NU>
+__device__ __forceinline__ void online_softmax(float (&s)[4][4],
+                                               float (&m)[4], float (&l)[4],
+                                               float4 (&acc)[4][NU],
+                                               float* Ps, const Problem& P,
+                                               int q0, int k0, int ty,
+                                               int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = keep(P, row, k0 + tx + 16 * j) ? s[i][j] * P.sm_scale
+                                               : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    const float m_new = fmaxf(m[i], row_max(mx));
+    const float alpha = expf(m[i] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p =
+          s[i][j] <= kNegInf * 0.5f ? 0.f : expf(s[i][j] - m_new);
+      Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
+      rs += p;
+    }
+    l[i] = l[i] * alpha + row_sum(rs);
+    m[i] = m_new;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      acc[i][u].x *= alpha;
+      acc[i][u].y *= alpha;
+      acc[i][u].z *= alpha;
+      acc[i][u].w *= alpha;
+    }
+  }
+}
+
+// The rows' dS (and p, where Ps is given) of one tile, from the scores s
+// = Q K^T, dp = dO V^T and the rows' lse and delta.  Transposed (dk/dv):
+// tile rows are keys, columns queries.
+template <bool TRANSPOSED>
+__device__ __forceinline__ void probs_tile(const float (&s)[4][4],
+                                           const float (&dp)[4][4],
+                                           float* Ps, float* dSs,
+                                           const float* lse_s,
+                                           const float* delta_s,
+                                           const Problem& P, int q0, int k0,
+                                           int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = TRANSPOSED ? tx + 16 * j : ty + 16 * i;  // query
+      const int c = TRANSPOSED ? ty + 16 * i : tx + 16 * j;  // key
+      const float p = keep(P, q0 + r, k0 + c)
+                          ? expf(s[i][j] * P.sm_scale - lse_s[r])
+                          : 0.f;
+      const int at = TRANSPOSED ? c * kPS + r : r * kPS + c;
+      if (Ps) Ps[at] = p;
+      dSs[at] = p * (dp[i][j] - delta_s[r]) * P.sm_scale;
     }
   }
 }
@@ -256,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
   const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
-  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
+  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
 
   float m[4], l[4];
   float4 acc[4][NU];
@@ -272,41 +356,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
-    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
     __syncthreads();
     float s[4][4];
     tile_dot<HD>(s, Qs, Ks, S, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = keep(P, row, k0 + tx + 16 * j) ? s[i][j] * P.sm_scale
-                                                 : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p =
-            s[i][j] <= kNegInf * 0.5f ? 0.f : expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        acc[i][u].x *= alpha;
-        acc[i][u].y *= alpha;
-        acc[i][u].z *= alpha;
-        acc[i][u].w *= alpha;
-      }
-    }
+    online_softmax<NU>(s, m, l, acc, Ps, P, q0, k0, ty, tx);
     __syncthreads();
     tile_accum<HD>(acc, Ps, Vs, S, ty, tx);
   }
@@ -319,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tx == 0 && row < P.seq_q)
       lse[static_cast<size_t>(n) * P.seq_q + row] = m[i] + logf(ls);
   }
-  store_tile<O, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, ty, tx);
+  store_tile<O, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, P.hd, ty, tx);
 }
 
 template <typename T, int HD>
@@ -344,8 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
   const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
   const size_t r_off = static_cast<size_t>(n) * P.seq_q;
-  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
-  load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, vec);
+  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
   load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
   load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
 
@@ -359,29 +414,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
-    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dot<HD>(s, Qs, Ks, S, ty, tx);
     tile_dot<HD>(dp, dOs, Vs, S, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = keep(P, q0 + r, k0 + tx + 16 * j)
-                            ? expf(s[i][j] * P.sm_scale - lse_s[r])
-                            : 0.f;
-        dSs[r * kPS + tx + 16 * j] =
-            p * (dp[i][j] - delta_s[r]) * P.sm_scale;
-      }
-    }
+    probs_tile<false>(s, dp, nullptr, dSs, lse_s, delta_s, P, q0, k0, ty,
+                      tx);
     __syncthreads();
     tile_accum<HD>(acc, dSs, Ks, S, ty, tx);
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, HD>(dq + q_off, acc, one, q0, P.seq_q, P.hd, ty, tx);
+  store_tile<T, HD>(dq + q_off, acc, one, q0, P.seq_q, P.hd, P.hd, ty, tx);
 }
 
 template <typename T, int HD>
@@ -405,8 +450,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nk = blockIdx.y, k0 = blockIdx.x * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
-  load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, vec);
-  load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, vec);
+  load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+  load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
 
   float4 dk_acc[4][NU], dv_acc[4][NU];
 #pragma unroll
@@ -425,8 +470,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int t = lo; t < hi; ++t) {
       const int q0 = t * kTile;
       __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, vec);
-      load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, vec);
+      load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+      load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
       load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
       load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
       __syncthreads();
@@ -434,27 +479,226 @@ __global__ void __launch_bounds__(kThreads, 1)
       float st[4][4], dpt[4][4];
       tile_dot<HD>(st, Ks, Qs, S, ty, tx);
       tile_dot<HD>(dpt, Vs, dOs, S, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx + 16 * j;
-          const float p = keep(P, q0 + r, k0 + c)
-                              ? expf(st[i][j] * P.sm_scale - lse_s[r])
-                              : 0.f;
-          Ps[c * kPS + r] = p;
-          dSs[c * kPS + r] = p * (dpt[i][j] - delta_s[r]) * P.sm_scale;
-        }
-      }
+      probs_tile<true>(st, dpt, Ps, dSs, lse_s, delta_s, P, q0, k0, ty, tx);
       __syncthreads();
       tile_accum<HD>(dv_acc, Ps, dOs, S, ty, tx);
       tile_accum<HD>(dk_acc, dSs, Qs, S, ty, tx);
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, HD>(dk + kv_off, dk_acc, one, k0, P.seq_k, P.hd, ty, tx);
-  store_tile<T, HD>(dv + kv_off, dv_acc, one, k0, P.seq_k, P.hd, ty, tx);
+  store_tile<T, HD>(dk + kv_off, dk_acc, one, k0, P.seq_k, P.hd, P.hd, ty,
+                    tx);
+  store_tile<T, HD>(dv + kv_off, dv_acc, one, k0, P.seq_k, P.hd, P.hd, ty,
+                    tx);
+}
+
+// -- head dims above 128: the head dim in chunks of kChunk ------------------
+// One block per (tile, head, output chunk): the scores (Q K^T, and dO V^T
+// for the backward) sum over every chunk of the head dim, staged chunk by
+// chunk through the HD = kChunk tiles above, and the block accumulates
+// only its own kChunk columns of o, dq or dk / dv in registers.  So the
+// staging and the registers are those of the hd 128 kernels, at the price
+// of computing the scores once per output chunk (ceil(hd / 128) times).
+constexpr int kChunk = 128;
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, O* __restrict__ o,
+                   float* __restrict__ lse, Problem P, bool vec) {
+  constexpr int S = kChunk + 4;
+  constexpr int NU = kChunk / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kTile * S;
+  float* Vs = Ks + kTile * S;
+  float* Ps = Vs + kTile * S;
+  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int c_out = blockIdx.z * kChunk;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* qb = q + static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+
+  float m[4], l[4];
+  float4 acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  int lo, hi;
+  kv_range(P, q0, kTile, kTile, lo, hi);
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4] = {};
+    for (int c = 0; c < P.hd; c += kChunk) {
+      const int w = min(kChunk, P.hd - c);
+      __syncthreads();  // the previous chunk's Q and K are consumed
+      load_tile<T, kChunk>(Qs, S, qb + c, q0, P.seq_q, P.hd, w, vec);
+      load_tile<T, kChunk>(Ks, S, k + kv_off + c, k0, P.seq_k, P.hd, w, vec);
+      __syncthreads();
+      tile_dot_add<kChunk>(s, Qs, Ks, S, ty, tx);
+    }
+    // the previous tile's V and P were consumed before the chunks' barriers
+    load_tile<T, kChunk>(Vs, S, v + kv_off + c_out, k0, P.seq_k, P.hd,
+                         min(kChunk, P.hd - c_out), vec);
+    online_softmax<NU>(s, m, l, acc, Ps, P, q0, k0, ty, tx);
+    __syncthreads();
+    tile_accum<kChunk>(acc, Ps, Vs, S, ty, tx);
+  }
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float ls = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / ls;
+    const int row = q0 + ty + 16 * i;
+    if (blockIdx.z == 0 && tx == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] = m[i] + logf(ls);
+  }
+  store_tile<O, kChunk>(o + static_cast<size_t>(n) * P.seq_q * P.hd + c_out,
+                        acc, inv, q0, P.seq_q, P.hd,
+                        min(kChunk, P.hd - c_out), ty, tx);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dq,
+                      Problem P, bool vec) {
+  constexpr int S = kChunk + 4;
+  constexpr int NU = kChunk / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kTile * S;
+  float* Ks = dOs + kTile * S;
+  float* Vs = Ks + kTile * S;
+  float* dSs = Vs + kTile * S;
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int c_out = blockIdx.z * kChunk;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+  load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
+  load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
+
+  float4 acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int lo, hi;
+  kv_range(P, q0, kTile, kTile, lo, hi);
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < P.hd; c += kChunk) {
+      const int w = min(kChunk, P.hd - c);
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      load_tile<T, kChunk>(Qs, S, q + q_off + c, q0, P.seq_q, P.hd, w, vec);
+      load_tile<T, kChunk>(dOs, S, dout + q_off + c, q0, P.seq_q, P.hd, w,
+                           vec);
+      load_tile<T, kChunk>(Ks, S, k + kv_off + c, k0, P.seq_k, P.hd, w, vec);
+      load_tile<T, kChunk>(Vs, S, v + kv_off + c, k0, P.seq_k, P.hd, w, vec);
+      __syncthreads();
+      tile_dot_add<kChunk>(s, Qs, Ks, S, ty, tx);
+      tile_dot_add<kChunk>(dp, dOs, Vs, S, ty, tx);
+    }
+    __syncthreads();  // every thread is done with the last chunk's K
+    load_tile<T, kChunk>(Ks, S, k + kv_off + c_out, k0, P.seq_k, P.hd,
+                         min(kChunk, P.hd - c_out), vec);
+    probs_tile<false>(s, dp, nullptr, dSs, lse_s, delta_s, P, q0, k0, ty,
+                      tx);
+    __syncthreads();
+    tile_accum<kChunk>(acc, dSs, Ks, S, ty, tx);
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_tile<T, kChunk>(dq + q_off + c_out, acc, one, q0, P.seq_q, P.hd,
+                        min(kChunk, P.hd - c_out), ty, tx);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dk,
+                       T* __restrict__ dv, Problem P, bool vec) {
+  constexpr int S = kChunk + 4;
+  constexpr int NU = kChunk / 64;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile * S;
+  float* Qs = Vs + kTile * S;
+  float* dOs = Qs + kTile * S;
+  float* Ps = dOs + kTile * S;
+  float* dSs = Ps + kTile * kPS;
+  float* lse_s = dSs + kTile * kPS;
+  float* delta_s = lse_s + kTile;
+  const int nk = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int c_out = blockIdx.z * kChunk, w_out = min(kChunk, P.hd - c_out);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
+
+  float4 dk_acc[4][NU], dv_acc[4][NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      dk_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      dv_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  int lo, hi;
+  q_range(P, k0, kTile, kTile, lo, hi);
+  for (int h = 0; h < P.g; ++h) {
+    const int n = nk * P.g + h;
+    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+    for (int t = lo; t < hi; ++t) {
+      const int q0 = t * kTile;
+      // transposed tiles: rows are keys (ty + 16 i), columns queries
+      float st[4][4] = {}, dpt[4][4] = {};
+      for (int c = 0; c < P.hd; c += kChunk) {
+        const int w = min(kChunk, P.hd - c);
+        __syncthreads();  // the previous chunk (or tile) is consumed
+        load_tile<T, kChunk>(Ks, S, k + kv_off + c, k0, P.seq_k, P.hd, w,
+                             vec);
+        load_tile<T, kChunk>(Vs, S, v + kv_off + c, k0, P.seq_k, P.hd, w,
+                             vec);
+        load_tile<T, kChunk>(Qs, S, q + q_off + c, q0, P.seq_q, P.hd, w,
+                             vec);
+        load_tile<T, kChunk>(dOs, S, dout + q_off + c, q0, P.seq_q, P.hd, w,
+                             vec);
+        if (c == 0) {
+          load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
+          load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
+        }
+        __syncthreads();
+        tile_dot_add<kChunk>(st, Ks, Qs, S, ty, tx);
+        tile_dot_add<kChunk>(dpt, Vs, dOs, S, ty, tx);
+      }
+      __syncthreads();  // every thread is done with the last chunk's Q, dO
+      load_tile<T, kChunk>(Qs, S, q + q_off + c_out, q0, P.seq_q, P.hd,
+                           w_out, vec);
+      load_tile<T, kChunk>(dOs, S, dout + q_off + c_out, q0, P.seq_q, P.hd,
+                           w_out, vec);
+      probs_tile<true>(st, dpt, Ps, dSs, lse_s, delta_s, P, q0, k0, ty, tx);
+      __syncthreads();
+      tile_accum<kChunk>(dv_acc, Ps, dOs, S, ty, tx);
+      tile_accum<kChunk>(dk_acc, dSs, Qs, S, ty, tx);
+    }
+  }
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  store_tile<T, kChunk>(dk + kv_off + c_out, dk_acc, one, k0, P.seq_k, P.hd,
+                        w_out, ty, tx);
+  store_tile<T, kChunk>(dv + kv_off + c_out, dv_acc, one, k0, P.seq_k, P.hd,
+                        w_out, ty, tx);
 }
 
 template <int HD>
@@ -579,39 +823,120 @@ int launch_dkv(const void* q, const void* k, const void* v,
                                    P, vec, st);
 }
 
+// The chunked kernels, for 128 < hd <= kMaxWideHd: one launch each, grid
+// (tiles, heads, output chunks), the hd 128 kernels' shared memory.
+template <typename T, typename O>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
+                    int causal, int shift, int window, float sm_scale,
+                    void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_wide<T, O>;
+  const size_t smem = smem_fwd<kChunk>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((seq_q + kTile - 1) / kTile, n_q,
+                  (hd + kChunk - 1) / kChunk);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<O*>(o),
+      static_cast<float*>(lse), P, can_vec<T>(hd, {q, k, v}));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int n_q, int g, int seq_q, int seq_k, int hd,
+                   int causal, int shift, int window, float sm_scale,
+                   void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_dq_wide<T>;
+  const size_t smem = smem_dq<kChunk>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((seq_q + kTile - 1) / kTile, n_q,
+                  (hd + kChunk - 1) / kChunk);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), P, can_vec<T>(hd, {q, k, v, dout}));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int n_q, int g, int seq_q, int seq_k,
+                    int hd, int causal, int shift, int window,
+                    float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_dkv_wide<T>;
+  const size_t smem = smem_dkv<kChunk>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((seq_k + kTile - 1) / kTile, n_q / g,
+                  (hd + kChunk - 1) / kChunk);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), P,
+      can_vec<T>(hd, {q, k, v, dout}));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-#define VTPU_FLASH_FWD_ENTRY(NAME, T, O)                                    \
+#define VTPU_FLASH_FWD_ENTRY(NAME, LAUNCH)                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
                       void* lse, int n_q, int g, int seq_q, int seq_k,      \
                       int hd, int causal, int shift, int window,            \
                       float sm_scale, void* stream) {                       \
-    return launch_fwd<T, O>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,      \
-                            causal, shift, window, sm_scale, stream);       \
+    return LAUNCH(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd, causal, shift, \
+                  window, sm_scale, stream);                                \
   }
 
-#define VTPU_FLASH_DQ_ENTRY(NAME, T)                                         \
+#define VTPU_FLASH_DQ_ENTRY(NAME, LAUNCH)                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* dout, const void* lse, const void* delta,  \
                       void* dq, int n_q, int g, int seq_q, int seq_k,        \
                       int hd, int causal, int shift, int window,             \
                       float sm_scale, void* stream) {                        \
-    return launch_dq<T>(q, k, v, dout, lse, delta, dq, n_q, g, seq_q, seq_k, \
-                        hd, causal, shift, window, sm_scale, stream);        \
+    return LAUNCH(q, k, v, dout, lse, delta, dq, n_q, g, seq_q, seq_k, hd,   \
+                  causal, shift, window, sm_scale, stream);                  \
   }
 
-#define VTPU_FLASH_DKV_ENTRY(NAME, T)                                        \
+#define VTPU_FLASH_DKV_ENTRY(NAME, LAUNCH)                                   \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* dout, const void* lse, const void* delta,  \
                       void* dk, void* dv, int n_q, int g, int seq_q,         \
                       int seq_k, int hd, int causal, int shift, int window,  \
                       float sm_scale, void* stream) {                        \
-    return launch_dkv<T>(q, k, v, dout, lse, delta, dk, dv, n_q, g, seq_q,   \
-                         seq_k, hd, causal, shift, window, sm_scale,         \
-                         stream);                                            \
+    return LAUNCH(q, k, v, dout, lse, delta, dk, dv, n_q, g, seq_q, seq_k,   \
+                  hd, causal, shift, window, sm_scale, stream);              \
   }
 
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, float, float)
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, __nv_bfloat16, float)
-VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, float)
-VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, float)
+using bf16 = __nv_bfloat16;
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, (launch_fwd<float, float>))
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, (launch_fwd<bf16, float>))
+VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, launch_dq<float>)
+VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, launch_dkv<float>)
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, (launch_fwd_wide<float, float>))
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16, (launch_fwd_wide<bf16, bf16>))
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16_f32out,
+                     (launch_fwd_wide<bf16, float>))
+VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_f32, launch_dq_wide<float>)
+VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_bf16, launch_dq_wide<bf16>)
+VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_f32, launch_dkv_wide<float>)
+VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_bf16, launch_dkv_wide<bf16>)

@@ -9,6 +9,8 @@ namespace vtpu {
 namespace flash {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxHd = 128;      // the register-tiled and tensor-core kernels
+constexpr int kMaxWideHd = 512;  // the kernels that chunk the head dim
 
 struct Problem {
   int g;            // query heads per kv head
@@ -69,9 +71,9 @@ __device__ __forceinline__ void q_range(const Problem& P, int k0, int bn,
 
 inline bool make_problem(Problem& P, int n_q, int g, int seq_q, int seq_k,
                          int hd, int causal, int shift, int window,
-                         float sm_scale) {
+                         float sm_scale, int max_hd = kMaxHd) {
   if (n_q <= 0 || g <= 0 || n_q % g != 0 || seq_q <= 0 || seq_k <= 0 ||
-      hd <= 0 || hd > 128 || n_q > 65535 || window < 0)
+      hd <= 0 || hd > max_hd || n_q > 65535 || window < 0)
     return false;
   P.g = g;
   P.seq_q = seq_q;

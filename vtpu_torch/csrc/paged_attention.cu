@@ -29,16 +29,17 @@
 //     (whole logical blocks; each (block, kv head) is one contiguous run
 //     of bs * hd elements) are copied into shared memory in the pool's
 //     own type by 16-byte cp.async, int8 scales by 4-byte cp.async beside
-//     them.  A split is at most two tiles, and both are issued at once,
-//     each in its own stage and cp.async group, so the second is in flight
-//     while the first is scored and the only block barrier a tile is the
-//     one that publishes it.  Where two stages do not fit in shared memory
-//     (f32 at hd 256) the tiles take turns in one stage.
+//     them.  The split's tiles (two on the serving path) go through a
+//     ring of two stages, each tile its own cp.async group, so the next
+//     tile is in flight while one is scored and the only block barrier a
+//     tile is the one that publishes it.  Where two stages do not fit in
+//     shared memory (f32 at hd 256) the tiles take turns in one stage.
 //     Where hd is no whole number of 16-byte vectors or a pool is not
 //     16-byte aligned, the stages are filled by plain loads.
 //  2. Warps that run alone.  Each warp takes groups of 32 / G keys of
 //     the tile (G: the g = H / n_kv query heads of the kv head, padded to
-//     a power of two from 4 to 32) and keeps its own f32 online softmax (m, l) and accumulator
+//     a power of two from 4 to 32, or a head group of them; 2 at hd > 256)
+//     and keeps its own f32 online softmax (m, l) and accumulator
 //     in registers.  A lane owns D = hd / 32 dims of q (pre-scaled by
 //     hd^-0.5 * log2 e, so p = exp2(s - m)) and of the accumulator for
 //     all G heads, and reads each K and V element of its keys from shared
@@ -73,10 +74,21 @@
 //
 // The split (128 keys), tile (64 keys) and block (4 warps) were chosen on
 // an H100 from 128 / 256 / 512, 32 / 64 and 4 / 8 by the kernel's times at
-// the serving path's lengths (PERF.md, PR 5).  Supported: hd <= 256 and
-// g padded to a power of two (at least 4) times hd at most 1024, wherever
-// one stage of K and V fits in shared memory (227 KB).  A lane holds
-// 2 * G * D <= 64 floats of q and acc; at G * D = 64 ptxas spills.
+// the serving path's lengths (PERF.md, PR 5).
+//
+// Supported: every hd <= 512 and every g.  A lane holds 2 * G * D floats
+// of q and acc (D = ceil(hd / 32)); the instances keep G * D <= 32, since
+// ptxas spills at G * D = 64.  At D 16 (hd > 256) the unrolled key loops
+// let ptxas hoist enough shared-memory loads to spill even at G 1, so
+// there a compiler fence closes each key's iteration and P . V reads each
+// p from its slot (a broadcast) instead of holding the group's 32 in
+// registers (201-222 registers at G 2).  Where g does not fit one instance's
+// G, the g query heads of a kv head are cut into head groups of G, and
+// each head group is a work item of its own (it reads the split's K and V
+// again, from L2 when its neighbours in the walk have just read them).
+// Where a split's tile of K and V does not fit in shared memory (f32 at hd
+// 512, or large blocks), the tile shrinks: fewer whole blocks, then a part
+// of one block.
 
 #include <atomic>
 #include <type_traits>
@@ -90,14 +102,17 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileTokens = 64;    // keys a tile (whole blocks)
 constexpr int kSplitTokens = 128;  // keys a split (one or two tiles)
 constexpr int kCombineThreads = 256;
+constexpr int kMaxHeadDim = 512;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Geometry {
   int g, hd, bs, nb_max, n_kv, n_heads;
   int tile_blocks;   // logical blocks per tile
-  int split_blocks;  // logical blocks per split (a multiple of tile_blocks)
+  int sub;           // tiles per block (> 1 only where tile_blocks == 1)
+  int split_blocks;  // logical blocks per split
   int n_splits;      // splits of a full row
+  int hgroups;       // head groups per kv head (work items per split)
 };
 
 inline Geometry geometry(int n_heads, int n_kv, int hd, int bs, int nb_max) {
@@ -112,6 +127,8 @@ inline Geometry geometry(int n_heads, int n_kv, int hd, int bs, int nb_max) {
   const int tiles = kSplitTokens / (G.tile_blocks * bs);
   G.split_blocks = (tiles < 1 ? 1 : tiles > 2 ? 2 : tiles) * G.tile_blocks;
   G.n_splits = (nb_max + G.split_blocks - 1) / G.split_blocks;
+  G.sub = 1;
+  G.hgroups = 1;
   return G;
 }
 
@@ -131,26 +148,56 @@ struct Layout {
 
 inline int round16(int n) { return (n + 15) & ~15; }
 
-inline Layout layout(const Geometry& G, int b, int elt, bool q8, int heads,
+inline int tile_keys(const Geometry& G) {
+  return G.sub > 1 ? G.bs / G.sub : G.tile_blocks * G.bs;
+}
+
+inline int split_tiles(const Geometry& G) {
+  return G.sub > 1 ? G.sub * G.split_blocks
+                   : (G.split_blocks + G.tile_blocks - 1) / G.tile_blocks;
+}
+
+// A smaller tile: fewer whole blocks, then the next divisor of bs keys of
+// one block.  False when a tile is one key.
+inline bool shrink_tile(Geometry& G) {
+  if (G.tile_blocks > 1) {
+    G.tile_blocks = (G.tile_blocks + 1) / 2;
+    return true;
+  }
+  int s = G.sub + 1;
+  while (s <= G.bs && G.bs % s != 0) ++s;
+  if (s > G.bs) return false;
+  G.sub = s;
+  return true;
+}
+
+// The shared-memory layout of the largest tile that fits, with as many
+// stages (the split's tiles, at most two) as fit; shrinks G's tile where
+// even one stage does not fit.  total > kMaxSmem when nothing fits.
+inline Layout layout(Geometry& G, int b, int elt, bool q8, int heads,
                      int d) {
   Layout L;
-  const int tk = G.tile_blocks * G.bs;
-  L.kv = round16(tk * G.hd * elt);
-  L.sc = q8 ? round16(tk * 4) : 0;
-  L.stage = 2 * L.kv + 2 * L.sc;
   const int partials = 4 * kWarps * heads * (32 * d + 2);
   L.ids = round16(4 * G.split_blocks);
   // 2 b + 1 ints, sized for b rounded up to 64 rows so that the layout,
   // and the occupancy cached for it, changes only every 64 rows
   const int rows_bytes = 4 * (2 * ((b + 63) / 64 * 64) + 1);
-  for (L.stages = G.split_blocks / G.tile_blocks;; --L.stages) {
-    const int ring = L.stage * L.stages;
-    L.region = round16(ring > partials ? ring : partials);
-    L.rows = L.region + L.ids + 4 * kWarps * 64;
-    L.total = L.rows + rows_bytes;
-    if (L.stages == 1 || L.total <= static_cast<int>(vtpu::kMaxSmem)) break;
+  for (;;) {
+    const int tk = tile_keys(G);
+    L.kv = round16(tk * G.hd * elt);
+    L.sc = q8 ? round16(tk * 4) : 0;
+    L.stage = 2 * L.kv + 2 * L.sc;
+    const int tiles = split_tiles(G);
+    for (L.stages = tiles < 2 ? tiles : 2;; --L.stages) {
+      const int ring = L.stage * L.stages;
+      L.region = round16(ring > partials ? ring : partials);
+      L.rows = L.region + L.ids + 4 * kWarps * 64;
+      L.total = L.rows + rows_bytes;
+      if (L.stages == 1 || L.total <= static_cast<int>(vtpu::kMaxSmem)) break;
+    }
+    if (L.total <= static_cast<int>(vtpu::kMaxSmem) || !shrink_tile(G))
+      return L;
   }
-  return L;
 }
 
 __device__ __forceinline__ int valid_blocks(int len, const Geometry& G) {
@@ -160,18 +207,36 @@ __device__ __forceinline__ int valid_blocks(int len, const Geometry& G) {
 }
 
 // -- staging -----------------------------------------------------------------
-// Logical blocks ids[0 .. nb) of kv head kvh of one pool into dst as
-// [nb * bs, hd] in the pool's type: 16-byte cp.async copies (vec), else
+// A tile: logical blocks [lb0, lb0 + nb) of the split, keys [off, off +
+// kpb) of each (kpb == bs but where a tile is part of one block)
+struct Tile {
+  int lb0, nb, off, kpb;
+};
+
+__device__ __forceinline__ Tile tile_of(const Geometry& G, int t, int nsb) {
+  if (G.sub == 1) {
+    const int lb0 = t * G.tile_blocks;
+    return {lb0, min(G.tile_blocks, nsb - lb0), 0, G.bs};
+  }
+  const int tk = G.bs / G.sub;
+  return {t / G.sub, 1, (t % G.sub) * tk, tk};
+}
+
+// The tile's blocks ids[0 .. nb) of kv head kvh of one pool into dst as
+// [nb * kpb, hd] in the pool's type: 16-byte cp.async copies (vec), else
 // plain loads.
 template <typename ELT>
 __device__ __forceinline__ void stage_pool(ELT* dst,
                                            const ELT* __restrict__ pool,
-                                           const int* ids, int nb, int kvh,
-                                           const Geometry& G, bool vec) {
-  const int per_block = G.bs * G.hd;
-  for (int blk = 0; blk < nb; ++blk) {
+                                           const int* ids, const Tile& tl,
+                                           int kvh, const Geometry& G,
+                                           bool vec) {
+  const int per_block = tl.kpb * G.hd;
+  for (int blk = 0; blk < tl.nb; ++blk) {
     const ELT* src =
-        pool + (static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * per_block;
+        pool +
+        ((static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * G.bs + tl.off) *
+            G.hd;
     ELT* d = dst + blk * per_block;
     if (vec) {
       constexpr int EPV = 16 / sizeof(ELT);
@@ -183,14 +248,15 @@ __device__ __forceinline__ void stage_pool(ELT* dst,
   }
 }
 
-// The per-token scales of the same blocks, [nb * bs] f32
+// The per-token scales of the same keys, [nb * kpb] f32
 __device__ __forceinline__ void stage_scales(float* dst,
                                              const float* __restrict__ sc,
-                                             const int* ids, int nb, int kvh,
-                                             const Geometry& G) {
-  for (int i = threadIdx.x; i < nb * G.bs; i += kThreads) {
-    const int blk = i / G.bs, t = i - blk * G.bs;
-    const size_t src = (static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * G.bs;
+                                             const int* ids, const Tile& tl,
+                                             int kvh, const Geometry& G) {
+  for (int i = threadIdx.x; i < tl.nb * tl.kpb; i += kThreads) {
+    const int blk = i / tl.kpb, t = i - blk * tl.kpb;
+    const size_t src =
+        (static_cast<size_t>(ids[blk]) * G.n_kv + kvh) * G.bs + tl.off;
     vtpu::cp_async4(vtpu::smem_u32(dst + i), sc + src + t, true);
   }
 }
@@ -286,8 +352,9 @@ __device__ __forceinline__ float seg_sum(float x) {
 }
 
 // -- the split's partial -----------------------------------------------------
-// G: query heads a kv head, padded (g <= G; heads past g hold q = 0 and
-// are never written); D: dims a lane (hd <= 32 * D).
+// G: query heads an item, the head group hg's heads [hg * G, hg * G + gs)
+// of the kv head (padded: heads past gs hold q = 0 and are never written);
+// D: dims a lane (hd <= 32 * D).
 template <typename T, typename ELT, bool Q8, int G, int D>
 __device__ __forceinline__ void split_partial(
     unsigned char* smem, const T* __restrict__ q, const ELT* __restrict__ kp,
@@ -295,12 +362,19 @@ __device__ __forceinline__ void split_partial(
     const float* __restrict__ vs, const int* __restrict__ tables,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
     const Geometry& Gm, const Layout& L, float sm_scale, bool vec, int row,
-    int kvh, int split, int len) {
+    int kvh, int hg, int split, int len) {
   constexpr int KG = 32 / G;  // keys of a group: G * KG = 32 score slots
+  constexpr bool kWide = D >= 16;  // one key's loads in flight (see above)
   const int lb_begin = split * Gm.split_blocks;
   const int nsb = min(Gm.split_blocks, valid_blocks(len, Gm) - lb_begin);
-  const int ntiles = (nsb + Gm.tile_blocks - 1) / Gm.tile_blocks;
+  int ntiles = (nsb + Gm.tile_blocks - 1) / Gm.tile_blocks;
+  if (Gm.sub > 1) {  // tiles of part of a block: those holding a valid key
+    const int tk = Gm.bs / Gm.sub;
+    const int keys = min(nsb * Gm.bs, len - lb_begin * Gm.bs + 1);
+    ntiles = (keys + tk - 1) / tk;
+  }
   const int g = Gm.g, hd = Gm.hd;
+  const int h0 = hg * G, gs = min(G, g - h0);  // the group's heads
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d0 = lane * D;
 
@@ -312,13 +386,14 @@ __device__ __forceinline__ void split_partial(
   for (int i = threadIdx.x; i < nsb; i += kThreads) ids[i] = trow[i];
 
   float qr[G][D], acc[G][D];
-  const T* qrow = q + (static_cast<size_t>(row) * Gm.n_heads + kvh * g) * hd;
+  const T* qrow =
+      q + (static_cast<size_t>(row) * Gm.n_heads + kvh * g + h0) * hd;
   const float qscale = sm_scale * kLog2e;
 #pragma unroll
   for (int h = 0; h < G; ++h)
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[h][d] = h < g && d0 + d < hd
+      qr[h][d] = h < gs && d0 + d < hd
                      ? vtpu::to_f32(qrow[h * hd + d0 + d]) * qscale
                      : 0.f;
       acc[h][d] = 0.f;
@@ -328,43 +403,44 @@ __device__ __forceinline__ void split_partial(
 
   auto issue = [&](int t) {  // tile t into its stage, as one cp.async group
     unsigned char* st = smem + (t % L.stages) * L.stage;
-    const int lb0 = t * Gm.tile_blocks;
-    const int nb = min(Gm.tile_blocks, nsb - lb0);
-    stage_pool(reinterpret_cast<ELT*>(st), kp, ids + lb0, nb, kvh, Gm, vec);
-    stage_pool(reinterpret_cast<ELT*>(st + L.kv), vp, ids + lb0, nb, kvh, Gm,
+    const Tile tl = tile_of(Gm, t, nsb);
+    stage_pool(reinterpret_cast<ELT*>(st), kp, ids + tl.lb0, tl, kvh, Gm,
                vec);
+    stage_pool(reinterpret_cast<ELT*>(st + L.kv), vp, ids + tl.lb0, tl, kvh,
+               Gm, vec);
     if constexpr (Q8) {
-      stage_scales(reinterpret_cast<float*>(st + 2 * L.kv), ks, ids + lb0,
-                   nb, kvh, Gm);
+      stage_scales(reinterpret_cast<float*>(st + 2 * L.kv), ks, ids + tl.lb0,
+                   tl, kvh, Gm);
       stage_scales(reinterpret_cast<float*>(st + 2 * L.kv + L.sc), vs,
-                   ids + lb0, nb, kvh, Gm);
+                   ids + tl.lb0, tl, kvh, Gm);
     }
     vtpu::cp_commit();
   };
-  // ntiles <= 2: with two stages both tiles are in flight from the start
-  const bool both = L.stages == 2 && ntiles == 2;
+  // With two stages the next tile is in flight while this one is scored
+  // (a split of two tiles has both in flight from the start); with one,
+  // the tiles take turns.
+  const bool ring = L.stages == 2;
   issue(0);
-  if (both) issue(1);
+  if (ring && ntiles > 1) issue(1);
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t > 0 && !both) {
+    if (t > 0 && !ring) {
       __syncthreads();  // every warp is done with the one stage
       issue(t);
     }
-    if (both && t == 0) vtpu::cp_wait<1>();  // this thread's tile 0 landed
+    if (ring && t + 1 < ntiles) vtpu::cp_wait<1>();  // this thread's tile t
     else vtpu::cp_wait<0>();
-    __syncthreads();  // everyone's copies of tile t have
+    __syncthreads();  // everyone's copies of tile t have landed
 
     const unsigned char* st = smem + (t % L.stages) * L.stage;
     const ELT* k_s = reinterpret_cast<const ELT*>(st);
     const ELT* v_s = reinterpret_cast<const ELT*>(st + L.kv);
     const float* ks_s = reinterpret_cast<const float*>(st + 2 * L.kv);
     const float* vs_s = reinterpret_cast<const float*>(st + 2 * L.kv + L.sc);
-    const int lb0 = t * Gm.tile_blocks;
-    const int key0 = (lb_begin + lb0) * Gm.bs;
+    const Tile tl = tile_of(Gm, t, nsb);
+    const int key0 = (lb_begin + tl.lb0) * Gm.bs + tl.off;
     // keys [0, last) of the tile are valid
-    const int last = min(min(Gm.tile_blocks, nsb - lb0) * Gm.bs,
-                         len - key0 + 1);
+    const int last = min(tl.nb * tl.kpb, len - key0 + 1);
     for (int j0 = warp * KG; j0 < last; j0 += kWarps * KG) {
       float v[32];
 #pragma unroll
@@ -378,6 +454,7 @@ __device__ __forceinline__ void split_partial(
           for (int d = 0; d < D; ++d) s = fmaf(qr[h][d], kf[d], s);
           v[h * KG + kk] = s;
         }
+        if constexpr (kWide) asm volatile("" ::: "memory");
       }
       reduce_scatter<16>(v, lane);
       const int j = j0 + lane % KG;  // this lane's key; head lane / KG
@@ -394,11 +471,13 @@ __device__ __forceinline__ void split_partial(
       slots[lane] = Q8 && ok ? p * vs_s[j] : p;
       slots[32 + lane] = alpha;
       __syncwarp();
+      if constexpr (!kWide) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {  // every slot's p, as broadcast reads
-        const float4 x = reinterpret_cast<const float4*>(slots)[i];
-        v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
-        v[4 * i + 3] = x.w;
+        for (int i = 0; i < 8; ++i) {  // every slot's p, as broadcast reads
+          const float4 x = reinterpret_cast<const float4*>(slots)[i];
+          v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z,
+          v[4 * i + 3] = x.w;
+        }
       }
       if (__any_sync(0xffffffffu, alpha != 1.f)) {  // a head's max rose
 #pragma unroll
@@ -413,11 +492,17 @@ __device__ __forceinline__ void split_partial(
         float vf[D];
         load_dims<ELT, D>(vf, v_s + (j0 + kk) * hd, d0, hd, j0 + kk < last);
 #pragma unroll
-        for (int h = 0; h < G; ++h)
+        for (int h = 0; h < G; ++h) {
+          const float p = kWide ? slots[h * KG + kk] : v[h * KG + kk];
 #pragma unroll
-          for (int d = 0; d < D; ++d)
-            acc[h][d] = fmaf(v[h * KG + kk], vf[d], acc[h][d]);
+          for (int d = 0; d < D; ++d) acc[h][d] = fmaf(p, vf[d], acc[h][d]);
+        }
+        if constexpr (kWide) asm volatile("" ::: "memory");
       }
+    }
+    if (ring && t + 2 < ntiles) {
+      __syncthreads();  // every warp is done with tile t's stage
+      issue(t + 2);
     }
   }
 
@@ -438,7 +523,7 @@ __device__ __forceinline__ void split_partial(
   __syncthreads();
   const size_t part =
       (static_cast<size_t>(row) * Gm.n_kv + kvh) * Gm.n_splits + split;
-  if (threadIdx.x < g) {  // weights of the warps, in place of their m
+  if (threadIdx.x < gs) {  // weights of the warps, in place of their m
     const int h = threadIdx.x;
     float mx = kNegInf;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w * G + h]);
@@ -448,25 +533,26 @@ __device__ __forceinline__ void split_partial(
       red_m[w * G + h] = wt;
       sum += red_l[w * G + h] * wt;
     }
-    part_ml[(part * g + h) * 2] = mx;
-    part_ml[(part * g + h) * 2 + 1] = sum;
+    part_ml[(part * g + h0 + h) * 2] = mx;
+    part_ml[(part * g + h0 + h) * 2 + 1] = sum;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < g * hd; e += kThreads) {
+  for (int e = threadIdx.x; e < gs * hd; e += kThreads) {
     const int h = e / hd, c = e - h * hd;
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       a += red_acc[(w * G + h) * 32 * D + c] * red_m[w * G + h];
-    part_acc[part * g * hd + e] = a;
+    part_acc[(part * g + h0) * hd + e] = a;
   }
 }
 
 // One block of kThreads per resident slot of the card (a persistent
 // grid): every block reads the rows' lengths, counts each row's splits
 // (splits past a row's last valid key are no work) and walks the work
-// items (row, split, kv head), kv head fastest, from blockIdx.x in steps
-// of gridDim.x.  Items are equal in size but for a row's last split.
+// items (row, split, kv head, head group), head group fastest, from
+// blockIdx.x in steps of gridDim.x.  Items are equal in size but for a
+// row's last split.
 template <typename T, typename ELT, bool Q8, int G, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_partial(const T* __restrict__ q, const ELT* __restrict__ kp,
@@ -500,9 +586,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) first[0] = 0;
   }
   __syncthreads();
-  const int items = first[b] * Gm.n_kv;
+  const int items = first[b] * Gm.n_kv * Gm.hgroups;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int kvh = it % Gm.n_kv, s = it / Gm.n_kv;
+    int hg = 0, r = it;
+    if (Gm.hgroups > 1) hg = it % Gm.hgroups, r = it / Gm.hgroups;
+    const int kvh = r % Gm.n_kv, s = r / Gm.n_kv;
     int lo = 0, hi = b;  // the row: the last with first[row] <= s
     while (hi - lo > 1) {
       const int mid = (lo + hi) >> 1;
@@ -511,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     split_partial<T, ELT, Q8, G, D>(smem, q, kp, vp, ks, vs, tables,
                                     part_acc, part_ml, Gm, L, sm_scale, vec,
-                                    lo, kvh, s - first[lo], lens[lo]);
+                                    lo, kvh, hg, s - first[lo], lens[lo]);
   }
 }
 
@@ -582,11 +670,11 @@ int resident_blocks(K kernel, int threads, int smem) {
 template <typename T, typename ELT, bool Q8, int G, int D>
 int run(const void* q, const void* kp, const void* vp, const void* ks,
         const void* vs, const void* tables, const void* lengths, void* out,
-        void* scratch, int b, const Geometry& Gm, float sm_scale,
-        cudaStream_t st) {
+        void* scratch, int b, Geometry Gm, float sm_scale, cudaStream_t st) {
   constexpr int EPV = 16 / sizeof(ELT);
   const bool vec =
       Gm.hd % EPV == 0 && vtpu::aligned16(kp) && vtpu::aligned16(vp);
+  Gm.hgroups = (Gm.g + G - 1) / G;
   const Layout L = layout(Gm, b, sizeof(ELT), Q8, G, D);
   auto partial = paged_partial<T, ELT, Q8, G, D>;
   cudaError_t e = vtpu::allow_smem(partial, L.total);
@@ -595,7 +683,8 @@ int run(const void* q, const void* kp, const void* vp, const void* ks,
       sizeof(float) * (static_cast<size_t>(Gm.n_splits) + 1) * Gm.g;
   e = vtpu::allow_smem(paged_combine<T>, combine_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long most = static_cast<long long>(b) * Gm.n_kv * Gm.n_splits;
+  const long long most =
+      static_cast<long long>(b) * Gm.n_kv * Gm.n_splits * Gm.hgroups;
   // (shared memory bytes << 32) | resident blocks, of the last layout
   // seen: one word, so a concurrent caller reads a matching pair (a count
   // left from another device costs time, not results)
@@ -640,23 +729,25 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 #define VTPU_PAGED_RUN(GG, DD)                                            \
   return run<T, ELT, Q8, GG, DD>(q, kp, vp, ks, vs, tables, lengths, out, \
                                  scratch, b, G, sm_scale, st)
-  // G * D <= 32: 2 * G * D floats of q and acc a lane
-  if (G.g <= 4 && hd <= 256) {
-    if (hd <= 32) VTPU_PAGED_RUN(4, 1);
-    if (hd <= 64) VTPU_PAGED_RUN(4, 2);
-    if (hd <= 128) VTPU_PAGED_RUN(4, 4);
-    VTPU_PAGED_RUN(4, 8);
+  // The instance: D from hd, then the smallest G >= g with G * D <= 32, or
+  // the largest such G and head groups of G.
+  if (hd <= 32) {
+    if (G.g <= 4) VTPU_PAGED_RUN(4, 1);
+    if (G.g <= 8) VTPU_PAGED_RUN(8, 1);
+    if (G.g <= 16) VTPU_PAGED_RUN(16, 1);
+    VTPU_PAGED_RUN(32, 1);
   }
-  if (G.g <= 8 && hd <= 128) {
-    if (hd <= 32) VTPU_PAGED_RUN(8, 1);
-    if (hd <= 64) VTPU_PAGED_RUN(8, 2);
-    VTPU_PAGED_RUN(8, 4);
-  }
-  if (G.g <= 16 && hd <= 64) {
-    if (hd <= 32) VTPU_PAGED_RUN(16, 1);
+  if (hd <= 64) {
+    if (G.g <= 4) VTPU_PAGED_RUN(4, 2);
+    if (G.g <= 8) VTPU_PAGED_RUN(8, 2);
     VTPU_PAGED_RUN(16, 2);
   }
-  if (G.g <= 32 && hd <= 32) VTPU_PAGED_RUN(32, 1);
+  if (hd <= 128) {
+    if (G.g <= 4) VTPU_PAGED_RUN(4, 4);
+    VTPU_PAGED_RUN(8, 4);
+  }
+  if (hd <= 256) VTPU_PAGED_RUN(4, 8);
+  if (hd <= kMaxHeadDim) VTPU_PAGED_RUN(2, 16);
 #undef VTPU_PAGED_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,9 @@ kernel.  What waits raises ``NotImplementedError`` naming the slice that
 brings it.
 
 The cache is an explicit dict of tensors that every forward updates in
-place (the JAX model returns a new cache; writing the pools in place
-saves a copy of the whole pool per step)::
+place, the position counter included (the JAX model returns a new cache;
+writing the pools in place saves a copy of the whole pool per step, and
+keeps every tensor at the address a captured CUDA graph reads)::
 
     {"pos": [b] int32,                  # the ONE per-row position counter
      "block_table": [b, nb_max] int32,  # logical -> physical pool block
@@ -443,8 +444,7 @@ class TransformerLM(nn.Module):
     def _decode(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
         b, s = tokens.shape
         assert s <= self.max_seq, f"seq {s} > max_seq {self.max_seq}"
-        pos0 = cache["pos"]
-        cache["pos"] = pos0 + s  # the one position counter
+        pos0 = cache["pos"]  # the one position counter, advanced below
         table = cache["block_table"]
         x = self.wte(tokens.long())
         if self.pos_embedding == "learned":
@@ -463,6 +463,9 @@ class TransformerLM(nn.Module):
             x = blk(x, layer, pos0, table, ln_kernel=ln_kernel,
                     window=self.attn_window, block_size=self.kv_block_size,
                     max_seq=self.max_seq, use_kernel=use_kernel)
+        # in place, after every layer has read pos0 (stream order on the
+        # card): a captured decode window reads and writes this tensor
+        pos0.add_(s)
         x = self.ln_f(x, ln_kernel)
         return self.lm_head(x).float()
 

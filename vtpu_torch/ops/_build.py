@@ -43,14 +43,15 @@ SIGNATURES = {
        for v in ("f32", "bf16", "q8_f32", "q8_bf16")},
     # q, k, v, o, lse, n_q, g, seq_q, seq_k, hd, causal, shift, window,
     # sm_scale, stream
-    **{f"vtpu_flash_fwd_{v}": (P,) * 5 + (I,) * 8 + (F, P)
-       for v in ("f32", "bf16", "bf16_f32out")},
+    # (the _wide entries: the same for 128 < hd <= 512)
+    **{f"vtpu_flash_fwd_{w}{v}": (P,) * 5 + (I,) * 8 + (F, P)
+       for w in ("", "wide_") for v in ("f32", "bf16", "bf16_f32out")},
     # q, k, v, do, lse, delta, dq, n_q, ... (as above)
-    **{f"vtpu_flash_bwd_dq_{v}": (P,) * 7 + (I,) * 8 + (F, P)
-       for v in ("f32", "bf16")},
+    **{f"vtpu_flash_bwd_dq_{w}{v}": (P,) * 7 + (I,) * 8 + (F, P)
+       for w in ("", "wide_") for v in ("f32", "bf16")},
     # q, k, v, do, lse, delta, dk, dv, n_q, ... (as above)
-    **{f"vtpu_flash_bwd_dkv_{v}": (P,) * 8 + (I,) * 8 + (F, P)
-       for v in ("f32", "bf16")},
+    **{f"vtpu_flash_bwd_dkv_{w}{v}": (P,) * 8 + (I,) * 8 + (F, P)
+       for w in ("", "wide_") for v in ("f32", "bf16")},
 }
 
 _lock = threading.Lock()

@@ -3,6 +3,12 @@ dk/dv; bf16 -> bf16 on the tensor cores in ``csrc/flash_attention_sm90.cu``,
 f32 and the bf16 -> f32-out forward in ``csrc/flash_attention.cu``), the
 autograd functions built on them, and their plain PyTorch versions.
 
+The wrappers pick the kernel by head dim, before any launch: up to
+``MAX_TILED_HD`` (128) the kernels above; up to ``MAX_HD`` (512) the
+kernels of ``csrc/flash_attention.cu`` that walk the head dim in
+128-column chunks (``_wide`` entries, every dtype); above that they raise
+``ValueError``.
+
 Counterpart of ``vtpu/ops/attention.py``, with its layouts: q, k, v
 ``[b, h, s, d]`` or ``[s, d]`` (any leading dims), lse ``[..., s, 1]`` in
 f32.  ``flash_attention`` and ``flash_attention_gqa`` differentiate
@@ -33,11 +39,13 @@ from vtpu_torch.ops import _build
 NEG_INF = -1e30
 
 _FWD_ENTRY = {
-    (torch.float32, torch.float32): "vtpu_flash_fwd_f32",
-    (torch.bfloat16, torch.bfloat16): "vtpu_flash_fwd_bf16",
-    (torch.bfloat16, torch.float32): "vtpu_flash_fwd_bf16_f32out",
+    (torch.float32, torch.float32): "f32",
+    (torch.bfloat16, torch.bfloat16): "bf16",
+    (torch.bfloat16, torch.float32): "bf16_f32out",
 }
 _BWD_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_TILED_HD = 128  # the tensor-core and register-tiled kernels
+MAX_HD = 512        # the kernels that walk the head dim in chunks
 
 
 # -- the reference formulations (plain; autograd differentiates them) ----
@@ -197,11 +205,19 @@ def _check(name, tensors):
                 delta.numel() != rows):
             raise ValueError(f"{name}: do must be q's shape and lse, delta "
                              f"[..., s, 1]")
-    if q.shape[-1] > 128:
-        raise ValueError(f"{name}: no kernel for head dim "
-                         f"{q.shape[-1]} > 128")
     n_kv, g = _grouped(q, k)
     return n_kv * g, g
+
+
+def _entry(base: str, hd: int, suffix: str) -> str:
+    """The C entry for this head dim: ``vtpu_<base>_<suffix>``, or its
+    chunked ``_wide_`` twin above ``MAX_TILED_HD``; a head dim above
+    ``MAX_HD`` raises."""
+    if hd > MAX_HD:
+        raise ValueError(f"vtpu_{base}: head dim {hd} is above {MAX_HD}, "
+                         f"the largest the kernels take")
+    wide = "wide_" if hd > MAX_TILED_HD else ""
+    return f"vtpu_{base}_{wide}{suffix}"
 
 
 def _dims(q, k, causal, shift, window):
@@ -218,10 +234,11 @@ def flash_forward(q, k, v, causal: bool = False, shift: int = 0,
                                          out_dtype)
     n_q, g = _check("flash_forward", [q, k, v])
     out_dtype = out_dtype or q.dtype
-    entry = _FWD_ENTRY.get((q.dtype, out_dtype))
-    if entry is None:
+    suffix = _FWD_ENTRY.get((q.dtype, out_dtype))
+    if suffix is None:
         raise TypeError(f"flash_forward: no kernel for q {q.dtype} with "
                         f"o {out_dtype}")
+    entry = _entry("flash_fwd", q.shape[-1], suffix)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((*q.shape[:-1], 1), dtype=torch.float32,
@@ -249,7 +266,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    err = getattr(_build.lib(), f"vtpu_flash_bwd_dq_{_BWD_SUFFIX[q.dtype]}")(
+    entry = _entry("flash_bwd_dq", q.shape[-1], _BWD_SUFFIX[q.dtype])
+    err = getattr(_build.lib(), entry)(
         *[t.data_ptr() for t in args], dq.data_ptr(), n_q, g,
         *_dims(q, k, causal, shift, window), _build.stream_ptr(q))
     _build.check(err, "flash dq kernel")
@@ -271,8 +289,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    err = getattr(_build.lib(),
-                  f"vtpu_flash_bwd_dkv_{_BWD_SUFFIX[q.dtype]}")(
+    entry = _entry("flash_bwd_dkv", q.shape[-1], _BWD_SUFFIX[q.dtype])
+    err = getattr(_build.lib(), entry)(
         *[t.data_ptr() for t in args], dk.data_ptr(), dv.data_ptr(), n_q, g,
         *_dims(q, k, causal, shift, window), _build.stream_ptr(q))
     _build.check(err, "flash dk/dv kernel")

@@ -8,8 +8,9 @@ int8 with f32 scale pools ``[P, n_kv, bs, 1]``); ``block_tables``
 position of each row (key slot ``t*bs + j`` is valid iff it is
 ``<= lengths[i]``).  Returns ``[b, n_heads, hd]`` in q's dtype.
 
-On a CUDA tensor the wrapper launches the kernel (native or int8 entry);
-on a CPU tensor it runs :func:`paged_attention_reference`.
+On a CUDA tensor the wrapper launches the kernel (native or int8 entry),
+which takes every head dim up to ``MAX_HD`` and any number of query heads
+a kv head; on a CPU tensor it runs :func:`paged_attention_reference`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from vtpu_torch.ops import _build
 
 NEG_INF = -1e30
+MAX_HD = 512  # the largest head dim the kernel takes
 
 _ENTRY = {
     (torch.float32, False): "vtpu_paged_decode_f32",
@@ -72,6 +74,9 @@ def _check(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
             f"paged_attention_decode: head dims {hd}/{phd} differ or "
             f"{n_heads} heads are not a multiple of {n_kv} kv heads"
         )
+    if hd > MAX_HD:
+        raise ValueError(f"paged_attention_decode: head dim {hd} is above "
+                         f"{MAX_HD}, the largest the kernel takes")
     if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
             or block_tables.shape[0] != b):
         raise ValueError("paged_attention_decode: block_tables must be "

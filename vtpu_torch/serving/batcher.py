@@ -9,11 +9,28 @@ steps, with up to ``pipeline_depth`` windows in flight, each carrying
 the slot->rid snapshot it was dispatched under; post-EOS tokens are
 frozen to ``eos_id`` and overshoot past a budget is dropped at harvest.
 
-On CUDA a window's tokens go device->host with ``non_blocking=True``
-into pinned memory behind a recorded CUDA event (the counterpart of
-JAX's ``copy_to_host_async``); the harvest waits on that event only.
-PyTorch dispatches kernels asynchronously, so the next window is
-already queued on the card while the host harvests the previous one.
+On CUDA a window of k decode steps is one captured CUDA graph, the
+counterpart of the reference's jitted ``_step_k``: the first window of
+each length k runs eagerly (as the first call of a jitted function
+traces and compiles, it does the host work of the kernels' first calls:
+the build, the shared-memory opt-ins, the occupancy queries, cuBLAS's
+handle), and is then captured; every later window of that length is one
+replay.  k is a power of two up to ``harvest_every``, so an engine holds
+at most log2(harvest_every) + 1 graphs, and releases them with itself.
+A capture that fails raises; it never falls back to the eager window.
+A graph reads and writes the tensors it was captured with, so the slot
+state it touches -- ``tok``, the cache's ``pos``, ``block_table`` and
+pools -- is only ever written in place.  ``decode_graph="off"`` keeps the
+eager window on the card (for comparisons); on the CPU the window is
+always eager.
+
+A window's tokens go device->host with ``non_blocking=True`` into pinned
+memory behind a recorded CUDA event (the counterpart of JAX's
+``copy_to_host_async``), enqueued right after the window, so the next
+replay cannot overwrite a window still in flight; the harvest waits on
+that event only.  PyTorch dispatches kernels asynchronously, so the next
+window is already queued on the card while the host harvests the
+previous one.
 
 The dense-layout engine (``_prefill``, ``_admit_prog``,
 ``_scatter_rows``) comes with the dense-layout slice; this class is the
@@ -37,6 +54,8 @@ import torch
 
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import TransformerLM
+from vtpu_torch.ops.layernorm import fused_layernorm
+from vtpu_torch.ops.paged_attention import paged_attention_decode
 
 
 @dataclasses.dataclass
@@ -67,13 +86,40 @@ class _HostCopy:
         return self.buf.numpy()
 
 
+def _launch_counts() -> Dict[str, int]:
+    """The decode window's kernel launch counters, by wrapper."""
+    return {"layernorm": fused_layernorm.launches,
+            **{f"paged_{k}": v
+               for k, v in paged_attention_decode.launches.items()}}
+
+
+def _add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the counters of :func:`_launch_counts`: a replay
+    launches the kernels without their wrappers' Python, which counted
+    them once, while the graph was captured."""
+    fused_layernorm.launches += delta["layernorm"]
+    for k in paged_attention_decode.launches:
+        paged_attention_decode.launches[k] += delta[f"paged_{k}"]
+
+
+@dataclasses.dataclass
+class _WindowGraph:
+    """A captured window of k decode steps: the graph, the [k, b] token
+    buffer it writes, and the kernel launches one replay makes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    toks: torch.Tensor
+    launches: Dict[str, int]
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over the model's KV cache."""
 
     def __init__(self, model: TransformerLM, max_batch: int,
                  eos_id: Optional[int] = None, prefill_chunk: int = 0,
                  harvest_every: int = 1, pipeline_depth: int = 1,
-                 bucket_prefill: bool = True, *, device="cuda"):
+                 bucket_prefill: bool = True, decode_graph: str = "auto", *,
+                 device="cuda"):
         if (model.kv_cache_layout == "paged"
                 and type(self) is ContinuousBatcher):
             raise ValueError(
@@ -83,6 +129,9 @@ class ContinuousBatcher:
             raise ValueError(
                 f"the model lives on {model.device}, the engine was asked "
                 f"for {dev}")
+        if decode_graph not in ("auto", "off"):
+            raise ValueError(f"decode_graph must be 'auto' or 'off', got "
+                             f"{decode_graph!r}")
         self.model = model
         self.device = model.device
         self.max_batch = max_batch
@@ -93,8 +142,13 @@ class ContinuousBatcher:
         self.bucket_prefill = bool(bucket_prefill)
         self.prefilling: Dict[int, dict] = {}  # slot -> progress state
         self.cache = model.init_cache(max_batch)
+        # last token per slot; one buffer for the engine's life (the
+        # decode graphs read and write it)
         self.tok = torch.zeros((max_batch,), dtype=torch.int32,
-                               device=self.device)  # last token per slot
+                               device=self.device)
+        # window length k -> its captured graph (CUDA, decode_graph="auto")
+        self.decode_graph = decode_graph
+        self._graphs: Dict[int, _WindowGraph] = {}
         # host-side slot state (the device never sees it)
         self.active = [False] * max_batch
         self.remaining = [0] * max_batch
@@ -122,16 +176,47 @@ class ContinuousBatcher:
         """k decode steps over every slot; returns the [k, b] tokens and
         leaves the last ones in ``self.tok``.  Finished rows overshoot
         harmlessly: their writes fall off the leased table into the
-        garbage block (or clamp into their own last block)."""
-        toks = torch.empty((k, self.max_batch), dtype=torch.int32,
+        garbage block (or clamp into their own last block).  On CUDA the
+        returned buffer is the window graph's own, rewritten by its next
+        replay: the caller copies it out first."""
+        wg = self._graphs.get(k)
+        if wg is not None:
+            wg.graph.replay()
+            _add_launches(wg.launches)
+            return wg.toks
+        toks = self._run_window(self._tokens_buffer(k))
+        if self.device.type == "cuda" and self.decode_graph == "auto":
+            self._graphs[k] = self._capture(k)
+        return toks
+
+    def _tokens_buffer(self, k: int) -> torch.Tensor:
+        return torch.empty((k, self.max_batch), dtype=torch.int32,
                            device=self.device)
+
+    def _run_window(self, toks: torch.Tensor) -> torch.Tensor:
+        """The window's forwards, argmaxes and token writes into the
+        [k, b] buffer ``toks``; ``self.tok`` is updated in place."""
         tok = self.tok
-        for j in range(k):
+        for j in range(toks.shape[0]):
             logits = self.model(tok[:, None], self.cache)
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
             toks[j] = tok
-        self.tok = tok
+        self.tok.copy_(tok)
         return toks
+
+    def _capture(self, k: int) -> _WindowGraph:
+        """Capture a window of k steps (after an eager window of the same
+        length has run).  Capture runs no kernel, so the launches its
+        wrappers count are taken back and added at each replay."""
+        toks = self._tokens_buffer(k)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._run_window(toks)
+        after = _launch_counts()
+        _add_launches({n: before[n] - after[n] for n in after})
+        return _WindowGraph(graph, toks,
+                            {n: after[n] - before[n] for n in after})
 
     def submit(self, rid: str, prompt, num_new: int) -> None:
         """Queue a request; admitted as soon as a slot frees up."""
@@ -354,5 +439,6 @@ class ContinuousBatcher:
             "inflight_windows": len(self._inflight),
             "pending_first_tokens": len(self._pending_first),
             "pipeline_depth": self.pipeline_depth,
+            "decode_graphs": sorted(self._graphs),
             "completed": len(self.out) - sum(self.active),
         }

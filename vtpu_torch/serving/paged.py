@@ -42,7 +42,8 @@ class PagedBatcher(ContinuousBatcher):
     def __init__(self, model: TransformerLM, max_batch: int, eos_id=None,
                  prefill_chunk: int = 0, prefix_cache: int = 0,
                  harvest_every: int = 1, pipeline_depth: int = 1,
-                 bucket_prefill: bool = True, *, device="cuda"):
+                 bucket_prefill: bool = True, decode_graph: str = "auto", *,
+                 device="cuda"):
         if model.kv_cache_layout != "paged" or model.kv_pool_blocks <= 1:
             raise ValueError(
                 "PagedBatcher needs kv_cache_layout='paged' and a real "
@@ -52,7 +53,8 @@ class PagedBatcher(ContinuousBatcher):
                          prefill_chunk=prefill_chunk,
                          harvest_every=harvest_every,
                          pipeline_depth=pipeline_depth,
-                         bucket_prefill=bucket_prefill, device=device)
+                         bucket_prefill=bucket_prefill,
+                         decode_graph=decode_graph, device=device)
         self.block_size = model.kv_block_size
         self.nb_max = model.max_seq // model.kv_block_size
         self.pool = BlockPool(model.kv_pool_blocks, model.kv_block_size)
