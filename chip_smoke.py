@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's paged serving and training paths, its
+ai-benchmark rows and its four-tenant share run on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, full width (one card)
 
@@ -60,7 +60,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
    1e-5 relative and every grad within 1e-4 of its max |grad|; in bf16
    (where the tensor-core kernels round p and dS to bf16) the loss within
    1e-2 relative and every grad's cosine similarity with the plain
-   path's at least 0.99.
+   path's at least 0.99;
+8. the kernels at the ai-benchmark transformer rows' shapes, at b 8 and
+   b 4 (LayerNorm over b * 512 rows of 512; bf16 flash forward, dq and
+   dk/dv, 8 heads, s 512, hd 64, causal) with plain, SDPA and bound
+   times (``shape: "ai_transformer_b8"`` / ``"_b4"``); then every
+   ai-benchmark row (``vtpu_torch.bench.ai_benchmark.ROWS``) at its
+   batch and mode in bf16: img/s over a 1.5 s window of waited-for
+   steps, peak memory, no cuDNN repack of the LSTM's weights, and for
+   the transformer rows the kernels' launches (checked against one
+   forward a layer, dq and dk/dv a layer in training, 2 * depth + 1
+   LayerNorms a step); then ResNetV2_50 in f32 at batch 2, 224^2 on the
+   card against the port on the CPU (logits and batch statistics within
+   1e-3 of their scale);
+9. the share run (``vtpu_torch.bench.share.run``): bf16 ResNet-V2-50 at
+   batch 50, 224^2, the exclusive arm (one stream) and four tenants
+   (``ShimRuntime`` each, one region, a stream and a thread each) over
+   6 s each, eager and with each tenant's forward one CUDA graph replay,
+   and the eager share without the runtime: img/s per tenant, summed /
+   exclusive, quota violations (must be 0), the region's proc slots and
+   bytes read back (must be the four tenants and their resident bytes),
+   the device idle share of each arm's own window (device-only tracing)
+   and the step's host and device times; and a tenant at 50 % whose duty
+   (its rate over its rate at 100 %), eager and graphed, must be within
+   0.15 of 0.5, beside the duty that the reference's pacing rule gives.
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -78,6 +101,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -801,41 +825,23 @@ def profile_window(card: str, name: str, fn, require=()) -> None:
     kernels' intervals), wall time, idle share and the kernels that take
     the most device time; each kernel named in ``require`` (a part of its
     name) must have run in the window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from vtpu_torch.utils.devtrace import busy_ms, device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events less the annotations that span them (an optimizer's
-    # step is recorded on the device timeline as a range over its kernels)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_us, end = 0.0, float("-inf")
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        lo, hi = max(e.time_range.start, end), e.time_range.end
-        if hi > lo:
-            busy_us += hi - lo
-        end = max(end, hi)
-    busy_ms = busy_us / 1e3
+    wall_ms, kernels = device_events(fn)
+    busy = busy_ms(kernels)
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3)
+    for kname, start, stop in kernels:
+        by_name[kname] = by_name.get(kname, 0.0) + (stop - start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     required = {}
     for part in require:
-        hits = [e for e in kernels if part in e.name]
-        required[part] = [len(hits), sum(e.time_range.elapsed_us()
-                                         for e in hits) / 1e3]
+        hits = [(start, stop) for kname, start, stop in kernels
+                if part in kname]
+        required[part] = [len(hits), sum(stop - start
+                                         for start, stop in hits) / 1e3]
     emit(phase="profile", window=name, wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         idle_share=1.0 - busy_ms / wall_ms if wall_ms else None,
+         device_busy_ms=busy,
+         idle_share=1.0 - busy / wall_ms if wall_ms else None,
          kernel_launches=len(kernels),
          top_kernels_ms=[[n[:80], ms] for n, ms in top],
          required_kernels=required, card=card)
@@ -1063,6 +1069,230 @@ def train_exactness_bf16_phase(card: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 8: the ai-benchmark rows ---------------------------------------
+AI_SECONDS = 1.5                   # timed window per row (the CLI: 10)
+AI_F32_TOL = 1e-3                  # of max |logit|: cuDNN's f32 algorithms
+
+
+def ai_benchmark_phase(card: str, seed: int) -> dict:
+    """Every row of ``vtpu_torch.bench.ai_benchmark.ROWS`` at its batch
+    and mode in bf16 (seeded random weights): img/s over a window of
+    waited-for steps after one warm-up step, peak memory, and the kernel
+    launches of the row (set to 0 just before it, read just after).  The
+    transformer rows run the flash and LayerNorm kernels: one forward a
+    layer (plus dq and dk/dv in training) and 2 * depth + 1 LayerNorms a
+    step.  Returns those rows' summed launches."""
+    import math
+
+    import torch
+
+    from vtpu_torch.bench.ai_benchmark import ROWS, build_step
+    from vtpu_torch.utils.sync import hard_sync
+
+    total = {}
+    for name, batch, mode in ROWS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        step, x, model = build_step(name, batch, mode, device="cuda",
+                                    dtype=torch.bfloat16, generator=gen)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        zero_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = step(x)
+            first = hard_sync(out)
+            steps, t1 = 1, time.perf_counter()
+            while time.perf_counter() - t1 < AI_SECONDS:
+                out = step(x)
+                hard_sync(out)
+                steps += 1
+            window = time.perf_counter() - t1
+        # cuDNN copies an LSTM's weights into one buffer on every call
+        # when they are not one already (models/lstm.py casts them so)
+        repacks = sum("contiguous chunk" in str(w.message) for w in caught)
+        c = read_counts()
+        finite = bool(torch.isfinite(out.float()).all())
+        row = dict(phase="ai_benchmark", model=name, batch=batch, mode=mode,
+                   dtype="bfloat16", img_per_s=(steps - 1) * batch / window,
+                   steps=steps, setup_s=setup_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   params=sum(p.numel() for p in model.parameters()),
+                   output_shape=list(out.shape), first_output=first,
+                   finite=finite, repack_warnings=repacks, card=card)
+        if name == "transformer":
+            row["launches"] = c
+            depth = model.depth
+            want = {"flash_forward": depth * steps,
+                    "fused_layernorm": (2 * depth + 1) * steps}
+            if mode == "training":
+                want["flash_bwd_dq"] = want["flash_bwd_dkv"] = depth * steps
+            for k, n in want.items():
+                check(c[k] == n, f"ai_benchmark {name} {mode}: {k} "
+                                 f"launched {c[k]} times, not {n}")
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        emit(**row)
+        check(finite and math.isfinite(first) and steps > 1,
+              f"ai_benchmark {name} {mode}: output finite {finite}, "
+              f"steps {steps}")
+        check(repacks == 0, f"ai_benchmark {name} {mode}: cuDNN repacked "
+                            f"the LSTM's weights")
+        del step, x, model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def resnet_f32_phase(card: str, seed: int) -> None:
+    """ResNetV2_50 in f32 at batch 2, 224^2: the card against the port on
+    the CPU, the same weights and seeded images; logits and the updated
+    batch statistics within AI_F32_TOL of their largest magnitude (TF32
+    is off; cuDNN's f32 convolution algorithms sum in other orders than
+    the CPU's)."""
+    import numpy as np
+    import torch
+
+    from vtpu_torch.models.resnet import ResNetV2_50
+
+    cpu = ResNetV2_50(num_classes=1000, dtype=torch.float32, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    gpu = ResNetV2_50(num_classes=1000, dtype=torch.float32, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32))
+    with torch.no_grad():
+        want, want_stats = cpu(x)
+        got, got_stats = gpu(x.cuda())
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    err = rel(got, want)
+    stats_err = max(rel(got_stats[k], v) for k, v in want_stats.items())
+    emit(phase="ai_f32_exactness", model="resnet50", batch=2, image=224,
+         logits_rel_err=err, batch_stats_rel_err=stats_err, tol=AI_F32_TOL,
+         card=card)
+    check(err <= AI_F32_TOL and stats_err <= AI_F32_TOL,
+          f"resnet50 f32 card vs CPU: logits {err}, stats {stats_err}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def ai_kernel_rows(card: str, gen) -> dict:
+    """The kernels at the transformer rows' shapes (d 512, 8 heads, hd 64,
+    s 512), each at b 8 (the inference row) and b 4 (the training row):
+    LayerNorm over b * s rows of 512, and the bf16 flash forward, dq and
+    dk/dv, with their plain versions, the library's time and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from vtpu_torch.ops.layernorm import _reference_ln, fused_layernorm
+
+    d = 512
+    rows_out = {}
+    for batch in (8, 4):
+        rows = batch * 512
+        x = (torch.randn(rows, d, device="cuda", generator=gen) * 3
+             + 1).bfloat16()
+        g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
+        b = (0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
+        ref = _reference_ln(x, g, b)
+        err = float((fused_layernorm(x, g, b).float()
+                     - ref.float()).abs().max())
+        tol = bf16_tol(ref.float())
+        b_ms, b_by = bound(2 * rows * d * 2 + 2 * d * 2, 9.0 * rows * d,
+                           "bfloat16")
+        emit(phase="kernel", kernel="fused_layernorm", rows=rows, d=d,
+             dtype="bfloat16", shape=f"ai_transformer_b{batch}",
+             max_abs_err=err, tol=tol,
+             ms=time_ms(lambda: fused_layernorm(x, g, b)),
+             plain_ms=time_ms(lambda: _reference_ln(x, g, b)),
+             library_ms=time_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-6)),
+             bound_ms=b_ms, bound_by=b_by, card=card)
+        check(err <= tol, f"layernorm {rows} x {d}: err {err} > {tol}")
+        rows_out[batch] = flash_check(
+            gen, torch.bfloat16, dict(b=batch, heads=8, kv_heads=8, s=512,
+                                      hd=64),
+            time_it=True, card=card, shape_tag=f"ai_transformer_b{batch}")
+    return rows_out
+
+
+# -- phase 9: four tenants share the card ----------------------------------
+SHARE_WINDOW = 6.0                 # seconds per arm (the CLI: 10)
+SHARE_QUOTA = 4 << 30              # each tenant's HBM quota (bench.py's)
+DUTY_WINDOW = 2.5                  # seconds per duty probe
+DUTY_TOL = 0.15                    # of 0.5, the 50 % tenant's duty
+
+
+def share_phase(card: str) -> None:
+    """``vtpu_torch.bench.share.run`` on the card (bf16 ResNet-V2-50 at
+    batch 50, 224^2; its docstring lists the arms), checked and emitted:
+    one ``share`` line per forward (eager, graphed) with the exclusive
+    and four-tenant img/s, their ratio and each window's device idle
+    share; quota violations must be 0 and the region must hold the four
+    tenants and exactly their resident bytes.  ``share_duty``: the duty
+    of a tenant at 50 % (its rate over its rate at 100 %) within DUTY_TOL
+    of 0.5 -- the bound of tests/test_monitor.py's pacing accuracy test,
+    inside the band that test_dispatch_pacing_converges_30_70 allows --
+    and, reported beside it, the duty under the reference's rule; eager
+    and graphed."""
+    from vtpu_torch.bench import share
+
+    t0 = time.perf_counter()
+    doc = share.run("cuda", window=SHARE_WINDOW, quota=SHARE_QUOTA,
+                    duty_window=DUTY_WINDOW)
+    phase_s = time.perf_counter() - t0
+    for kind in ("eager", "graphed"):
+        arm = doc[kind]
+        ex, sh = arm["exclusive"], arm["share"]
+        extra = {}
+        if kind == "eager":
+            bare = arm["share_without_runtime"]
+            extra = {"share_without_runtime_img_s": bare["summed_img_s"],
+                     "share_without_runtime_idle_share": bare["idle_share"],
+                     "share_without_runtime_trace_s": bare["trace_s"]}
+        emit(phase="share", arm=kind, model="resnet50", dtype="bfloat16",
+             batch=doc["batch"], image=doc["image"], window_s=SHARE_WINDOW,
+             setup_s=doc["setup_s"], step_host_ms=arm["step_host_ms"],
+             step_device_ms=arm["step_device_ms"],
+             exclusive_img_s=ex["img_s"],
+             per_tenant_img_s=sh["per_tenant_img_s"],
+             summed_img_s=sh["summed_img_s"], ratio=arm["ratio"],
+             target_ratio=0.95, violations=sh["violations"],
+             region=sh["region"], exclusive_idle_share=ex["idle_share"],
+             share_idle_share=sh["idle_share"], traced="device",
+             kernels_traced=[ex["kernels"], sh["kernels"]],
+             trace_s=[ex["trace_s"], sh["trace_s"]], phase_s=phase_s,
+             **extra, card=card)
+        check(sh["violations"] == 0,
+              f"share {kind}: {sh['violations']} violations")
+        region = sh["region"]
+        check(region["procs"] == 4
+              and region["pids"] == [1000, 1001, 1002, 1003],
+              f"share {kind}: region slots {region}")
+        check(region["total_bytes"] == region["expected_bytes"],
+              f"share {kind}: region holds {region['total_bytes']} B, not "
+              f"{region['expected_bytes']}")
+        check(region["launches"] > 0, f"share {kind}: no launch recorded")
+    q = doc["duty"]["core_limit"]
+    for kind in ("eager", "graphed"):
+        duty = doc["duty"][kind]
+        emit(phase="share_duty", arm=kind, core_limit=q,
+             window_s=doc["duty"]["window_s"], img_s=duty["img_s"],
+             img_s_at_100=duty["img_s_at_100"], measured=duty["measured"],
+             tol=DUTY_TOL,
+             reference_rule_img_s=duty["reference_rule_img_s"],
+             reference_rule_measured=duty["reference_rule_measured"],
+             card=card)
+        check(abs(duty["measured"] - q / 100) <= DUTY_TOL,
+              f"share {kind}: duty at {q}% measured {duty['measured']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1110,6 +1340,11 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     train_exactness_phase(card, args.seed)
     train_exactness_bf16_phase(card, args.seed)
+    ai_kernel_rows(card, gen)
+    for k, v in ai_benchmark_phase(card, args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    resnet_f32_phase(card, args.seed)
+    share_phase(card)
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

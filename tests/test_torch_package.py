@@ -61,7 +61,11 @@ def test_no_source_imports_jax_flax_or_vtpu():
 
 
 @pytest.mark.parametrize("entry", ["TransformerLM", "params_from_flax",
-                                   "PagedBatcher", "generate"])
+                                   "PagedBatcher", "generate",
+                                   "cnn_params_from_flax", "create_model",
+                                   "entry", "ShimRuntime",
+                                   "stream_to_device", "share_forward",
+                                   "ai_benchmark_step"])
 def test_default_device_entry_points_refuse_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -72,7 +76,21 @@ def test_default_device_entry_points_refuse_without_cuda(entry):
     kw = dict(vocab=16, d_model=16, depth=1, num_heads=2, max_seq=16,
               kv_block_size=8, kv_pool_blocks=5)
     cpu_model = TransformerLM(**kw, device="cpu")
+    from vtpu_torch.bench import ai_benchmark, share
+    from vtpu_torch.entry import entry as graft_entry
+    from vtpu_torch.models.convert import cnn_params_from_flax
+    from vtpu_torch.models.registry import create_model
+    from vtpu_torch.shim import ShimRuntime, stream_to_device
+
     calls = {
+        "cnn_params_from_flax": lambda: cnn_params_from_flax({}),
+        "create_model": lambda: create_model("lstm", hidden=4, embed=4),
+        "entry": graft_entry,
+        "ShimRuntime": lambda: ShimRuntime(limits_bytes=[]),
+        "stream_to_device": lambda: stream_to_device(torch.zeros(2)),
+        "share_forward": lambda: share.build_forward(batch=1, size=32),
+        "ai_benchmark_step": lambda: ai_benchmark.build_step(
+            "lstm", 1, "inference"),
         "TransformerLM": lambda: TransformerLM(**kw),
         "params_from_flax": lambda: params_from_flax(
             {"wte": {"embedding": np.zeros((2, 2), np.float32)}}),
@@ -343,3 +361,45 @@ def _flash_kernels_match_plain(dev, gen):
         fn = tat.flash_forward if len(args) == 3 else tat.flash_bwd_dq
         with pytest.raises(ValueError):
             fn(*args)
+
+
+@pytest.mark.cuda
+def test_lstm_reads_its_weights_in_place_on_the_card(cuda_card):
+    """The bf16 LSTM's weights are one buffer in cuDNN's own layout (the
+    offsets that ``nn.LSTM.flatten_parameters`` gives), so neither an
+    inference nor a training step warns of a repack, and the output is
+    ``nn.LSTM``'s on the same bf16 weights."""
+    import warnings
+
+    from vtpu_torch.models.lstm import LSTMClassifier
+
+    def offsets(ws):
+        return [(w.data_ptr() - ws[0].data_ptr()) // w.element_size()
+                for w in ws]
+
+    model = LSTMClassifier(hidden=64, vocab=50, embed=32, device=cuda_card)
+    # torch flattens an f32 LSTM only (cuDNN's accepted dtypes exclude
+    # bf16): its element offsets are cuDNN's layout
+    flat = torch.nn.LSTM(32, 64, batch_first=True, device=cuda_card)
+    ref = torch.nn.LSTM(32, 64, batch_first=True, device=cuda_card,
+                        dtype=torch.bfloat16)
+    with torch.no_grad():
+        views = model._weights()
+        for name, w in zip(ref._flat_weights_names, views):
+            getattr(ref, name).copy_(w)
+    assert offsets(views) == offsets(flat._flat_weights)
+    assert len({w.untyped_storage().data_ptr()
+                for w in flat._flat_weights}) == 1
+    tokens = torch.randint(0, 50, (3, 7), device=cuda_card)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.no_grad():
+            logits, _ = model(tokens)
+        model(tokens)[0].sum().backward()
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+    assert model.OptimizedLSTMCell_0.weight_hh_l0.grad is not None
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the bf16 nn.LSTM repacks
+        y, _ = ref(model.Embed_0(tokens).bfloat16())
+        want = model.Dense_0(y[:, -1]).float()
+    assert torch.equal(logits, want)

@@ -1,4 +1,7 @@
-"""Load a flax ``TransformerLM`` params tree into the port's model.
+"""Load flax parameter trees into the port's models:
+:func:`params_from_flax` for ``TransformerLM``, :func:`cnn_params_from_flax`
+for the ai-benchmark models (ResNet-V2, VGG-16, DeepLab-v3, the LSTM
+classifier).
 
 The tree comes as nested dicts of numpy arrays (``jax.device_get`` of
 the flax params, or any arrays ``np.asarray`` accepts); nothing here
@@ -68,4 +71,63 @@ def params_from_flax(params, *, device="cuda",
     put("ln_f.scale", params["ln_f"]["scale"])
     put("ln_f.bias", params["ln_f"]["bias"])
     put("lm_head.weight", params["lm_head"]["kernel"], transpose=True)
+    return sd
+
+
+def _lstm_params(cell, name: str, put) -> None:
+    """flax ``OptimizedLSTMCell`` -> ``nn.LSTM``: the gate kernels in
+    torch's order (i, f, g, o) concatenated and transposed; flax's one
+    bias (on the hidden kernels) as ``bias_ih_l0``, ``bias_hh_l0`` = 0."""
+    gates = "ifgo"
+    w_ih = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"], np.float32)
+                           for g in gates], axis=-1)
+    w_hh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"], np.float32)
+                           for g in gates], axis=-1)
+    b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"], np.float32)
+                        for g in gates])
+    put(f"{name}.weight_ih_l0", w_ih, transpose=True)
+    put(f"{name}.weight_hh_l0", w_hh, transpose=True)
+    put(f"{name}.bias_ih_l0", b)
+    put(f"{name}.bias_hh_l0", np.zeros_like(b))
+
+
+def cnn_params_from_flax(variables, *, device="cuda",
+                         dtype=None) -> Dict[str, torch.Tensor]:
+    """The state dict of an ai-benchmark model for flax ``variables``
+    (``{"params": ..., "batch_stats": ...}`` as numpy arrays).  The port's
+    module names are flax's, so a path maps to a name; leaves map as
+
+    - a conv ``kernel`` (HWIO) -> ``weight`` (OIHW);
+    - a Dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
+    - ``embedding`` -> ``weight``; BatchNorm ``scale``, ``bias``,
+      ``mean``, ``var`` and biases keep their names;
+    - an ``OptimizedLSTMCell`` subtree -> ``nn.LSTM``'s four tensors.
+
+    A ``batch_stats`` tree alone (a forward's updated statistics) gives
+    the buffer entries only."""
+    dev = resolve_device(device)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr, transpose=False):
+        sd[name] = _tensor(arr, transpose, dev, dtype)
+
+    def walk(tree, path):
+        for key, sub in tree.items():
+            name = f"{path}.{key}" if path else key
+            if key.startswith("OptimizedLSTMCell"):
+                _lstm_params(sub, name, put)
+            elif isinstance(sub, dict):
+                walk(sub, name)
+            elif key == "kernel" and np.ndim(sub) == 4:
+                w = np.transpose(np.asarray(sub), (3, 2, 0, 1))
+                put(f"{path}.weight", w)
+            elif key == "kernel":
+                put(f"{path}.weight", sub, transpose=True)
+            elif key == "embedding":
+                put(f"{path}.weight", sub)
+            else:
+                put(name, sub)
+
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), "")
     return sd
