@@ -83,7 +83,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the device idle share of each arm's own window (device-only tracing)
    and the step's host and device times; and a tenant at 50 % whose duty
    (its rate over its rate at 100 %), eager and graphed, must be within
-   0.15 of 0.5, beside the duty that the reference's pacing rule gives.
+   0.15 of 0.5, beside the duty that the reference's pacing rule gives;
+   ``share.run`` also runs the four-process arm, which phase 10 checks;
+10. the GPU node path: ``NvmlProvider`` lists this card with nvidia-smi's
+   UUID and memory and finds it healthy; the CUDA driver-API interposer
+   (``vtpu_torch/native``) builds with g++ from the repo's sources; then
+   plain PyTorch tenants (``vtpu_torch.bench.tenant``) under its
+   ``LD_PRELOAD``, each with the env the device plugin writes at Allocate
+   (``PJRT_*``): a quota tenant at 8192 MiB meets
+   ``torch.OutOfMemoryError`` while NVML still shows > 40 GB free on the
+   card, with ``mem_get_info`` and NVML inside the tenant reporting the
+   quota and the region's peak within it;
+   the paged serve path (depth 4, decode graphs) gives the same tokens as
+   the same run without the interposer; a graphed ResNet-V2-50 tenant at
+   core limit 50 holds a device busy share (from its own traced window)
+   within 0.15 of 0.5, its rate beside the same tenant's at 100; the
+   four-process share arm (``share.run_processes``, run by phase 9's
+   ``share.run``), eager and graphed, 16 GiB and core limit 100 each:
+   per-tenant, summed and exclusive img/s and the ratio (the reference's
+   0.95 printed beside it, not asserted), 0 violations, four live region
+   slots each holding its tenant's reserved memory, its context's charge
+   and what libraries allocated outside PyTorch's allocator (at most
+   256 MiB); and the interposer's cost per launch and per allocation pair
+   (``vgpu_hook_bench``, with and without it, in turns).
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -1227,9 +1249,10 @@ SHARE_WINDOW = 6.0                 # seconds per arm (the CLI: 10)
 SHARE_QUOTA = 4 << 30              # each tenant's HBM quota (bench.py's)
 DUTY_WINDOW = 2.5                  # seconds per duty probe
 DUTY_TOL = 0.15                    # of 0.5, the 50 % tenant's duty
+DUTY_CORE = 50                     # the paced tenant's core limit
 
 
-def share_phase(card: str) -> None:
+def share_phase(card: str) -> dict:
     """``vtpu_torch.bench.share.run`` on the card (bf16 ResNet-V2-50 at
     batch 50, 224^2; its docstring lists the arms), checked and emitted:
     one ``share`` line per forward (eager, graphed) with the exclusive
@@ -1245,7 +1268,7 @@ def share_phase(card: str) -> None:
 
     t0 = time.perf_counter()
     doc = share.run("cuda", window=SHARE_WINDOW, quota=SHARE_QUOTA,
-                    duty_window=DUTY_WINDOW)
+                    duty_window=DUTY_WINDOW, process_window=NODE_WINDOW)
     phase_s = time.perf_counter() - t0
     for kind in ("eager", "graphed"):
         arm = doc[kind]
@@ -1291,6 +1314,231 @@ def share_phase(card: str) -> None:
              card=card)
         check(abs(duty["measured"] - q / 100) <= DUTY_TOL,
               f"share {kind}: duty at {q}% measured {duty['measured']}")
+    return doc["processes"]
+
+
+# -- phase 10: the GPU node path ------------------------------------------
+NODE_QUOTA_MB = 8192               # the quota tenant's Allocate quota
+NODE_FREE_BYTES = 40e9             # NVML's free memory at its OOM, at least
+NODE_WINDOW = 2.0                  # seconds per tenant window
+# a slot holds its tenant's reserved memory, its context's charge (as
+# program bytes) and what libraries allocate outside PyTorch's caching
+# allocator, which the interposer charges too: 128.3 MiB a tenant of the
+# eager ResNet-V2-50 arm on an H100 80GB HBM3 at 700 W (not attributed);
+# at most this much
+NODE_OUTSIDE_ALLOCATOR = 256 << 20
+
+
+def node_quota(card: str, uuid: str, so: str, tmp: str) -> None:
+    """The quota tenant: 1 GiB tensors until the interposer refuses one;
+    the card's free memory is read here while the tenant holds them.
+    Every tenant of the node phase takes its context lock in
+    ``<tmp>/lock``."""
+    from vtpu_torch.bench import share
+    from vtpu_torch.bench.tenant import GIB, nvml_memory
+
+    t = time.perf_counter()
+    qdir = os.path.join(tmp, "quota")
+    os.makedirs(qdir)
+    env = share.tenant_env(os.path.join(qdir, "vtpu.cache"), qdir,
+                           quota_mb=NODE_QUOTA_MB, cores=100, uuid=uuid,
+                           lock_dir=os.path.join(tmp, "lock"), interposer=so)
+    tenant = share.Tenants([(["--mode", "quota"], env)], qdir)
+    try:
+        (q,) = tenant.phase("quota", [0])
+        card_free = nvml_memory(uuid)["free"]
+        (final,) = tenant.close()
+    except BaseException:
+        tenant.kill()
+        raise
+    proof = final["proof"]
+    limit = NODE_QUOTA_MB << 20
+    slot = q["region"]["slot"]
+    emit(phase="node_quota", quota_mb=NODE_QUOTA_MB,
+         bytes_at_oom=q["bytes_at_oom"], tensors=q["tensors"],
+         oom=q["oom"], nvml_free_at_oom=card_free,
+         nvml_in_tenant=q["nvml_in_tenant"],
+         mem_get_info=proof["mem_get_info"],
+         memory_reserved=q["memory_reserved"], region_slot=slot,
+         region_total=q["region"]["device_total"],
+         seconds=time.perf_counter() - t, card=card)
+    check(proof["mem_get_info"][1] == limit,
+          f"node quota: mem_get_info {proof['mem_get_info']}")
+    check(q["nvml_in_tenant"]["total"] == limit,
+          f"node quota: NVML in the tenant {q['nvml_in_tenant']}")
+    check(q["tensors"] < NODE_QUOTA_MB // 1024
+          and card_free > NODE_FREE_BYTES,
+          f"node quota: OOM after {q['tensors']} GiB with {card_free} B "
+          f"free on the card")
+    check(slot["hbm_peak"] <= limit
+          and q["region"]["device_total"] <= limit,
+          f"node quota: region {q['region']} past {limit}")
+    check(slot["buffer"] >= q["tensors"] * GIB,
+          f"node quota: region holds {slot['buffer']} B of "
+          f"{q['tensors']} GiB")
+
+
+def node_serve(card: str, env, barrier: str) -> None:
+    """The paged serve path with and without the interposer, at once:
+    the same tokens.  The serve tenants wait at no barrier; ``barrier``
+    only receives ``Tenants``' exit mark."""
+    from vtpu_torch.bench import share
+
+    t = time.perf_counter()
+    tenants = share.Tenants(
+        [(["--mode", "serve"], env("serve")),
+         (["--mode", "serve", "--plain"], env("serve_plain", interposer=""))],
+        barrier)
+    shimmed, plain = tenants.close()
+    same = shimmed["tokens"] == plain["tokens"]
+    emit(phase="node_serve", depth=shimmed["depth"],
+         requests=len(shimmed["tokens"]),
+         tokens=sum(len(toks) for toks in shimmed["tokens"].values()),
+         identical=same, launches=shimmed["launches"],
+         launches_plain=plain["launches"],
+         region_slot=shimmed["region"]["slot"],
+         seconds=time.perf_counter() - t, card=card)
+    check(same, "node serve: tokens differ under the interposer")
+    check(all(v > 0 for v in shimmed["launches"].values()),
+          f"node serve: kernels not launched {shimmed['launches']}")
+
+
+def node_phase(card: str, processes: dict) -> None:
+    """Phase 10 (the module docstring): the provider against nvidia-smi,
+    the interposer's build, and plain PyTorch tenants under it;
+    ``processes`` is the four-process arm that ``share.run`` ran in the
+    share phase (``share.run_processes``), checked and emitted here."""
+    import tempfile
+
+    import torch
+
+    from vtpu_torch.bench import share
+    from vtpu_torch.device.nvml import NvmlProvider
+    from vtpu_torch.native import build
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    prov = NvmlProvider()
+    chips, health = prov.enumerate(), prov.health_check()
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,memory.total",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi: {res.stderr.strip()}")
+    smi = [[f.strip() for f in line.split(",")]
+           for line in res.stdout.strip().splitlines()]
+    emit(phase="node_provider", chips=[vars(c) for c in chips],
+         nvidia_smi=smi, healthy=[c.healthy for c in health],
+         topology=list(prov.topology().dims), card=card)
+    check(len(chips) == 1 and len(smi) == 1,
+          f"node: {len(chips)} chips from NVML, {len(smi)} from nvidia-smi")
+    check(chips[0].uuid == smi[0][0]
+          and chips[0].hbm_mb == int(smi[0][1]),
+          f"node: provider {chips[0].uuid} {chips[0].hbm_mb} MiB against "
+          f"nvidia-smi {smi[0]}")
+    check(all(c.healthy for c in health), "node: card unhealthy")
+    uuid = chips[0].uuid
+    check(uuid == share.card_uuid(), "node: NVML and torch name "
+          "different cards")
+
+    t = time.perf_counter()
+    so = build.interposer()
+    emit(phase="node_build", seconds=time.perf_counter() - t,
+         interposer=os.path.relpath(so, HERE), card=card)
+
+    with tempfile.TemporaryDirectory(prefix="vtpu-node-") as tmp:
+        def env(name, interposer=so):
+            os.makedirs(os.path.join(tmp, name))
+            return share.tenant_env(
+                os.path.join(tmp, name, "vtpu.cache"), "", quota_mb=16384,
+                cores=100, uuid=uuid, lock_dir=os.path.join(tmp, "lock"),
+                interposer=interposer)
+
+        # the duty tenants build and capture their graphs beside the
+        # quota and serve tenants, then wait at the barrier
+        duty_dir = os.path.join(tmp, "duty")
+        os.makedirs(duty_dir)
+        specs = []
+        for cores in (DUTY_CORE, 100):
+            e = share.tenant_env(os.path.join(duty_dir, f"{cores}.cache"),
+                                 duty_dir, quota_mb=16384, cores=cores,
+                                 uuid=uuid, lock_dir=os.path.join(tmp, "lock"),
+                                 interposer=so)
+            specs.append((["--mode", "resnet", "--graphed", "--seconds",
+                           str(NODE_WINDOW), "--phases", f"at{cores}"]
+                          + (["--trace"] if cores == DUTY_CORE else []), e))
+        duty = share.Tenants(specs, duty_dir)
+        try:
+            node_quota(card, uuid, so, tmp)
+            node_serve(card, env, os.path.join(tmp, "serve"))
+            # in turns, a graphed tenant at 50 % and the same at 100 %
+            t = time.perf_counter()
+            (at_q,) = duty.phase(f"at{DUTY_CORE}", [0])
+            (at_100,) = duty.phase("at100", [1])
+            final = duty.close()
+        except BaseException:
+            duty.kill()
+            raise
+        busy = at_q["busy_share"]
+        emit(phase="node_duty", core_limit=DUTY_CORE, window_s=NODE_WINDOW,
+             busy_share=busy, img_s=at_q["img_s"],
+             img_s_at_100=at_100["img_s"],
+             rate_ratio=at_q["img_s"] / at_100["img_s"], tol=DUTY_TOL,
+             kernels_traced=at_q["kernels"], trace_s=at_q["trace_s"],
+             setup_s=[doc["setup_s"] for doc in final],
+             seconds=time.perf_counter() - t, card=card)
+        check(abs(busy - DUTY_CORE / 100) <= DUTY_TOL,
+              f"node duty at {DUTY_CORE}%: busy share {busy}")
+
+        # the four-process share arm (run by share.run in the share phase)
+        for kind in ("eager", "graphed"):
+            arm = processes[kind]
+            region = arm["region"]
+            outside = [s.get("buffer", 0) - s["reserved"]
+                       for s in region["slots"]]
+            emit(phase="node_share", arm=arm["kind"], model="resnet50",
+                 dtype="bfloat16", window_s=arm["window_s"],
+                 quota_mb=arm["quota_mb"],
+                 exclusive_img_s=arm["exclusive_img_s"],
+                 per_tenant_img_s=arm["per_tenant_img_s"],
+                 summed_img_s=arm["summed_img_s"], ratio=arm["ratio"],
+                 target_ratio=0.95, violations=arm["violations"],
+                 region=region, outside_allocator_bytes=outside,
+                 setup_s=arm["setup_s"], seconds=arm["seconds"], card=card)
+            check(arm["violations"] == 0,
+                  f"node share {arm['kind']}: {arm['violations']} violations")
+            check(region["procs"] == 4
+                  and region["pids"] == region["tenant_pids"],
+                  f"node share {arm['kind']}: region slots {region}")
+            for s, extra in zip(region["slots"], outside):
+                check(s.get("program", 0) > 0
+                      and 0 <= extra <= NODE_OUTSIDE_ALLOCATOR,
+                      f"node share {arm['kind']}: slot {s} is not its "
+                      f"tenant's reserved memory and context charge")
+
+        # what the interposer adds to a launch and to an allocation pair
+        t = time.perf_counter()
+        bench = build.hook_bench()
+        cost = {"interposer": [], "plain": []}
+        for name in ("plain", "interposer", "interposer", "plain"):
+            res = subprocess.run(
+                [bench, "20000", "2000", str(2 << 20)],
+                env=env(f"hook_{len(cost[name])}_{name}",
+                        interposer=so if name == "interposer" else ""),
+                capture_output=True, text=True, timeout=300)
+            check(res.returncode == 0, f"hook bench: {res.stderr[-2000:]}")
+            cost[name].append(json.loads(res.stdout))
+        mean = {k: {m: sum(r[m] for r in v) / len(v)
+                    for m in ("launch_issue_us", "alloc_free_us")}
+                for k, v in cost.items()}
+        emit(phase="node_hook_cost", runs=cost, mean=mean,
+             launch_added_us=mean["interposer"]["launch_issue_us"]
+             - mean["plain"]["launch_issue_us"],
+             alloc_free_added_us=mean["interposer"]["alloc_free_us"]
+             - mean["plain"]["alloc_free_us"],
+             seconds=time.perf_counter() - t, card=card)
+    emit(phase="node", seconds=time.perf_counter() - t_phase, card=card)
 
 
 def main() -> int:
@@ -1344,7 +1592,7 @@ def main() -> int:
     for k, v in ai_benchmark_phase(card, args.seed).items():
         launches[k] = launches.get(k, 0) + v
     resnet_f32_phase(card, args.seed)
-    share_phase(card)
+    node_phase(card, share_phase(card))
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

@@ -25,11 +25,20 @@ The workload is ResNet-V2-50 in bf16 (weights and activations) at batch
   runs eager and graphed, each with the port's pacing and with the
   reference's (``ReferencePacing``): the two differ where a launch
   returns long before its step is done, as a graph replay does.
+- Four-process arm (``run_processes``): four tenant processes
+  (``vtpu_torch.bench.tenant``, plain PyTorch programs that never call
+  the runtime) under ``LD_PRELOAD`` of the CUDA interposer
+  (``vtpu_torch/native``), with the env the device plugin writes at
+  Allocate (``PJRT_DEVICE_MEMORY_LIMIT_0`` 16384 MiB, core limit 100, one
+  region file), started together through a file barrier: tenant 0's
+  window alone (the exclusive arm, under the same interposer), then the
+  four together; eager and graphed.  The region is read back while the
+  tenants hold at the barrier: four live slots, each holding its
+  tenant's reserved memory and its context's charge.
 
 Reports per-tenant img/s, summed / exclusive (the reference's target is
 >= 0.95), quota violations, what the region holds after the run, and the
-duty.  The four-process arm, through a native interposer, is not here
-(ROADMAP A10).
+duty.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import argparse
 import collections
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import threading
@@ -55,6 +65,10 @@ from vtpu_torch.utils.sync import hard_sync
 
 BATCH, SIZE = 50, 224
 DUTY_CORE_LIMIT = 50
+PROCESS_TENANTS = 4
+PROCESS_QUOTA_MB = 16384           # each tenant process's Allocate quota
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 class ReferencePacing(ShimRuntime):
@@ -287,8 +301,155 @@ def paced_rate(forward, x, batch: int, window: float, core_limit: int,
     return rates[0]
 
 
+def card_uuid() -> str:
+    """NVML's name of the card (``GPU-<uuid>``), which the plugin writes
+    into ``VTPU_PJRT_VISIBLE_UUIDS``."""
+    return f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+
+
+def tenant_env(region: str, barrier: str, *, quota_mb: int, cores: int,
+               uuid: str, lock_dir: str, interposer: str = "") -> dict:
+    """The env of one tenant process: this process's, less every quota
+    name, plus the pjrt family's Allocate env, the node's context lock
+    directory (``lock_dir``, one for every tenant of the card; the
+    plugin mounts ``/tmp/vtpulock`` there in production) and the
+    interposer (``interposer=""`` for the plain control arm)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "PJRT_", "VTPU_"))}
+    env.update(PJRT_DEVICE_MEMORY_LIMIT_0=str(quota_mb),
+               PJRT_DEVICE_CORES_LIMIT=str(cores),
+               PJRT_DEVICE_MEMORY_SHARED_CACHE=region,
+               VTPU_PJRT_VISIBLE_UUIDS=uuid, VTPU_TENANT_BARRIER=barrier,
+               VTPU_LOCK_DIR=lock_dir,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    if interposer:
+        env["LD_PRELOAD"] = interposer
+    return env
+
+
+class Tenants:
+    """Tenant processes driven phase by phase through the file barrier of
+    ``vtpu_torch.bench.tenant``.  ``close`` releases and reaps them (and
+    kills any that outlive ``timeout``); ``kill`` ends them at once (on a
+    failure, while they may wait at a barrier that will not open)."""
+
+    def __init__(self, specs, barrier: str, timeout: float = 600.0):
+        self.barrier, self.timeout = barrier, timeout
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", "vtpu_torch.bench.tenant", *args],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for args, env in specs]
+
+    def _wait(self, names, what):
+        deadline = time.monotonic() + self.timeout
+        while not all(os.path.exists(os.path.join(self.barrier, n))
+                      for n in names):
+            for p in self.procs:
+                if p.poll() is not None:
+                    _, err = p.communicate()
+                    raise RuntimeError(f"tenant {p.pid} exited "
+                                       f"{p.returncode} before {what}: "
+                                       f"{err[-3000:]}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"tenants never reached {what}")
+            time.sleep(0.02)
+
+    def phase(self, name: str, members) -> list:
+        """Open phase ``name`` once ``members`` (indices) are ready; their
+        reports when each is done."""
+        pids = [self.procs[i].pid for i in members]
+        self._wait([f"ready_{name}_{pid}" for pid in pids], f"{name} ready")
+        open(os.path.join(self.barrier, f"go_{name}"), "w").close()
+        done = [f"done_{name}_{pid}.json" for pid in pids]
+        self._wait(done, f"{name} done")
+        out = []
+        for d in done:
+            with open(os.path.join(self.barrier, d)) as f:
+                out.append(json.load(f))
+        return out
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+    def close(self) -> list:
+        """Release the tenants; their final JSON lines."""
+        open(os.path.join(self.barrier, "exit"), "w").close()
+        out = []
+        try:
+            for p in self.procs:
+                stdout, err = p.communicate(timeout=self.timeout)
+                if p.returncode != 0:
+                    raise RuntimeError(f"tenant {p.pid} exited "
+                                       f"{p.returncode}: {err[-3000:]}")
+                out.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        return out
+
+
+def run_processes(graphed: bool, window: float, tmp: str) -> dict:
+    """The four-process arm (module docstring) for one forward kind:
+    tenant 0 alone, then all four; per-tenant img/s, the
+    exclusive img/s, violations, and the region read back while the
+    tenants hold (its slots beside each tenant's reserved memory)."""
+    from vtpu_torch.bench.tenant import region_read
+    from vtpu_torch.native import build
+
+    t0 = time.perf_counter()
+    kind = "graphed" if graphed else "eager"
+    barrier = os.path.join(tmp, f"procs_{kind}")
+    os.makedirs(barrier)
+    region = os.path.join(barrier, "vtpu.cache")
+    env = tenant_env(region, barrier, quota_mb=PROCESS_QUOTA_MB, cores=100,
+                     uuid=card_uuid(), lock_dir=os.path.join(tmp, "lock"),
+                     interposer=build.interposer())
+    args = ["--mode", "resnet", "--seconds", str(window)] + (
+        ["--graphed"] if graphed else [])
+    specs = [(args + ["--phases", "exclusive,share" if i == 0 else "share"],
+              env) for i in range(PROCESS_TENANTS)]
+    tenants = Tenants(specs, barrier)
+    try:
+        (exclusive,) = tenants.phase("exclusive", [0])
+        shared = tenants.phase("share", range(PROCESS_TENANTS))
+        held = region_read(region)
+        final = tenants.close()
+    except BaseException:
+        tenants.kill()
+        raise
+    pids = [t.pid for t in tenants.procs]
+    per_tenant = [s["img_s"] for s in shared]
+    usage, limit = held["usage"], held["limits"][0]
+    return {"kind": kind, "quota_mb": PROCESS_QUOTA_MB, "window_s": window,
+            "exclusive_img_s": exclusive["img_s"],
+            "per_tenant_img_s": per_tenant,
+            "summed_img_s": sum(per_tenant),
+            "ratio": sum(per_tenant) / exclusive["img_s"],
+            # steps the quota refused, and the region's summed peaks
+            # (an upper bound of its simultaneous use) past the quota
+            "violations": sum(s["violations"] for s in shared)
+            + exclusive["violations"] + int(usage["hbm_peak"] > limit),
+            "region": {"procs": len(held["slots"]),
+                       "pids": sorted(held["slots"]),
+                       "tenant_pids": sorted(pids),
+                       "total_bytes": usage["total"],
+                       "hbm_peak": usage["hbm_peak"], "limit_bytes": limit,
+                       "slots": [dict(held["slots"].get(pid, {}), pid=pid,
+                                      reserved=s["memory_reserved"])
+                                 for pid, s in zip(pids, shared)]},
+            "proof": [t["proof"] for t in final],
+            "setup_s": [t["setup_s"] for t in final],
+            "seconds": time.perf_counter() - t0}
+
+
 def run(device="cuda", *, window: float = 10.0, quota: int = 4 << 30,
-        duty_window: float = 5.0) -> dict:
+        duty_window: float = 5.0, process_window: float = 3.0) -> dict:
     """Every arm on the card, ``window`` seconds each (the duty probes
     ``duty_window``): for the eager and the graphed forward, the step's
     host issue and device time, the exclusive arm, the four-tenant share
@@ -296,7 +457,9 @@ def run(device="cuda", *, window: float = 10.0, quota: int = 4 << 30,
     only, the share without the runtime; each arm's img/s and device
     idle share from its own traced window.  Then the duty of a tenant at
     ``DUTY_CORE_LIMIT``, eager and graphed, under the port's pacing and
-    under the reference's."""
+    under the reference's.  Then the four-process arm through the
+    interposer (``run_processes``, ``process_window`` seconds a window),
+    eager and graphed."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     forward, x, batch, param_bytes = build_forward(dev)
@@ -364,6 +527,9 @@ def run(device="cuda", *, window: float = 10.0, quota: int = 4 << 30,
                 "reference_rule_img_s": rate["reference"],
                 "reference_rule_measured": rate["reference"]
                 / rate["at_100"]}
+        doc["processes"] = {
+            kind: run_processes(kind == "graphed", process_window, tmp)
+            for kind in ("eager", "graphed")}
     return doc
 
 
@@ -375,7 +541,7 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true", help="one JSON line")
     args = p.parse_args(argv)
     doc = run("cuda", window=args.window, quota=args.quota_mb << 20,
-              duty_window=args.window / 2)
+              duty_window=args.window / 2, process_window=args.window / 2)
     if args.json:
         print(json.dumps(doc), flush=True)
         return 0
@@ -393,6 +559,14 @@ def main(argv=None) -> int:
         print(f"{kind}: duty at {doc['duty']['core_limit']}% "
               f"{duty['measured']:.3f} (the reference's rule: "
               f"{duty['reference_rule_measured']:.3f})", flush=True)
+    for kind in ("eager", "graphed"):
+        arm = doc["processes"][kind]
+        print(f"{kind}, four processes through the interposer: exclusive "
+              f"{arm['exclusive_img_s']:.2f} img/s; 4 tenants "
+              f"{[round(r, 2) for r in arm['per_tenant_img_s']]} = "
+              f"{arm['summed_img_s']:.2f} img/s, ratio {arm['ratio']:.4f}, "
+              f"violations {arm['violations']}, region slots "
+              f"{arm['region']['procs']}", flush=True)
     return 0
 
 

@@ -1,4 +1,7 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the device layer:
+``chip`` (the ``Chip`` record and the provider protocol), ``topology``,
+``health`` (region error streaks) and ``nvml`` (``NvmlProvider``, the
+GPU provider the unchanged device plugin serves).
 
 Every entry point (``TransformerLM``, ``PagedBatcher``, ``generate``,
 ``params_from_flax``) takes an explicit ``device`` that defaults to
