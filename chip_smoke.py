@@ -105,7 +105,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
    slots each holding its tenant's reserved memory, its context's charge
    and what libraries allocated outside PyTorch's allocator (at most
    256 MiB); and the interposer's cost per launch and per allocation pair
-   (``vgpu_hook_bench``, with and without it, in turns).
+   (``vgpu_hook_bench``, with and without it, in turns);
+11. disaggregated serving (``vtpu_torch/serving/disagg.py``): the wire
+   extract of every codec on the card gives the CPU's bytes (bf16, f32
+   with a zero and a subnormal block, int8 with f32 scales), each
+   codec's device time for a 1000-token request's extract, and the
+   host's time for one 8 MiB chunk of it (payload join, frame encode and
+   decode, crc32, the copy to the card); at depth 2,
+   f32, both pools, shared-pool, cross-pool copy and fp32-wire
+   disaggregation give exactly the monolithic PagedBatcher's tokens;
+   then the serve configuration (the serve phase's weights and 16
+   requests) through a PrefillEngine and a DecodeEngine(max_batch=8):
+   shared and copy on both pools, and the wire (the port's StreamSender
+   -> LoopbackLink -> ReceiverHub, speculative adoption) under fp32,
+   int8, fp8 and int4 on the native pool and fp32 on the int8 pool, each
+   arm a line: the share of tokens equal to the serve phase's
+   (information: a different admission grouping rounds bf16
+   differently), the adopted blocks' largest error against their source
+   beside ``error_bound(wire_quant_max_scale, codec)`` (required within;
+   and each block within its own scale's bound plus half a pool-dtype
+   ulp of the value; fp32 exact; the rows are copied on the device at
+   FIN and compared after the run, outside its timing), blocks
+   leaked on each pool (required 0), handoff host bytes (required 0 but
+   on the wire), wire bytes a request, handoff ms a request (device copy
+   or bind by CUDA events; wire_open to FIN by the host clock), TTFT
+   p50, decode tokens/s, the replayed step ms (over all replays and over
+   those with all 8 slots active: a step's attention grows with its
+   active rows' keys), replayed decode windows (required > 0), the
+   LN and paged-decode launches (required: the serve phase's bounds per
+   forward and per decode step), and the drive loop's host seconds in
+   prefill, handoff and decode.
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -124,6 +153,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -766,6 +796,8 @@ def serve(model, reqs, *, count: bool, decode_graph: str = "auto"):
     replays = [w for w in windows if w[4]]
     tps, step_ms = decode(windows)
     tps_replay, step_ms_replay = decode(replays)
+    # every slot active: the step's attention over 8 real rows
+    _tps, step_ms_full = decode([w for w in replays if w[1] == eng.max_batch])
     ttfts = sorted(ttft.values())
     metrics = dict(
         requests=len(reqs), finished=sum(
@@ -781,6 +813,7 @@ def serve(model, reqs, *, count: bool, decode_graph: str = "auto"):
         decode_tokens_per_s=tps, decode_step_ms=step_ms,
         decode_tokens_per_s_replayed=tps_replay,
         decode_step_ms_replayed=step_ms_replay,
+        decode_step_ms_replayed_full=step_ms_full,
         ttft_s_min=ttfts[0] if ttfts else None,
         ttft_s_p50=ttfts[len(ttfts) // 2] if ttfts else None,
         ttft_s_max=ttfts[-1] if ttfts else None,
@@ -1541,6 +1574,436 @@ def node_phase(card: str, processes: dict) -> None:
     emit(phase="node", seconds=time.perf_counter() - t_phase, card=card)
 
 
+# -- phase 11: disaggregated serving ---------------------------------------
+WIRE_CODECS = ("fp32", "int8", "fp8", "int4")
+
+
+def codec_bytes_phase(card: str, seed: int) -> None:
+    """The wire extract (gather, blockwise codec, pack, D2H, payload) on
+    the card against the same extract on the CPU, every codec, over pool
+    leaves of the serve widths: bf16 and f32 K/V with a zero block and a
+    subnormal block, and the int8 pool's int8 K/V with f32 scales; bytes
+    equal.  Then each codec's device time for one 1000-token request of
+    the full-width model (63 blocks of its 64 pool leaves), its bound,
+    and the bytes it hands to the D2H."""
+    import torch
+
+    from vtpu_torch.serving import disagg
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    geom = (96, 8, 16, 128)
+    f32 = torch.randn(geom, generator=gen) * 3
+    f32[5] = 0.0
+    f32[6] = 1e-45
+    leaves = [(torch.randn(geom, generator=gen) * 3).to(torch.bfloat16), f32,
+              torch.randint(-128, 128, geom, generator=gen,
+                            dtype=torch.int8),
+              torch.rand(geom[:3] + (1,), generator=gen) / 127]
+    card_leaves = [t.cuda() for t in leaves]
+    blocks = [5, 6] + list(range(20, 55))  # 37: padded to 64
+    gathers = disagg._make_wire_gathers()
+    for codec in WIRE_CODECS:
+        a = disagg._extract_blocks(leaves, blocks, codec,
+                                   gathers).payload(0, len(blocks))
+        b = disagg._extract_blocks(card_leaves, blocks, codec,
+                                   gathers).payload(0, len(blocks))
+        emit(phase="disagg_codec_bytes", codec=codec, blocks=len(blocks),
+             bytes=len(a), equal=a == b, card=card)
+        check(a == b, f"{codec}: card extract bytes differ from the CPU's")
+    del card_leaves
+    # one request's extract at the serve widths: 64 bf16 leaves
+    pool = [torch.randn((64,) + geom[1:], device="cuda",
+                        dtype=torch.bfloat16) for _ in range(64)]
+    idx = torch.arange(1, 64, device="cuda").long()
+    read = 63 * 64 * 8 * 16 * 128 * 2
+    for codec in WIRE_CODECS:
+        q, sc = gathers[codec](pool, idx)
+        out = sum(t.numel() * t.element_size() for t in q) + (
+            sum(t.numel() * 4 for t in sc) if sc else 0)
+        ms = time_ms(lambda: gathers[codec](pool, idx), iters=10)
+        # bytes: the gathered rows read once, the extract written once
+        b_ms, by = bound(read + out, 0, "float32")
+        emit(phase="disagg_extract", codec=codec, blocks=63, leaves=64,
+             ms=ms, bound_ms=b_ms, bound_by=by, d2h_bytes=out, card=card)
+    # the wire's host work on one chunk of that request (the default 4
+    # blocks of its 64 leaves): the extract's payload join, the frame's
+    # encode and decode (each with its crc32), the crc32 alone, and the
+    # receiver's copy to the card (pinned staging, H2D, waited for)
+    from vtpu_torch.serving import transport as ttp
+
+    ex = disagg._extract_blocks(pool, list(range(1, 64)), "fp32", gathers)
+    payload = ex.payload(0, 4)
+    frame = ttp.encode_frame(ttp.KIND_DATA, bytes(16), seq=1, nchunks=16,
+                             nblocks=4, payload=payload)
+
+    def host_ms(fn, n: int = 10) -> float:
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e3
+
+    def to_card():
+        disagg.chunk_to_device(frame[-len(payload):], torch.device("cuda"))
+        torch.cuda.synchronize()
+
+    steps = {"payload": lambda: ex.payload(0, 4),
+             "encode_frame": lambda: ttp.encode_frame(
+                 ttp.KIND_DATA, bytes(16), seq=1, nchunks=16, nblocks=4,
+                 payload=payload),
+             "decode_frame": lambda: ttp.decode_frame(frame),
+             "crc32": lambda: zlib.crc32(payload),
+             "to_card": to_card}
+    ms = {k: host_ms(fn) for k, fn in steps.items()}
+    emit(phase="disagg_wire_host", chunk_bytes=len(payload), ms=ms,
+         gb_per_s={k: len(payload) / v / 1e6 for k, v in ms.items()},
+         card=card)
+    del pool, ex
+    torch.cuda.empty_cache()
+
+
+def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
+               count: bool):
+    """Serve ``reqs`` (all submitted at t=0) through a PrefillEngine and
+    a DecodeEngine(max_batch=8): ``shared`` (one pool), ``copy`` (a
+    standalone prefill pool, device copy) or ``wire`` (the port's
+    StreamSender -> LoopbackLink -> ReceiverHub -> DecodeEngine under
+    ``codec``, speculative adoption on).  Returns (outputs, metrics);
+    ``mono`` is the monolithic engine's tokens for the same requests.
+    With ``count`` the kernels' launch counts are zeroed just before and
+    read just after.  The engines die with the call (``release_arm``
+    measures what is left)."""
+    import torch
+
+    from vtpu_torch.ops.quant import (
+        quantize_blockwise,
+        quantize_blockwise_fp8,
+        quantize_blockwise_int4,
+    )
+    from vtpu_torch.serving import transport as ttp
+    from vtpu_torch.serving import wirecodec
+    from vtpu_torch.serving.disagg import (
+        DecodeEngine,
+        PrefillEngine,
+        wire_leaves,
+    )
+
+    dec = DecodeEngine(model, max_batch=8)
+    pf = PrefillEngine(model, shared_with=dec if mode == "shared" else None)
+    windows, handoff = [], []
+    step_k = dec._step_k
+
+    def timed_step_k(k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        active, replay = sum(dec.active), k in dec._graphs
+        s.record()
+        out = step_k(k)
+        e.record()
+        windows.append((k, active, s, e, replay))
+        return out
+
+    dec._step_k = timed_step_k
+    # forwards outside the decode windows (the prefill engine's), by a
+    # hook, as in ``serve``: the launch checks' lower bounds
+    prefill_forwards, in_window = [0], [False]
+    hook = model.register_forward_hook(
+        lambda *_: prefill_forwards.__setitem__(
+            0, prefill_forwards[0] + (not in_window[0])))
+
+    def counted_step_k(k):
+        in_window[0] = True
+        try:
+            return timed_step_k(k)
+        finally:
+            in_window[0] = False
+
+    dec._step_k = counted_step_k
+    quantize = {"int8": quantize_blockwise, "fp8": quantize_blockwise_fp8,
+                "int4": quantize_blockwise_int4}.get(codec)
+    rep = None
+    # (source rows, adopted rows) of every stream, copied on the device
+    # at FIN into buffers sized for the run's leases before it starts:
+    # the sender frees its blocks and decode appends to the tail block
+    # after FIN; the errors are computed once the run is over
+    snap, snap_at, snap_s = [], [0], [0.0]
+    if mode == "wire":
+        rep = ttp.WireReplica(ttp.LoopbackLink(ttp.ReceiverHub(dec)), "w0",
+                              local=dec, codec=codec)
+        finish = dec.wire_finish
+        bs = model.kv_block_size
+        cap = sum(-(-(len(p) + n) // bs) + 1 for _r, p, n in reqs)
+        for pair in zip(pf.pool_leaves(), wire_leaves(dec.cache["layers"])):
+            snap.append(tuple(torch.empty((cap,) + t.shape[1:],
+                                          dtype=t.dtype, device=t.device)
+                              for t in pair))
+
+        def wire_finish(ctx, meta):
+            finish(ctx, meta)
+            handoff.append((ctx["finished"] - ctx["opened"]) * 1e3)
+            t = time.perf_counter()
+            lo, blocks = snap_at[0], meta["handle"]["blocks"]
+            hi = snap_at[0] = lo + len(blocks)
+            check(hi <= cap, f"snapshot room: {hi} blocks of {cap}")
+            si = torch.as_tensor(blocks, device=model.device).long()
+            di = torch.as_tensor(ctx["dst"], device=model.device).long()
+            for (sb, db), sl, dl in zip(snap, pf.pool_leaves(),
+                                        wire_leaves(dec.cache["layers"])):
+                torch.index_select(sl, 0, si, out=sb[lo:hi])
+                torch.index_select(dl, 0, di, out=db[lo:hi])
+            snap_s[0] += time.perf_counter() - t
+
+        dec.wire_finish = wire_finish
+    else:
+        name = "_copy_rows" if mode == "copy" else "_bind_rows"
+        inner = getattr(dec, name)
+
+        def timed_handoff(entries):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            inner(entries)
+            e.record()
+            handoff.append((s, e, len(entries)))
+
+        setattr(dec, name, timed_handoff)
+    torch.cuda.synchronize()
+    if count:
+        zero_counts()
+    t0 = time.perf_counter()
+    for rid, prompt, n in reqs:
+        pf.submit(rid, prompt, num_new=n)
+    ttft = {}
+    src = pf if mode == "copy" else None
+    # the loop's host seconds by part: prefill rounds, handoff (the
+    # OPENs and pumps, or the adoptions), decode steps
+    host_s = {"prefill": 0.0, "handoff": 0.0, "decode": 0.0}
+    while (pf.queue or dec.queue or any(dec.active) or dec._inflight
+           or (rep is not None and rep.idle_senders())):
+        t = time.perf_counter()
+        results = pf.step()
+        t1 = time.perf_counter()
+        for res in results:
+            if rep is not None:
+                rep.submit_handle(res.rid, res.handle, res.first_token,
+                                  res.num_new, source=pf, admit=False)
+            else:
+                dec.submit_handle(res.rid, res.handle, res.first_token,
+                                  res.num_new, source=src, admit=False)
+        if rep is not None:
+            rep.pump_streams()
+        else:
+            dec.admit_pending()
+        t2 = time.perf_counter()
+        dec.step()
+        now = time.perf_counter()
+        host_s["prefill"] += t1 - t
+        host_s["handoff"] += t2 - t1
+        host_s["decode"] += now - t2
+        for rid, toks in dec.out.items():
+            if toks and rid not in ttft:
+                ttft[rid] = now - t0
+    out = dec.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts() if count else None
+    hook.remove()
+    err = torch.zeros((), device=model.device)
+    # the largest error over its own block's bound (scale/2, fp8 scale*16,
+    # plus the pool dtype's rounding of the reconstruction)
+    err_ratio = torch.zeros((), device=model.device)
+    for sb, db in snap:
+        rows, got = sb[:snap_at[0]], db[:snap_at[0]].float()
+        diff = (got - rows.float()).abs()
+        torch.maximum(err, diff.max(), out=err)
+        if quantize is not None:
+            per = quantize(rows)[1] * (16.0 if codec == "fp8" else 0.5)
+            per = per + torch.maximum(got.abs(), rows.float().abs(
+            )) * (torch.finfo(rows.dtype).eps / 2)
+            torch.maximum(err_ratio, (diff / per).max(), out=err_ratio)
+    snap.clear()
+    if mode == "wire":
+        per_req = sorted(handoff)
+    else:
+        per_req = sorted(s.elapsed_time(e) / n for s, e, n in handoff)
+    ms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in windows)
+    toks = sum(k * a for k, a, *_ in windows)
+    replays = [w for w in windows if w[4]]
+    rms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in replays)
+    rsteps = sum(k for k, *_ in replays)
+    # every slot active: the step's attention over 8 real rows
+    full = [w for w in replays if w[1] == dec.max_batch]
+    fms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in full)
+    fsteps = sum(k for k, *_ in full)
+    pairs = [(x, y) for rid, *_ in reqs
+             for x, y in zip(out.get(rid, []), mono[rid])]
+    dst, srcp = dec.pool.stats(), pf.pool.stats()
+    hub = rep.link.hub.stats() if rep is not None else {}
+    ttfts = sorted(ttft.values())
+    metrics = dict(
+        requests=len(reqs),
+        finished=sum(len(out.get(rid, [])) == n for rid, _p, n in reqs),
+        agree_share=sum(x == y for x, y in pairs) / max(1, len(pairs)),
+        tokens_equal_mono=all(out.get(rid) == mono[rid]
+                              for rid, *_ in reqs),
+        max_abs_err=float(err) if mode == "wire" else None,
+        error_bound=(wirecodec.error_bound(dec.wire_quant_max_scale, codec)
+                     if mode == "wire" and codec != "fp32" else None),
+        wire_quant_max_scale=(dec.wire_quant_max_scale
+                              if mode == "wire" else None),
+        max_err_over_block_bound=(float(err_ratio) if quantize is not None
+                                  else None),
+        leaked_decode_pool=dst["leased"] + dst["detached_handles"],
+        leaked_prefill_pool=srcp["leased"] + srcp["detached_handles"],
+        handoffs=dst[f"handoff_{mode}"],
+        handoff_host_bytes=dst["handoff_host_bytes"],
+        handoff_device_bytes=dst["handoff_device_bytes"],
+        wire_bytes_per_request=(hub.get("bytes", 0) / len(reqs)
+                                if rep is not None else 0),
+        handoff_ms_mean=sum(per_req) / len(per_req) if per_req else None,
+        handoff_ms_p50=per_req[len(per_req) // 2] if per_req else None,
+        ttft_s_p50=ttfts[len(ttfts) // 2] if ttfts else None,
+        ttft_s_max=ttfts[-1] if ttfts else None,
+        decode_tokens_per_s=toks / (ms / 1e3) if ms else None,
+        decode_step_ms_replayed=rms / rsteps if rsteps else None,
+        decode_step_ms_replayed_full=fms / fsteps if fsteps else None,
+        windows=len(windows), replayed_windows=len(replays),
+        replayed_windows_full=len(full),
+        spec_adoptions=dst["spec_adoptions"],
+        prefill_forwards=prefill_forwards[0], decode_steps=dec.steps,
+        wall_s=wall, host_s=host_s, check_snapshot_host_s=snap_s[0],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts)
+    for attr in ("_step_k", "wire_finish", "_copy_rows", "_bind_rows"):
+        dec.__dict__.pop(attr, None)  # the wrappers hold the engine
+    return out, metrics
+
+
+def release_arm(model, reqs, mono, **kw):
+    """``disagg_arm``, and the device memory it left behind (GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    out, met = disagg_arm(model, reqs, mono, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    met["mem_left_after_release_gb"] = (
+        torch.cuda.memory_allocated() - alloc0) / 1e9
+    return out, met
+
+
+def disagg_exactness_phase(card: str, seed: int) -> None:
+    """Depth 2, f32, the exactness phase's model on both pools: shared,
+    copy and fp32-wire disaggregation give exactly the monolithic
+    PagedBatcher's tokens."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    small = TransformerLM(**dict(FULL, depth=2), device="cuda",
+                          dtype=torch.float32, generator=gen)
+    reqs = make_requests(seed)
+    for pool in ("native", "int8"):
+        m = small.clone(kv_cache_dtype=pool)
+        mono, _ = serve(m, reqs, count=False)
+        for mode, codec in (("shared", None), ("copy", None),
+                            ("wire", "fp32")):
+            out, met = release_arm(m, reqs, mono, mode=mode, codec=codec,
+                                   count=False)
+            emit(phase="disagg_exactness", depth=2, dtype="float32",
+                 pool=pool, arm=mode, codec=codec, requests=len(reqs),
+                 token_identical=met["tokens_equal_mono"],
+                 max_abs_err=met["max_abs_err"],
+                 leaked=met["leaked_decode_pool"]
+                 + met["leaked_prefill_pool"], card=card)
+            check(met["tokens_equal_mono"],
+                  f"f32 {pool} {mode}: disaggregated tokens differ from "
+                  f"the monolithic engine's")
+            check(mode != "wire" or met["max_abs_err"] == 0.0,
+                  f"f32 {pool} fp32 wire: adopted blocks differ")
+    del small, m
+    torch.cuda.empty_cache()
+
+
+def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
+    """Phase 11 (the module docstring): the serve configuration at full
+    width through the disaggregated engines.  ``mono_out`` holds the
+    serve phase's monolithic tokens per pool (computed here when
+    absent).  Returns the kernels' launches over the arms."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+
+    t_phase = time.perf_counter()
+    codec_bytes_phase(card, seed)
+    disagg_exactness_phase(card, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerLM(**FULL, device="cuda", dtype=torch.bfloat16,
+                          generator=gen)  # the serve phase's weights
+    depth = model.depth
+    serve(model, make_requests(seed + 1, n=1, num_new=2), count=False)
+    reqs = make_requests(seed)
+    launches = {}
+    for pool in ("native", "int8"):
+        m = model if pool == "native" else model.clone(kv_cache_dtype="int8")
+        mono = (mono_out or {}).get(pool) or serve(m, reqs, count=False)[0]
+        arms = [("shared", None), ("copy", None)] + [
+            ("wire", c) for c in (WIRE_CODECS if pool == "native"
+                                  else ("fp32",))]
+        for mode, codec in arms:
+            torch.cuda.reset_peak_memory_stats()
+            _out, met = release_arm(m, reqs, mono, mode=mode, codec=codec,
+                                    count=True)
+            emit(phase="disagg", pool=pool, arm=mode, codec=codec,
+                 depth=depth, dtype="bfloat16", reduced=REDUCED,
+                 agree_note="information only: bf16 admission groups "
+                            "round differently from the monolithic "
+                            "engine's", card=card, **met)
+            c, what = met["launches"], f"{pool} {mode} {codec or ''}"
+            check(met["finished"] == len(reqs), f"{what}: unfinished")
+            check(met["leaked_decode_pool"] == 0
+                  and met["leaked_prefill_pool"] == 0,
+                  f"{what}: leaked blocks")
+            check(mode == "wire" or met["handoff_host_bytes"] == 0,
+                  f"{what}: {met['handoff_host_bytes']} handoff host bytes")
+            check(met["handoffs"] == len(reqs), f"{what}: handoffs")
+            if mode == "wire":
+                check(met["max_abs_err"] <= (met["error_bound"] or 0.0),
+                      f"{what}: adopted blocks {met['max_abs_err']} off, "
+                      f"bound {met['error_bound']}")
+                check((met["max_err_over_block_bound"] or 0.0) <= 1.0,
+                      f"{what}: an adopted block past its own bound")
+                check(met["spec_adoptions"] > 0,
+                      f"{what}: no speculative adoption")
+            check(met["replayed_windows"] > 0,
+                  f"{what}: no decode window was a graph replay")
+            check(met["mem_left_after_release_gb"] < 0.5,
+                  f"{what}: the arm kept "
+                  f"{met['mem_left_after_release_gb']} GB")
+            # the serve phase's bounds: LN in every block of every
+            # forward, paged decode in every layer of every decode step
+            paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
+            forwards = met["prefill_forwards"] + met["decode_steps"]
+            check(met["prefill_forwards"] > 0 and c["fused_layernorm"]
+                  >= (2 * depth + 1) * forwards,
+                  f"{what}: layernorm launches {c['fused_layernorm']} for "
+                  f"{forwards} forwards")
+            check(c[paged] >= depth * met["decode_steps"] > 0,
+                  f"{what}: {paged} launches {c[paged]} for "
+                  f"{met['decode_steps']} decode steps")
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        del m
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="disagg_phase", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1581,7 +2044,7 @@ def main() -> int:
     model, reqs, results, launches = serve_phase(card, args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])
-    del model, results
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     for k, v in train_phase(card, args.seed).items():
@@ -1593,6 +2056,8 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     resnet_f32_phase(card, args.seed)
     node_phase(card, share_phase(card))
+    for k, v in disagg_phase(card, args.seed, results).items():
+        launches[k] = launches.get(k, 0) + v
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

@@ -1,1 +1,3 @@
-"""Serving tier of the port: ``PagedBatcher`` over a ``BlockPool``."""
+"""Serving tier of the port: ``PagedBatcher`` over a ``BlockPool``, and
+the disaggregated ``PrefillEngine``/``DecodeEngine`` with the K/V wire
+transport and its codecs."""

@@ -1,0 +1,925 @@
+"""Prefill/decode disaggregation: the role-split serving engines.
+
+The port of ``vtpu/serving/disagg.py``.
+
+- :class:`PrefillEngine` runs only the bucketed admission path (the
+  compute half of ``PagedBatcher``'s admission, ``paged.pool_prefill``):
+  it prefills a group of prompts into leased pool blocks, argmaxes each
+  row's first token and **detaches** each lease into a
+  :class:`~vtpu_torch.serving.kvpool.KVHandle`, emitting
+  :class:`PrefillResult` ``(rid, first_token, handle)``.
+- :class:`DecodeEngine` is the ``PagedBatcher`` decode loop (pipelined
+  harvest, decode windows as CUDA graphs) admitting by **handle
+  adoption** instead of raw prompts: the slot opens with the prefill's
+  first token and position and decodes on from there.
+
+Adoption has three modes:
+
+- **shared** (``PrefillEngine(shared_with=decode)``, one pool): the
+  handle's blocks are bound into the slot's table row; no cache byte
+  moves.
+- **copy** (a standalone prefill pool): the decode engine leases its own
+  blocks and copies the source blocks device-side, one ``index_select``
+  and ``index_copy_`` per pool leaf; no cache byte reaches the host
+  (``handoff_host_bytes`` stays 0).
+- **wire**: the decode engine is the sink of a K/V stream
+  (``vtpu_torch/serving/transport.py``): ``wire_open`` pre-leases
+  destination blocks as credits, ``wire_write`` scatters each chunk as
+  it lands (dequantizing on the device under the int8/fp8/int4 codecs),
+  ``wire_finish`` binds the slot.  With ``speculative`` (the default) a
+  slot is reserved and the first token published at OPEN; its table row
+  stays on the garbage block until FIN, so the decode windows that keep
+  running inactive rows never write into blocks the stream is filling.
+
+The bind, position and first-token writes are ``index_copy_`` into the
+very tensors the captured decode windows read, so adoption never breaks
+a graph.
+
+Wire order of the pool leaves is the JAX package's flatten order: layer
+names sorted as strings (``h0, h1, h10, h11, h2, ...``) and, within a
+layer, ``k_pool, k_pool_scale, v_pool, v_pool_scale``.  Every leaf of a
+model has the same shape and dtype, so the layout digest alone cannot
+tell a layer-order stream from it; the order is what makes a JAX
+prefill's stream land in the right layers of a torch decode engine, and
+back (tests/test_torch_wire.py runs at depth 12 for that reason).
+
+Not yet ported (each raises ``NotImplementedError``): the prefix-cache
+adoption (``PrefillEngine(prefix_cache=True)``, a ``chain`` handed to
+``submit_handle`` or carried by a stream), the host spill tier and its
+persistence, and session export and adoption.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vtpu_torch.device import resolve_device
+from vtpu_torch.models.transformer import TransformerLM
+from vtpu_torch.ops.quant import (
+    _e4m3_to_f32,
+    dequantize_blockwise,
+    pack_int4,
+    quantize_blockwise,
+    quantize_blockwise_fp8,
+    quantize_blockwise_int4,
+)
+from vtpu_torch.serving import wirecodec
+from vtpu_torch.serving.kvpool import BlockPool, KVHandle, PoolMismatchError
+from vtpu_torch.serving.paged import PagedBatcher, pool_prefill, suffix_bucket
+from vtpu_torch.serving.transport import WireError
+
+__all__ = ["DecodeEngine", "HostExtract", "PrefillEngine",
+           "PrefillResult", "pool_layout", "wire_leaves"]
+
+_NOT_YET = "comes with the prefix-registry, spill and session slice"
+
+
+def wire_leaves(layers: Sequence[dict]) -> List[torch.Tensor]:
+    """A cache's pool leaves in the JAX package's flatten order: layers
+    by their flax names ``h<i>`` sorted as strings, then each layer's
+    leaves by name."""
+    order = sorted(range(len(layers)), key=lambda i: f"h{i}")
+    return [layers[i][name] for i in order for name in sorted(layers[i])]
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def pool_layout(leaves: Sequence[torch.Tensor]) -> list:
+    """Wire-layout digest of pool leaves (in wire order): per-block shape
+    and dtype per leaf, dtypes named as JAX names them, so the same model
+    gives the same digest in both packages.  The receiver checks it
+    before it leases anything."""
+    return [{"shape": [int(d) for d in leaf.shape[1:]],
+             "dtype": _dtype_name(leaf.dtype)} for leaf in leaves]
+
+
+def _host_view(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, bf16 as its raw 16-bit words."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+class HostExtract:
+    """Async D2H of a claimed handle's gathered blocks: the sender side
+    of the wire.  The copies into pinned memory are issued here, behind
+    the gather on the stream, with an event recorded after them;
+    ``ready_blocks()`` queries that event (never a sync), so the stream
+    sender ships chunks only once the bytes have landed.  ``payload(lo,
+    hi)`` gives exactly the bytes the JAX extract gives: per leaf in wire
+    order, raw, or (quantized codecs) ``f32 scales ‖ quantized data``."""
+
+    def __init__(self, gathered: List[torch.Tensor], nblocks: int,
+                 codec: str = wirecodec.CODEC_FP32,
+                 scales: Optional[List[torch.Tensor]] = None) -> None:
+        self.codec = codec
+        self.nblocks = nblocks
+        self._layout = pool_layout(gathered)
+        self.per_block = sum(
+            int(np.prod(t.shape[1:])) * t.element_size() for t in gathered)
+        if codec in wirecodec.QUANT_CODECS:
+            self.per_block += 4 * len(gathered)
+        self._event = None
+        # only the real rows reach the host, never the pad rows
+        gathered = [t[:nblocks] for t in gathered]
+        if scales is not None:
+            scales = [s[:nblocks] for s in scales]
+        if gathered and gathered[0].device.type == "cuda":
+            self._host = [self._pinned_copy(t) for t in gathered]
+            self._host_scales = ([self._pinned_copy(s) for s in scales]
+                                 if scales is not None else None)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(gathered)
+            self._host_scales = list(scales) if scales is not None else None
+        self._np: Optional[list] = None
+        self._np_scales: Optional[list] = None
+
+    @staticmethod
+    def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    def layout(self) -> list:
+        return self._layout
+
+    def ready_blocks(self) -> int:
+        """Blocks whose bytes have landed host-side (0 while the copy is
+        in flight)."""
+        if self._event is not None and not self._event.query():
+            return 0
+        return self.nblocks
+
+    def payload(self, lo: int, hi: int) -> bytes:
+        """Bytes of blocks [lo, hi): per-leaf slices in wire order (the
+        quantized codecs: each leaf's scale segment, then its data)."""
+        if self._np is None:
+            if self._event is not None:
+                self._event.synchronize()  # landed by ready_blocks()
+            self._np = [_host_view(t) for t in self._host]
+            if self._host_scales is not None:
+                self._np_scales = [_host_view(s).astype("<f4", copy=False)
+                                   for s in self._host_scales]
+        # one copy, straight from the pinned buffers into the result
+        if self.codec in wirecodec.QUANT_CODECS:
+            parts = [memoryview(np.ascontiguousarray(a[lo:hi]))
+                     for s, q in zip(self._np_scales, self._np)
+                     for a in (s, q)]
+        else:
+            parts = [memoryview(np.ascontiguousarray(leaf[lo:hi]))
+                     for leaf in self._np]
+        return b"".join(parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillResult:
+    """One finished prefill: the first generated token and the claim
+    ticket for the K/V it wrote.  ``chain`` (the prompt's block digests)
+    stays empty until the prefix registry is ported."""
+
+    rid: str
+    first_token: int
+    handle: KVHandle
+    num_new: int
+    submitted: float = 0.0
+    chain: Tuple[str, ...] = ()
+
+
+@dataclasses.dataclass
+class _PendingAdopt:
+    """A handle whose blocks are claimed but still waiting for a slot
+    (and, in copy mode, for destination blocks)."""
+
+    rid: str
+    blocks: List[int]     # claimed from the handle (ownership moved here)
+    seq_len: int
+    first: int
+    num_new: int
+    mode: str             # "shared" | "copy" | "wire"
+    source: object        # the source engine (copy mode), else None
+    submitted: float
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _make_wire_gathers() -> dict:
+    """The extract's device half, one per wire codec: a row gather of
+    pool blocks (fp32), and the quantized variants with the blockwise
+    codec applied to the gathered rows (one f32 scale per (block,
+    leaf); int4 also nibble-packed), so the D2H moves 4x-8x fewer bytes.
+    Each maps ``(leaves, idx)`` to ``(data leaves, scale leaves or
+    None)``.  The quantized variants gather the leaves of one shape and
+    dtype into one tensor and quantize it once (a (leaf, block) pair is
+    a block of it), so a model's 2·depth leaves cost one pass of the
+    codec's elementwise ops, not one each."""
+    def gather(leaves, idx):
+        return [leaf.index_select(0, idx) for leaf in leaves], None
+
+    def quant_gather(quantize, post=None):
+        def g(leaves, idx):
+            groups: Dict[tuple, List[int]] = {}
+            for i, leaf in enumerate(leaves):
+                groups.setdefault((tuple(leaf.shape[1:]), leaf.dtype),
+                                  []).append(i)
+            qs: List[torch.Tensor] = [None] * len(leaves)
+            scales: List[torch.Tensor] = [None] * len(leaves)
+            n = idx.numel()
+            for (shape, dtype), members in groups.items():
+                rows = torch.empty((len(members), n) + shape, dtype=dtype,
+                                   device=idx.device)
+                for j, i in enumerate(members):
+                    torch.index_select(leaves[i], 0, idx, out=rows[j])
+                q, s = quantize(rows.reshape((-1,) + shape))
+                if post is not None:
+                    q = post(q)
+                q = q.reshape((len(members), n) + q.shape[1:])
+                s = s.reshape(len(members), n).float()
+                for j, i in enumerate(members):
+                    qs[i], scales[i] = q[j], s[j]
+            return qs, scales
+        return g
+
+    return {wirecodec.CODEC_FP32: gather,
+            wirecodec.CODEC_INT8: quant_gather(quantize_blockwise),
+            wirecodec.CODEC_FP8: quant_gather(quantize_blockwise_fp8),
+            wirecodec.CODEC_INT4: quant_gather(quantize_blockwise_int4,
+                                               post=pack_int4)}
+
+
+def _extract_blocks(leaves, blocks, codec, gathers: dict) -> HostExtract:
+    """Gather (quantizing under int8/fp8/int4) and start the async D2H.
+    The block list is padded to a power of two with the garbage block 0,
+    as the JAX extract pads it to bound its compiled programs; the pad
+    rows are gathered on the device but never copied to the host or
+    shipped."""
+    blocks = list(blocks)
+    n = len(blocks)
+    idx = torch.as_tensor(blocks + [0] * (_pow2(n) - n),
+                          device=leaves[0].device).long()
+    gathered, scales = gathers[codec](leaves, idx)
+    return HostExtract(gathered, n, codec=codec, scales=scales)
+
+
+def chunk_to_device(payload, device: torch.device) -> torch.Tensor:
+    """A received chunk's bytes on ``device`` as uint8: on CUDA one copy
+    into pinned memory and one async H2D (PyTorch reuses the pinned
+    block only once the copy has run)."""
+    src = np.frombuffer(payload, np.uint8)
+    if device.type != "cuda":
+        return torch.from_numpy(src.copy())
+    stage = torch.empty(src.shape, dtype=torch.uint8, pin_memory=True)
+    stage.numpy()[...] = src
+    return stage.to(device, non_blocking=True)
+
+
+class PrefillEngine:
+    """The prefill role: bucketed admission only, emitting (first token,
+    K/V handle) per request.
+
+    Standalone by default (its own :class:`BlockPool` and pool tensors:
+    the cross-pool topology, one copy per handoff), or co-located with
+    ``shared_with=<DecodeEngine>``, whose pool and cache leaves it writes
+    in place (handoff is a bind).  Admission is head-of-line FIFO on
+    block backpressure, like the monolithic engine."""
+
+    def __init__(self, model: TransformerLM, *,
+                 shared_with: Optional["DecodeEngine"] = None,
+                 bucket_prefill: bool = True, prefix_cache: bool = False,
+                 host_spill: Optional[bool] = None,
+                 persist_dir: Optional[str] = None,
+                 device="cuda") -> None:
+        if model.kv_cache_layout != "paged" or model.kv_pool_blocks <= 1:
+            raise ValueError(
+                "PrefillEngine needs kv_cache_layout='paged' and a real "
+                "pool (kv_pool_blocks > 1)")
+        if prefix_cache or host_spill or persist_dir:
+            raise NotImplementedError(
+                f"the prefill engine's prefix cache, host spill and "
+                f"persistence: {_NOT_YET}")
+        dev = resolve_device(device)
+        if model.device.type != dev.type:
+            raise ValueError(f"the model lives on {model.device}, the "
+                             f"engine was asked for {dev}")
+        self.model = model
+        self.device = model.device
+        self.bucket_prefill = bool(bucket_prefill)
+        self.block_size = model.kv_block_size
+        self.nb_max = model.max_seq // model.kv_block_size
+        self._host = shared_with
+        if shared_with is not None:
+            if shared_with.pool.block_size != self.block_size:
+                raise PoolMismatchError(
+                    "shared prefill/decode need the same block size")
+            self.pool = shared_with.pool
+            self._layers = None
+        else:
+            self.pool = BlockPool(model.kv_pool_blocks, model.kv_block_size)
+            self._layers = model.init_cache(1)["layers"]
+        # a pump thread's extract and the admission forward both enqueue
+        # on the device; claimed blocks are never written again, so only
+        # the dispatches are fenced
+        self._dispatch_lock = threading.Lock()
+        self.queue: collections.deque = collections.deque()
+        self._rids: set = set()
+        self.prefills = 0
+        self.prefix_cache = False
+        self._wire_gathers = _make_wire_gathers()
+
+    # -- wire transport (sender side) ----------------------------------
+    def wire_layout(self) -> list:
+        """Layout digest the receiver validates before pre-leasing."""
+        return pool_layout(self.pool_leaves())
+
+    def start_extract(self, blocks,
+                      codec: str = wirecodec.CODEC_FP32) -> HostExtract:
+        """Begin the async D2H of claimed blocks for a wire stream, under
+        the stream's negotiated ``codec``.  The gather enqueues behind any
+        prefill already queued, so it reads written blocks."""
+        with self._dispatch_lock:
+            return _extract_blocks(self.pool_leaves(), blocks, codec,
+                                   self._wire_gathers)
+
+    def pool_leaves(self) -> List[torch.Tensor]:
+        """This engine's own pool tensors, in wire order: what a
+        cross-pool adoption and a wire extract read."""
+        if self._layers is None:
+            raise PoolMismatchError(
+                "shared-mode prefill has no pool of its own -- adoption "
+                "is the zero-copy rebind, not a copy")
+        return wire_leaves(self._layers)
+
+    def _live_layers(self) -> list:
+        if self._host is not None:
+            return self._host.cache["layers"]
+        return self._layers
+
+    # ------------------------------------------------------------------
+    def _blocks_needed(self, prompt_len: int, num_new: int) -> int:
+        # the lease covers prompt + decode budget, so the same blocks
+        # serve the whole request after adoption
+        return -(-(prompt_len + num_new) // self.block_size)
+
+    def submit(self, rid: str, prompt, num_new: int, *,
+               chain: Optional[list] = None) -> None:
+        """Queue one prompt.  ``chain`` is ignored while the prefix cache
+        is off, as in the JAX engine."""
+        if num_new < 1:
+            raise ValueError(f"num_new must be >= 1, got {num_new}")
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        if p.size < 1:
+            raise ValueError("prompt must have at least one token")
+        if p.size + num_new > self.model.max_seq:
+            raise ValueError(
+                f"prompt ({p.size}) + num_new ({num_new}) exceeds "
+                f"max_seq ({self.model.max_seq})")
+        if self._blocks_needed(p.size, num_new) > self.pool.leasable():
+            raise ValueError(
+                "request needs more blocks than the pool can ever lease")
+        if rid in self._rids:
+            raise ValueError(f"duplicate request id {rid!r}")
+        self._rids.add(rid)
+        self.queue.append((rid, p, num_new, time.perf_counter()))
+
+    def step(self) -> List[PrefillResult]:
+        """One admission round: take as many queued prompts as the pool
+        can lease (head-of-line FIFO), prefill them in one forward per
+        suffix-length bucket, and detach every lease into a handle.  The
+        first tokens are the only host materialization -- tokens, never
+        cache contents."""
+        taken: List[Tuple] = []
+        while self.queue:
+            rid, p, num_new, t0 = self.queue[0]
+            # atomic check-and-lease: a co-located decode engine may be
+            # leasing from the same pool on another thread
+            blocks = self.pool.try_lease(self._blocks_needed(p.size, num_new))
+            if blocks is None:
+                break  # the oldest waits for blocks; FIFO completion
+            self.queue.popleft()
+            taken.append((rid, p, num_new, t0, blocks))
+        if not taken:
+            return []
+        by_bucket: Dict[int, list] = {}
+        for item in taken:
+            by_bucket.setdefault(
+                suffix_bucket(item[1].size, 0, self.model.max_seq,
+                              self.bucket_prefill), []).append(item)
+        out: List[PrefillResult] = []
+        for blen, sub in by_bucket.items():
+            n = len(sub)
+            rows = []
+            for _rid, p, _n, _t0, blocks in sub:
+                row = np.zeros((self.nb_max,), np.int32)
+                row[:len(blocks)] = blocks
+                rows.append((p, 0, row))
+            with self._dispatch_lock:
+                firsts, _table = pool_prefill(
+                    self.model, self._live_layers(), rows,
+                    _pow2(n) if self.bucket_prefill else n, blen)
+            vals = firsts.tolist()  # the first-token harvest
+            for (rid, p, num_new, t0, blocks), first in zip(sub, vals):
+                handle = self.pool.detach(blocks, seq_len=int(p.size))
+                out.append(PrefillResult(rid, int(first), handle, num_new,
+                                         t0))
+        self.prefills += len(out)
+        return out
+
+    def purge(self, rid: str) -> bool:
+        """Drop a still-queued prompt (nothing was leased yet)."""
+        for i, item in enumerate(self.queue):
+            if item[0] == rid:
+                del self.queue[i]
+                self._rids.discard(rid)
+                return True
+        return False
+
+    def run(self) -> List[PrefillResult]:
+        """Drain the whole queue (blocks permitting each round)."""
+        out: List[PrefillResult] = []
+        while self.queue:
+            got = self.step()
+            if not got:
+                break  # backpressure with nothing in flight to free blocks
+            out.extend(got)
+        return out
+
+    def stats(self) -> dict:
+        return {"queued": len(self.queue), "prefills": self.prefills,
+                "prefix_hits": 0, "prefix_tokens_skipped": 0,
+                "spill_demotions": 0, "spill_onloads": 0,
+                **self.pool.stats()}
+
+
+class DecodeEngine(PagedBatcher):
+    """The decode role: the PagedBatcher decode loop, admitting by handle
+    adoption instead of raw prompts.  ``self.queue`` holds
+    :class:`_PendingAdopt` records, so the base class's drive loop
+    (``run``/``step``/stats) works unchanged."""
+
+    def __init__(self, model: TransformerLM, max_batch: int,
+                 replica_id: str = "decode0", speculative: bool = True,
+                 **kw) -> None:
+        super().__init__(model, max_batch, **kw)
+        self.replica_id = replica_id
+        self.speculative = bool(speculative)
+        self._spec_lock = threading.Lock()
+        self._spec_slots: Dict[int, str] = {}   # reserved slot -> rid
+        # the largest scale a quantized chunk applied: the largest
+        # per-element reconstruction error is
+        # wirecodec.error_bound(wire_quant_max_scale, wire_quant_codec)
+        self.wire_quant_max_scale = 0.0
+        self.wire_quant_codec = wirecodec.CODEC_INT8
+        self._wire_meta = None
+
+    def ping(self) -> bool:
+        return True
+
+    # the router hands a prompt's digest chain only to replicas that
+    # declare they register it; this one cannot until the prefix
+    # registry is ported, so it adopts chain-less
+    accepts_chain = False
+
+    # speculative reservations hold their slot against every other
+    # admission until FIN binds it (or a rollback frees it)
+    def _free_slots(self) -> List[int]:
+        return [s for s in super()._free_slots() if s not in self._spec_slots]
+
+    def _slot_is_free(self, slot: int) -> bool:
+        return (super()._slot_is_free(slot)
+                and slot not in self._spec_slots)
+
+    def submit(self, rid: str, prompt, num_new: int) -> None:
+        raise TypeError(
+            "DecodeEngine admits finished prefills -- use submit_handle() "
+            "(raw prompts go to the PrefillEngine or a monolithic "
+            "PagedBatcher)")
+
+    def submit_handle(self, rid: str, handle: KVHandle, first_token: int,
+                      num_new: int, source=None, submitted: float = 0.0,
+                      admit: bool = True,
+                      chain: Optional[List[str]] = None) -> None:
+        """Adopt a detached K/V lease: claim it now (a stale stamp fails
+        here), queue it for a slot, and admit as capacity frees.
+        ``source`` is the engine owning the handle's pool when that is
+        not this engine's own (copy mode).  ``admit=False`` defers the
+        admission so that a batch of handles binds as one group; call
+        :meth:`admit_pending` after the batch."""
+        if chain:
+            raise NotImplementedError(
+                f"decode-side prefix adoption (a chain): {_NOT_YET}")
+        if num_new < 1:
+            raise ValueError(f"num_new must be >= 1, got {num_new}")
+        if handle.seq_len + num_new > self.model.max_seq:
+            raise ValueError(
+                f"seq_len ({handle.seq_len}) + num_new ({num_new}) "
+                f"exceeds max_seq ({self.model.max_seq})")
+        if rid in self._rids:
+            raise ValueError(f"duplicate request id {rid!r}")
+        if handle.pool_id == self.pool.pool_id:
+            blocks = self.pool.adopt(handle)  # StaleHandleError on reuse
+            mode, src = "shared", None
+        else:
+            if (source is None or getattr(source, "pool", None) is None
+                    or source.pool.pool_id != handle.pool_id):
+                raise PoolMismatchError(
+                    f"handle from pool {handle.pool_id!r} needs its source "
+                    f"engine to copy from")
+            if len(handle.blocks) > self.pool.leasable():
+                raise ValueError(
+                    "handle needs more blocks than this pool can ever lease")
+            blocks = source.pool.adopt(handle)  # claim the src references
+            mode, src = "copy", source
+        self._rids.add(rid)
+        self.queue.append(_PendingAdopt(rid, blocks, handle.seq_len,
+                                        int(first_token), num_new, mode,
+                                        src, submitted))
+        if admit:
+            self._admit_pending()
+
+    def admit_pending(self) -> None:
+        """Admit everything queued (slots permitting) as one group."""
+        self._admit_pending()
+
+    def purge_pending(self, rid: str) -> bool:
+        """Remove a claimed-but-unslotted adoption and free its blocks."""
+        for i, pa in enumerate(self.queue):
+            if not isinstance(pa, _PendingAdopt) or pa.rid != rid:
+                continue
+            del self.queue[i]
+            if pa.mode == "copy":
+                # the claimed references live in the SOURCE pool until
+                # the copy runs
+                pa.source.pool.release(pa.blocks)
+            else:
+                self.pool.release(pa.blocks)
+            self._rids.discard(rid)
+            return True
+        return False
+
+    # -- session export and adoption come later ---------------------------
+    def exportable_sessions(self) -> List[str]:
+        raise NotImplementedError(f"session export: {_NOT_YET}")
+
+    def export_session(self, rid: str):
+        raise NotImplementedError(f"session export: {_NOT_YET}")
+
+    def adopt_session(self, export, *, blocks=None, submitted=0.0):
+        raise NotImplementedError(f"session adoption: {_NOT_YET}")
+
+    def start_extract(self, blocks, codec: str = wirecodec.CODEC_FP32):
+        raise NotImplementedError(f"session export streams: {_NOT_YET}")
+
+    # -- wire transport (receiver sink) --------------------------------
+    # The ReceiverHub drives these: open pre-leases destination blocks
+    # (the credit grant), write scatters each chunk as it lands, finish
+    # binds the slot, abort releases a partial adoption.  The sink is
+    # driven from the thread that runs step() (or under the same outside
+    # serialization): a chunk's scatter and a decode window are then
+    # ordered on the device by the order they were issued in.
+    def wire_layout(self) -> list:
+        return pool_layout(wire_leaves(self.cache["layers"]))
+
+    def wire_codecs(self) -> tuple:
+        """Codecs this receiver accepts at OPEN negotiation."""
+        return wirecodec.SUPPORTED
+
+    def wire_open(self, rid: str, total_blocks: int, layout: list,
+                  chunk_blocks: int, codec: str = wirecodec.CODEC_FP32,
+                  meta: Optional[dict] = None):
+        # everything refused here is a KVHandoffError subclass, so that a
+        # hub answers an HTTP peer with the typed error document
+        if rid in self._rids:
+            raise WireError(f"duplicate request id {rid!r}")
+        if layout != self.wire_layout():
+            raise PoolMismatchError(
+                "wire stream layout does not match this engine's pool "
+                "(different model shapes or dtypes)")
+        if total_blocks > self.pool.leasable():
+            raise PoolMismatchError(
+                "handle needs more blocks than this pool can ever lease")
+        if meta is not None:
+            if meta.get("session") is not None or meta.get("chain"):
+                raise NotImplementedError(
+                    f"suffix-only and session streams: {_NOT_YET}")
+            try:
+                seq_len = int(meta["handle"]["seq_len"])
+                num_new = int(meta.get("num_new", 1))
+            except (KeyError, TypeError, ValueError):
+                pass  # malformed meta fails typed at FIN
+            else:
+                if seq_len + num_new > self.model.max_seq:
+                    raise WireError(
+                        f"seq_len ({seq_len}) + num_new ({num_new}) "
+                        f"exceeds max_seq ({self.model.max_seq})")
+        dst = self.pool.lease_upto(total_blocks)
+        if not dst:
+            return None  # saturated: credits 0, the router backs off
+        self._rids.add(rid)
+        ctx = {"rid": rid, "dst": dst, "total": total_blocks,
+               "chunk_blocks": int(chunk_blocks), "written": 0,
+               "closed": False, "codec": str(codec), "slot": None,
+               "opened": time.perf_counter()}
+        # speculative adoption: reserve a free slot and publish the
+        # prefill's first token now.  Device state is untouched until FIN
+        # (the slot stays inactive, its row on the garbage block), so a
+        # rollback is host work only.
+        if self.speculative and meta is not None:
+            try:
+                first = int(meta["first"])
+            except (KeyError, TypeError, ValueError):
+                return ctx  # malformed meta fails at FIN, typed
+            with self._spec_lock:
+                slot = next(iter(self._free_slots()), None)
+                if slot is not None:
+                    self._spec_slots[slot] = rid
+                    ctx["slot"] = slot
+                    self.out[rid] = [first]
+                    self.pool.count(spec_adoptions=1)
+        return ctx
+
+    def wire_credits(self, ctx) -> int:
+        return len(ctx["dst"])
+
+    def wire_top_up(self, ctx) -> int:
+        need = ctx["total"] - len(ctx["dst"])
+        if need > 0 and not ctx["closed"]:
+            ctx["dst"].extend(self.pool.lease_upto(need))
+        return len(ctx["dst"])
+
+    def _wire_leaf_meta(self):
+        """``[(n_elem, shape, torch dtype, itemsize)]`` of the pool
+        leaves in wire order, fixed for the engine's life."""
+        if self._wire_meta is None:
+            self._wire_meta = [
+                (int(np.prod(leaf.shape[1:])), tuple(leaf.shape[1:]),
+                 leaf.dtype, leaf.element_size())
+                for leaf in wire_leaves(self.cache["layers"])]
+        return self._wire_meta
+
+    @staticmethod
+    def _segment(buf: torch.Tensor, off: int, nbytes: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+        seg = buf[off:off + nbytes]
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if off % itemsize:
+            seg = seg.clone()  # an unaligned view cannot change its type
+        return seg.view(dtype)
+
+    def wire_write(self, ctx, block_off: int, nblocks: int,
+                   payload) -> None:
+        """Scatter one received chunk into its pre-leased blocks.  The
+        payload goes to the device in one copy and is cut into leaves
+        there; under the quantized codecs the dequantization (int4: the
+        nibble unpack too) runs on the device, in the scatter's stream
+        order."""
+        codec = ctx.get("codec")
+        meta = self._wire_leaf_meta()
+        buf = memoryview(payload)
+        quant = codec in wirecodec.QUANT_CODECS
+        if quant:
+            expect = sum(4 * nblocks + self._quant_bytes(codec, n, nblocks)
+                         for n, *_ in meta)
+        else:
+            expect = nblocks * sum(n * isz for n, _sh, _dt, isz in meta)
+        if len(buf) != expect:
+            raise ValueError(
+                f"{codec} chunk payload {len(buf)} bytes != expected "
+                f"{expect} (truncated scale or data segment)")
+        # the scales are read on the host from the bytes already there:
+        # the error bound's input, before any padding
+        if quant:
+            off = 0
+            for n_elem, _shape, _dt, _isz in meta:
+                scales = np.frombuffer(buf[off:off + 4 * nblocks], "<f4")
+                if scales.size:
+                    self.wire_quant_max_scale = max(
+                        self.wire_quant_max_scale, float(scales.max()))
+                off += 4 * nblocks + self._quant_bytes(codec, n_elem,
+                                                       nblocks)
+            self.wire_quant_codec = codec
+        dev = chunk_to_device(buf, self.device)
+        idx = torch.as_tensor(ctx["dst"][block_off:block_off + nblocks],
+                              device=self.device).long()
+        off = 0
+        for leaf, (n_elem, shape, dtype, isz) in zip(
+                wire_leaves(self.cache["layers"]), meta):
+            if not quant:
+                nbytes = nblocks * n_elem * isz
+                src = self._segment(dev, off, nbytes, dtype)
+                off += nbytes
+            else:
+                scale = self._segment(dev, off, 4 * nblocks, torch.float32)
+                off += 4 * nblocks
+                nbytes = self._quant_bytes(codec, n_elem, nblocks)
+                q = dev[off:off + nbytes]
+                off += nbytes
+                src = self._dequantize(q, scale, codec, n_elem, nblocks,
+                                       dtype)
+            leaf.index_copy_(0, idx, src.reshape((nblocks,) + shape))
+        self.pool.count(handoff_host_bytes=len(buf))
+        ctx["written"] = block_off + nblocks
+
+    @staticmethod
+    def _quant_bytes(codec: str, n_elem: int, nblocks: int) -> int:
+        if codec == wirecodec.CODEC_INT4:
+            return nblocks * ((n_elem + 1) // 2)
+        return nblocks * n_elem
+
+    @staticmethod
+    def _dequantize(q: torch.Tensor, scale: torch.Tensor, codec: str,
+                    n_elem: int, nblocks: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """One leaf's received bytes -> ``[nblocks, n_elem]`` in the
+        pool's dtype, as ``vtpu_torch.ops.quant``'s dequantizers compute
+        it."""
+        s = scale.reshape(nblocks, 1)
+        if codec == wirecodec.CODEC_FP8:
+            return (_e4m3_to_f32(q.reshape(nblocks, n_elem)) * s).to(dtype)
+        if codec == wirecodec.CODEC_INT4:
+            packed = q.reshape(nblocks, (n_elem + 1) // 2)
+            nib = torch.stack([packed & 0x0F, packed >> 4], dim=-1)
+            u = nib.reshape(nblocks, -1)[:, :n_elem].to(torch.int8)
+            q = torch.where(u > 7, u - 16, u)
+        else:
+            q = q.view(torch.int8).reshape(nblocks, n_elem)
+        return dequantize_blockwise(q, s, dtype)
+
+    def _wire_release(self, ctx) -> None:
+        """Release the blocks a stream's ctx pre-leased."""
+        if ctx["dst"]:
+            self.pool.release(ctx["dst"])
+
+    def wire_finish(self, ctx, meta: dict) -> None:
+        ctx["closed"] = True
+        ctx["finished"] = time.perf_counter()
+        try:
+            seq_len = int(meta["handle"]["seq_len"])
+            first = int(meta.get("first", 0))
+            num_new = int(meta.get("num_new", 1))
+            submitted = float(meta.get("submitted", 0.0))
+        except (KeyError, TypeError, ValueError) as e:
+            self._spec_rollback(ctx)
+            self._wire_release(ctx)
+            self._rids.discard(ctx["rid"])
+            raise WireError(f"malformed wire stream meta: {e}") from e
+        if seq_len + num_new > self.model.max_seq:
+            # backstop of the wire_open check: never adopt past max_seq
+            self._spec_rollback(ctx)
+            self._wire_release(ctx)
+            self._rids.discard(ctx["rid"])
+            raise WireError(
+                f"seq_len ({seq_len}) + num_new ({num_new}) exceeds "
+                f"max_seq ({self.model.max_seq})")
+        blocks = list(ctx["dst"])
+        pa = _PendingAdopt(ctx["rid"], blocks, seq_len, first, num_new,
+                           "wire", None, submitted)
+        slot = ctx.get("slot")
+        with self._spec_lock:
+            reserved = (slot is not None
+                        and self._spec_slots.pop(slot, None) == ctx["rid"])
+        if reserved:
+            # the slot was this stream's since OPEN: bind now, on the
+            # last chunk, without queueing for a free slot
+            self._slot_blocks[slot] = list(blocks)
+            self._adopt_group([(slot, pa, list(blocks))])
+        else:
+            self.queue.append(pa)
+            self._admit_pending()
+
+    def _spec_rollback(self, ctx) -> None:
+        """Retract a speculative reservation: free the slot and
+        un-publish the early first token (host only)."""
+        slot = ctx.get("slot")
+        if slot is None:
+            return
+        with self._spec_lock:
+            if self._spec_slots.pop(slot, None) == ctx["rid"]:
+                self.out.pop(ctx["rid"], None)
+                self.pool.count(spec_rollbacks=1)
+        ctx["slot"] = None
+
+    def wire_abort(self, ctx) -> None:
+        if ctx["closed"]:
+            return
+        ctx["closed"] = True
+        self._spec_rollback(ctx)
+        self._wire_release(ctx)
+        self._rids.discard(ctx["rid"])
+
+    # -- admission: drain claimed handles into free slots ---------------
+    def _admit_pending(self) -> None:
+        progress = True
+        while progress:
+            progress = False
+            group: List[Tuple[int, _PendingAdopt, List[int]]] = []
+            for slot in self._free_slots():
+                if not self.queue:
+                    break
+                if not self._slot_is_free(slot):
+                    continue
+                pa: _PendingAdopt = self.queue[0]
+                if pa.mode == "copy":
+                    # head-of-line: the oldest adoption waits for blocks
+                    dst = self.pool.try_lease(len(pa.blocks))
+                    if dst is None:
+                        break
+                else:
+                    dst = list(pa.blocks)
+                self.queue.popleft()
+                self._slot_blocks[slot] = dst
+                group.append((slot, pa, dst))
+            if group:
+                self._adopt_group(group)
+                progress = True
+
+    def _adopt_group(
+            self, group: List[Tuple[int, _PendingAdopt, List[int]]]) -> None:
+        # shared and wire adoptions are binds by now (the blocks already
+        # hold the K/V in this pool); copies go per source engine
+        bindable = [e for e in group if e[1].mode in ("shared", "wire")]
+        by_src: Dict[int, list] = {}
+        for e in group:
+            if e[1].mode == "copy":
+                by_src.setdefault(id(e[1].source), []).append(e)
+        if bindable:
+            self._bind_rows(bindable)
+            for mode in ("shared", "wire"):
+                sub = [e for e in bindable if e[1].mode == mode]
+                if sub:
+                    self.pool.count(**{f"handoff_{mode}": len(sub)},
+                                    handoff_blocks=sum(len(d)
+                                                       for *_, d in sub))
+        for sub in by_src.values():
+            self._copy_rows(sub)
+        # host bookkeeping: the first token is a known int (the prefill
+        # harvested it as a token; cache contents never reach the host)
+        for slot, pa, _dst in group:
+            self.rid[slot] = pa.rid
+            self.out[pa.rid] = [pa.first]
+            self.active[slot] = True
+            self.done_frozen[slot] = (self.eos_id is not None
+                                      and pa.first == self.eos_id)
+            self.remaining[slot] = pa.num_new - 1
+            self._maybe_retire(slot)
+
+    def _bind_rows(self, entries) -> None:
+        """Table rows, positions and first tokens of a group of slots,
+        written in place into the tensors the decode graphs read."""
+        rows = np.zeros((len(entries), self.nb_max), np.int32)
+        for r, (_slot, _pa, dst) in enumerate(entries):
+            rows[r, :len(dst)] = dst
+        dev = self.device
+        slots = torch.as_tensor([s for s, *_ in entries], device=dev).long()
+        self.cache["block_table"].index_copy_(
+            0, slots, torch.as_tensor(rows, device=dev))
+        self.cache["pos"].index_copy_(0, slots, torch.as_tensor(
+            [pa.seq_len for _s, pa, _d in entries], dtype=torch.int32,
+            device=dev))
+        self.tok.index_copy_(0, slots, torch.as_tensor(
+            [pa.first for _s, pa, _d in entries], dtype=torch.int32,
+            device=dev))
+
+    def _copy_rows(self, entries) -> None:
+        """Cross-pool adoption: one ``index_select`` of the source pool's
+        blocks and one ``index_copy_`` into the leased blocks per leaf,
+        then the bind.  Device to device only."""
+        src_engine = entries[0][1].source
+        src_leaves = src_engine.pool_leaves()
+        dst_leaves = wire_leaves(self.cache["layers"])
+        src_idx = [b for _s, pa, _d in entries for b in pa.blocks]
+        dst_idx = [b for _s, _pa, dst in entries for b in dst]
+        si = torch.as_tensor(src_idx, device=src_leaves[0].device).long()
+        di = torch.as_tensor(dst_idx, device=self.device).long()
+        for src, dst in zip(src_leaves, dst_leaves):
+            dst.index_copy_(0, di, src.index_select(0, si).to(
+                device=dst.device, dtype=dst.dtype))
+        self._bind_rows(entries)
+        # the copy is enqueued ahead of any later source-pool write, so
+        # the host-side free is safe now
+        for _slot, pa, _dst in entries:
+            src_engine.pool.release(pa.blocks)
+        per_block = sum(int(np.prod(t.shape[1:])) * t.element_size()
+                        for t in src_leaves)
+        self.pool.count(handoff_copy=len(entries),
+                        handoff_blocks=len(src_idx),
+                        handoff_device_bytes=len(src_idx) * per_block)
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["replica"] = self.replica_id
+        out["slots_active_ratio"] = out["active_slots"] / max(
+            1, self.max_batch)
+        return out
+

@@ -36,6 +36,54 @@ from vtpu_torch.serving.batcher import ContinuousBatcher, _Request
 from vtpu_torch.serving.kvpool import BlockPool
 
 
+def pool_forward(model: TransformerLM, layers, tokens, pos, table):
+    """Prefill against a live pool: a cache view whose pools are
+    ``layers`` (written in place) and whose position and table rows are
+    the group's."""
+    return model(tokens, {"pos": pos, "block_table": table,
+                          "layers": layers})
+
+
+def suffix_bucket(prompt_len: int, shared_tok: int, max_seq: int,
+                  bucket_prefill: bool) -> int:
+    """The padded length a prompt's unshared suffix prefills at: its
+    power-of-two bucket, capped so padded writes never pass max_seq (a
+    clamped table index would land in the lease's last block)."""
+    suffix = prompt_len - shared_tok
+    if not bucket_prefill:
+        return suffix
+    return bucket_length(suffix, max_seq - shared_tok)
+
+
+def pool_prefill(model: TransformerLM, layers, items, rows: int,
+                 blen: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One admission forward of a length bucket against the live pool
+    ``layers``: ``items`` are ``(prompt, shared_tok, table row)``, padded
+    to ``rows`` rows whose all-zero table rows write into the garbage
+    block.  Returns the first tokens ``[len(items)]`` (argmax at each
+    row's true last token, on the device) and the ``[rows, nb_max]``
+    table.  The admission compute shared by ``PagedBatcher`` and the
+    disaggregated ``PrefillEngine``."""
+    nb_max = model.max_seq // model.kv_block_size
+    toks = np.zeros((rows, blen), np.int32)
+    table = np.zeros((rows, nb_max), np.int32)
+    pos0 = np.zeros((rows,), np.int32)
+    lens = np.ones((rows,), np.int32)  # pad rows index token 0
+    for r, (prompt, shared_tok, row) in enumerate(items):
+        toks[r, :prompt.size - shared_tok] = prompt[shared_tok:]
+        table[r] = row
+        pos0[r] = shared_tok
+        lens[r] = prompt.size - shared_tok
+    dev = model.device
+    table_t = torch.as_tensor(table, device=dev)
+    logits = pool_forward(model, layers, torch.as_tensor(toks, device=dev),
+                          torch.as_tensor(pos0, device=dev), table_t)
+    n = len(items)
+    lens_t = torch.as_tensor(lens[:n] - 1, device=dev).long()
+    sel = logits[torch.arange(n, device=dev), lens_t]
+    return sel.argmax(dim=-1).to(torch.int32), table_t
+
+
 class PagedBatcher(ContinuousBatcher):
     """Continuous batching over a leased-block KV pool."""
 
@@ -66,14 +114,6 @@ class PagedBatcher(ContinuousBatcher):
         # trie over block-sized token chunks; node: [terminal key or
         # None, {chunk tuple: child node}]
         self._trie: list = [None, {}]
-
-    def _pool_forward(self, tokens, pos, table):
-        """Prefill against the live pool: a cache view whose pools are
-        the engine's own (written in place) and whose position and table
-        rows are the group's."""
-        view = {"pos": pos, "block_table": table,
-                "layers": self.cache["layers"]}
-        return self.model(tokens, view)
 
     # -- block accounting (delegated to the BlockPool) ------------------
     @property
@@ -165,39 +205,24 @@ class PagedBatcher(ContinuousBatcher):
         of every admitted slot.  No host sync: the first tokens are read
         at the next harvest."""
         by_bucket: Dict[int, list] = {}
-        for slot, req, shared_tok, row in group:
-            suffix_len = req.prompt.size - shared_tok
-            # cap the bucket so padded writes never pass max_seq (a
-            # clamped table index would land in the lease's last block)
-            blen = (bucket_length(suffix_len,
-                                  self.model.max_seq - shared_tok)
-                    if self.bucket_prefill else suffix_len)
-            by_bucket.setdefault(blen, []).append(
-                (slot, req, shared_tok, row, suffix_len))
+        for item in group:
+            _slot, req, shared_tok, _row = item
+            by_bucket.setdefault(
+                suffix_bucket(req.prompt.size, shared_tok,
+                              self.model.max_seq, self.bucket_prefill),
+                []).append(item)
         for blen, sub in by_bucket.items():
-            rows = self._bucket_rows(len(sub))
-            toks = np.zeros((rows, blen), np.int32)
-            table = np.zeros((rows, self.nb_max), np.int32)
-            pos0 = np.zeros((rows,), np.int32)
-            lens = np.ones((rows,), np.int32)  # pad rows index token 0
-            for r, (slot, req, shared_tok, row, suffix_len) in enumerate(sub):
-                toks[r, :suffix_len] = req.prompt[shared_tok:]
-                table[r] = row
-                pos0[r] = shared_tok
-                lens[r] = suffix_len
             # register once the prefix K/V write is enqueued: stream
             # order makes a later matching prefill read written blocks
             for slot, req, *_ in sub:
                 self._register_prefix(req.prompt, self._slot_blocks[slot])
-            dev = self.device
-            table_t = torch.as_tensor(table, device=dev)
-            logits = self._pool_forward(torch.as_tensor(toks, device=dev),
-                                        torch.as_tensor(pos0, device=dev),
-                                        table_t)
             n = len(sub)
-            lens_t = torch.as_tensor(lens[:n] - 1, device=dev).long()
-            sel = logits[torch.arange(n, device=dev), lens_t]
-            firsts = sel.argmax(dim=-1).to(torch.int32)
+            firsts, table_t = pool_prefill(
+                self.model, self.cache["layers"],
+                [(req.prompt, shared_tok, row)
+                 for _s, req, shared_tok, row in sub],
+                self._bucket_rows(n), blen)
+            dev = self.device
             slots = torch.as_tensor([s for s, *_ in sub], device=dev).long()
             sizes = [r.prompt.size for _s, r, *_ in sub]
             self.cache["block_table"][slots] = table_t[:n]
@@ -285,7 +310,8 @@ class PagedBatcher(ContinuousBatcher):
         def pf(_cache_unused, chunk):
             pos = torch.full((1,), st["done"], dtype=torch.int32,
                              device=self.device)
-            return self._pool_forward(chunk, pos, st["row"]), None
+            return pool_forward(self.model, self.cache["layers"], chunk, pos,
+                                st["row"]), None
 
         return pf
 
