@@ -82,7 +82,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bytes read back (must be the four tenants and their resident bytes),
    the device idle share of each arm's own window (device-only tracing)
    and the step's host and device times; and a tenant at 50 % whose duty
-   (its rate over its rate at 100 %), eager and graphed, must be within
+   (its rate over the mean of its rates at 100 % read before and after
+   the paced window), eager and graphed, must be within
    0.15 of 0.5, beside the duty that the reference's pacing rule gives;
    ``share.run`` also runs the four-process arm, which phase 10 checks;
 10. the GPU node path: ``NvmlProvider`` lists this card with nvidia-smi's
@@ -109,11 +110,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
 11. disaggregated serving (``vtpu_torch/serving/disagg.py``): the wire
    extract of every codec on the card gives the CPU's bytes (bf16, f32
    with a zero and a subnormal block, int8 with f32 scales), each
-   codec's device time for a 1000-token request's extract, and the
-   host's time for one 8 MiB chunk of it (payload join, frame encode and
-   decode, crc32, the copy to the card); at depth 2,
-   f32, both pools, shared-pool, cross-pool copy and fp32-wire
-   disaggregation give exactly the monolithic PagedBatcher's tokens;
+   codec's device time for an extract of 63, 65 and 128 blocks (the
+   extract gathers exactly its blocks; 128 is what a power-of-two pad
+   made of 65), and the host's time for one 8 MiB chunk of it (payload
+   join, frame encode and decode, crc32, the copy to the card); at depth
+   2, f32, both pools, shared-pool, cross-pool copy and fp32-wire
+   disaggregation, the prefix cache off and on (a shared 512-token
+   prefix, fp32 wire) and session moves (fp32 wire, bit-equal blocks)
+   give exactly the monolithic PagedBatcher's tokens;
    then the serve configuration (the serve phase's weights and 16
    requests) through a PrefillEngine and a DecodeEngine(max_batch=8):
    shared and copy on both pools, and the wire (the port's StreamSender
@@ -134,7 +138,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
    active rows' keys), replayed decode windows (required > 0), the
    LN and paged-decode launches (required: the serve phase's bounds per
    forward and per decode step), and the drive loop's host seconds in
-   prefill, handoff and decode.
+   prefill, handoff and decode.  On each pool, the session arm: nine
+   requests on decode engine A (eight in slots, one queued), four live
+   sessions and the queued one moved to engine B by the port's
+   SessionMover after 8 decode steps, then both run to the end (move ms,
+   blocks shipped and skipped, fp32 blocks bit-equal, replayed steps on
+   both engines after the move, 0 leaks).  The prefix arm (int8 wire,
+   16 requests of one 512-token prefix and a 64-488-token suffix, the
+   first request to its FIN before the other 15), prefix cache off and
+   on: 15 hits skipping 7,680 tokens, every wave-2 stream skipping the
+   prefix's 32 blocks, wire MB a request and TTFT p50 of both.  The
+   spill arm (a 1 + 128-block standalone prefill pool, int8 spill codec,
+   a journal in a temporary directory; eight 512-token prefixes in two
+   passes): demotions and onloads >= 1, every onloaded block its
+   payload's dequantization bit for bit and within its own block's bound
+   of the block demoted, and a fresh engine on the journal rehydrating
+   and onloading on its first revisit; demote and onload host ms a run.
+   Every arm's LN and paged-decode launches at the serve phase's bounds.
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -1292,7 +1312,8 @@ def share_phase(card: str) -> dict:
     and four-tenant img/s, their ratio and each window's device idle
     share; quota violations must be 0 and the region must hold the four
     tenants and exactly their resident bytes.  ``share_duty``: the duty
-    of a tenant at 50 % (its rate over its rate at 100 %) within DUTY_TOL
+    of a tenant at 50 % (its rate over the mean of its rates at 100 %
+    read just before and just after, both emitted) within DUTY_TOL
     of 0.5 -- the bound of tests/test_monitor.py's pacing accuracy test,
     inside the band that test_dispatch_pacing_converges_30_70 allows --
     and, reported beside it, the duty under the reference's rule; eager
@@ -1340,6 +1361,9 @@ def share_phase(card: str) -> dict:
         duty = doc["duty"][kind]
         emit(phase="share_duty", arm=kind, core_limit=q,
              window_s=doc["duty"]["window_s"], img_s=duty["img_s"],
+             img_s_at_100_before=duty["img_s_at_100_before"],
+             img_s_at_100_after=duty["img_s_at_100_after"],
+             at_100_after_over_before=duty["at_100_after_over_before"],
              img_s_at_100=duty["img_s_at_100"], measured=duty["measured"],
              tol=DUTY_TOL,
              reference_rule_img_s=duty["reference_rule_img_s"],
@@ -1583,9 +1607,9 @@ def codec_bytes_phase(card: str, seed: int) -> None:
     the card against the same extract on the CPU, every codec, over pool
     leaves of the serve widths: bf16 and f32 K/V with a zero block and a
     subnormal block, and the int8 pool's int8 K/V with f32 scales; bytes
-    equal.  Then each codec's device time for one 1000-token request of
-    the full-width model (63 blocks of its 64 pool leaves), its bound,
-    and the bytes it hands to the D2H."""
+    equal.  Then each codec's device time for one request of the
+    full-width model (63, 65 and 128 blocks of its 64 pool leaves), its
+    bound, and the bytes it hands to the D2H."""
     import torch
 
     from vtpu_torch.serving import disagg
@@ -1600,7 +1624,7 @@ def codec_bytes_phase(card: str, seed: int) -> None:
                             dtype=torch.int8),
               torch.rand(geom[:3] + (1,), generator=gen) / 127]
     card_leaves = [t.cuda() for t in leaves]
-    blocks = [5, 6] + list(range(20, 55))  # 37: padded to 64
+    blocks = [5, 6] + list(range(20, 55))  # 37 blocks
     gathers = disagg._make_wire_gathers()
     for codec in WIRE_CODECS:
         a = disagg._extract_blocks(leaves, blocks, codec,
@@ -1611,20 +1635,24 @@ def codec_bytes_phase(card: str, seed: int) -> None:
              bytes=len(a), equal=a == b, card=card)
         check(a == b, f"{codec}: card extract bytes differ from the CPU's")
     del card_leaves
-    # one request's extract at the serve widths: 64 bf16 leaves
-    pool = [torch.randn((64,) + geom[1:], device="cuda",
+    # one request's extract at the serve widths (64 bf16 leaves): 63
+    # blocks (a 1000-token request), 65, and 128 -- what the power-of-two
+    # pad made of 65 before the extract gathered exactly its blocks
+    pool = [torch.randn((130,) + geom[1:], device="cuda",
                         dtype=torch.bfloat16) for _ in range(64)]
-    idx = torch.arange(1, 64, device="cuda").long()
-    read = 63 * 64 * 8 * 16 * 128 * 2
-    for codec in WIRE_CODECS:
-        q, sc = gathers[codec](pool, idx)
-        out = sum(t.numel() * t.element_size() for t in q) + (
-            sum(t.numel() * 4 for t in sc) if sc else 0)
-        ms = time_ms(lambda: gathers[codec](pool, idx), iters=10)
-        # bytes: the gathered rows read once, the extract written once
-        b_ms, by = bound(read + out, 0, "float32")
-        emit(phase="disagg_extract", codec=codec, blocks=63, leaves=64,
-             ms=ms, bound_ms=b_ms, bound_by=by, d2h_bytes=out, card=card)
+    for n in (63, 65, 128):
+        idx = torch.arange(1, n + 1, device="cuda").long()
+        read = n * 64 * 8 * 16 * 128 * 2
+        for codec in WIRE_CODECS:
+            q, sc = gathers[codec](pool, idx)
+            out = sum(t.numel() * t.element_size() for t in q) + (
+                sum(t.numel() * 4 for t in sc) if sc else 0)
+            ms = time_ms(lambda: gathers[codec](pool, idx), iters=10)
+            # bytes: the gathered rows read once, the extract written once
+            b_ms, by = bound(read + out, 0, "float32")
+            emit(phase="disagg_extract", codec=codec, blocks=n, leaves=64,
+                 ms=ms, bound_ms=b_ms, bound_by=by, d2h_bytes=out,
+                 card=card)
     # the wire's host work on one chunk of that request (the default 4
     # blocks of its 64 leaves): the extract's payload join, the frame's
     # encode and decode (each with its crc32), the crc32 alone, and the
@@ -1663,23 +1691,24 @@ def codec_bytes_phase(card: str, seed: int) -> None:
 
 
 def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
-               count: bool):
+               count: bool, prefix_cache: bool = False,
+               waves: bool = False):
     """Serve ``reqs`` (all submitted at t=0) through a PrefillEngine and
     a DecodeEngine(max_batch=8): ``shared`` (one pool), ``copy`` (a
     standalone prefill pool, device copy) or ``wire`` (the port's
     StreamSender -> LoopbackLink -> ReceiverHub -> DecodeEngine under
-    ``codec``, speculative adoption on).  Returns (outputs, metrics);
-    ``mono`` is the monolithic engine's tokens for the same requests.
-    With ``count`` the kernels' launch counts are zeroed just before and
-    read just after.  The engines die with the call (``release_arm``
-    measures what is left)."""
+    ``codec``, speculative adoption on).  ``prefix_cache`` turns on the
+    prefill engine's prefix cache and hands each result's chain to the
+    decode side; with ``waves`` the first request is driven to its FIN
+    before the rest are submitted, so that both registries hold its chain
+    first (each request's TTFT from its own submit).  Returns (outputs,
+    metrics); ``mono`` is the monolithic engine's tokens for the same
+    requests.  With ``count`` the kernels' launch counts are zeroed just
+    before and read just after.  The engines die with the call
+    (``release_arm`` measures what is left); blocks the registries still
+    pin at the end are not leaks."""
     import torch
 
-    from vtpu_torch.ops.quant import (
-        quantize_blockwise,
-        quantize_blockwise_fp8,
-        quantize_blockwise_int4,
-    )
     from vtpu_torch.serving import transport as ttp
     from vtpu_torch.serving import wirecodec
     from vtpu_torch.serving.disagg import (
@@ -1689,38 +1718,16 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
     )
 
     dec = DecodeEngine(model, max_batch=8)
-    pf = PrefillEngine(model, shared_with=dec if mode == "shared" else None)
-    windows, handoff = [], []
-    step_k = dec._step_k
-
-    def timed_step_k(k):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        active, replay = sum(dec.active), k in dec._graphs
-        s.record()
-        out = step_k(k)
-        e.record()
-        windows.append((k, active, s, e, replay))
-        return out
-
-    dec._step_k = timed_step_k
+    pf = PrefillEngine(model, shared_with=dec if mode == "shared" else None,
+                       prefix_cache=prefix_cache)
+    windows, handoff, skips = [], [], []
     # forwards outside the decode windows (the prefill engine's), by a
     # hook, as in ``serve``: the launch checks' lower bounds
     prefill_forwards, in_window = [0], [False]
+    timed_windows(dec, windows, in_window)
     hook = model.register_forward_hook(
         lambda *_: prefill_forwards.__setitem__(
             0, prefill_forwards[0] + (not in_window[0])))
-
-    def counted_step_k(k):
-        in_window[0] = True
-        try:
-            return timed_step_k(k)
-        finally:
-            in_window[0] = False
-
-    dec._step_k = counted_step_k
-    quantize = {"int8": quantize_blockwise, "fp8": quantize_blockwise_fp8,
-                "int4": quantize_blockwise_int4}.get(codec)
     rep = None
     # (source rows, adopted rows) of every stream, copied on the device
     # at FIN into buffers sized for the run's leases before it starts:
@@ -1741,8 +1748,11 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
         def wire_finish(ctx, meta):
             finish(ctx, meta)
             handoff.append((ctx["finished"] - ctx["opened"]) * 1e3)
+            skips.append(ctx["skip"])
             t = time.perf_counter()
-            lo, blocks = snap_at[0], meta["handle"]["blocks"]
+            # the blocks that shipped (a suffix-only stream skips the
+            # prefix the decode registry holds)
+            lo, blocks = snap_at[0], meta["handle"]["blocks"][ctx["skip"]:]
             hi = snap_at[0] = lo + len(blocks)
             check(hi <= cap, f"snapshot room: {hi} blocks of {cap}")
             si = torch.as_tensor(blocks, device=model.device).long()
@@ -1771,25 +1781,38 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
     if count:
         zero_counts()
     t0 = time.perf_counter()
-    for rid, prompt, n in reqs:
+    later = list(reqs[1:]) if waves else []
+    submitted = {}
+    for rid, prompt, n in reqs[:1] if waves else reqs:
         pf.submit(rid, prompt, num_new=n)
+        submitted[rid] = t0
     ttft = {}
     src = pf if mode == "copy" else None
     # the loop's host seconds by part: prefill rounds, handoff (the
     # OPENs and pumps, or the adoptions), decode steps
     host_s = {"prefill": 0.0, "handoff": 0.0, "decode": 0.0}
-    while (pf.queue or dec.queue or any(dec.active) or dec._inflight
-           or (rep is not None and rep.idle_senders())):
+    while (later or pf.queue or dec.queue or any(dec.active)
+           or dec._inflight or (rep is not None and rep.idle_senders())):
+        if (later and not pf.queue and reqs[0][0] in dec.out
+                and not (rep is not None and rep.idle_senders())):
+            t = time.perf_counter()  # the first request is adopted
+            for rid, prompt, n in later:
+                pf.submit(rid, prompt, num_new=n)
+                submitted[rid] = t
+            later = []
         t = time.perf_counter()
         results = pf.step()
         t1 = time.perf_counter()
         for res in results:
+            chain = list(res.chain) or None
             if rep is not None:
                 rep.submit_handle(res.rid, res.handle, res.first_token,
-                                  res.num_new, source=pf, admit=False)
+                                  res.num_new, source=pf, admit=False,
+                                  chain=chain)
             else:
                 dec.submit_handle(res.rid, res.handle, res.first_token,
-                                  res.num_new, source=src, admit=False)
+                                  res.num_new, source=src, admit=False,
+                                  chain=chain)
         if rep is not None:
             rep.pump_streams()
         else:
@@ -1802,38 +1825,31 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
         host_s["decode"] += now - t2
         for rid, toks in dec.out.items():
             if toks and rid not in ttft:
-                ttft[rid] = now - t0
+                ttft[rid] = now - submitted[rid]
     out = dec.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts() if count else None
     hook.remove()
-    err = torch.zeros((), device=model.device)
-    # the largest error over its own block's bound (scale/2, fp8 scale*16,
-    # plus the pool dtype's rounding of the reconstruction)
-    err_ratio = torch.zeros((), device=model.device)
+    # the largest error, and the largest over its own block's bound
+    err, err_ratio = 0.0, None
     for sb, db in snap:
-        rows, got = sb[:snap_at[0]], db[:snap_at[0]].float()
-        diff = (got - rows.float()).abs()
-        torch.maximum(err, diff.max(), out=err)
-        if quantize is not None:
-            per = quantize(rows)[1] * (16.0 if codec == "fp8" else 0.5)
-            per = per + torch.maximum(got.abs(), rows.float().abs(
-            )) * (torch.finfo(rows.dtype).eps / 2)
-            torch.maximum(err_ratio, (diff / per).max(), out=err_ratio)
+        e, r = block_error(sb[:snap_at[0]], db[:snap_at[0]], codec)
+        err = max(err, e)
+        err_ratio = r if err_ratio is None else max(err_ratio, r)
     snap.clear()
     if mode == "wire":
         per_req = sorted(handoff)
     else:
         per_req = sorted(s.elapsed_time(e) / n for s, e, n in handoff)
-    ms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in windows)
+    ms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in windows)
     toks = sum(k * a for k, a, *_ in windows)
     replays = [w for w in windows if w[4]]
-    rms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in replays)
+    rms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in replays)
     rsteps = sum(k for k, *_ in replays)
     # every slot active: the step's attention over 8 real rows
     full = [w for w in replays if w[1] == dec.max_batch]
-    fms = sum(s.elapsed_time(e) for _k, _a, s, e, _r in full)
+    fms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in full)
     fsteps = sum(k for k, *_ in full)
     pairs = [(x, y) for rid, *_ in reqs
              for x, y in zip(out.get(rid, []), mono[rid])]
@@ -1846,15 +1862,20 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
         agree_share=sum(x == y for x, y in pairs) / max(1, len(pairs)),
         tokens_equal_mono=all(out.get(rid) == mono[rid]
                               for rid, *_ in reqs),
-        max_abs_err=float(err) if mode == "wire" else None,
+        max_abs_err=err if mode == "wire" else None,
         error_bound=(wirecodec.error_bound(dec.wire_quant_max_scale, codec)
                      if mode == "wire" and codec != "fp32" else None),
         wire_quant_max_scale=(dec.wire_quant_max_scale
                               if mode == "wire" else None),
-        max_err_over_block_bound=(float(err_ratio) if quantize is not None
-                                  else None),
-        leaked_decode_pool=dst["leased"] + dst["detached_handles"],
-        leaked_prefill_pool=srcp["leased"] + srcp["detached_handles"],
+        max_err_over_block_bound=err_ratio,
+        leaked_decode_pool=(dst["leased"] - dst["prefix_blocks"]
+                            + dst["detached_handles"]),
+        leaked_prefill_pool=(srcp["leased"] - srcp["prefix_blocks"]
+                             + srcp["detached_handles"]),
+        registry_blocks=[dst["prefix_blocks"], srcp["prefix_blocks"]],
+        prefix_hits=pf.prefix_hits,
+        prefix_tokens_skipped=pf.prefix_tokens_skipped,
+        skip_blocks=skips if mode == "wire" else None,
         handoffs=dst[f"handoff_{mode}"],
         handoff_host_bytes=dst["handoff_host_bytes"],
         handoff_device_bytes=dst["handoff_device_bytes"],
@@ -1879,13 +1900,374 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
     return out, metrics
 
 
-def release_arm(model, reqs, mono, **kw):
-    """``disagg_arm``, and the device memory it left behind (GB)."""
+PREFIX_TOKENS = 512                # the prefix arm's shared prefix
+SPILL_POOL = 1 + 128               # the spill arm's prefill pool
+
+
+def make_prefix_requests(seed: int, n: int = 16, num_new: int = 32):
+    """``n`` prompts of one shared ``PREFIX_TOKENS``-token prefix (32
+    blocks) and a suffix of their own, 64 to 488 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, FULL["vocab"], PREFIX_TOKENS).astype(np.int32)
+    return [(f"p{i}", np.concatenate([prefix, rng.integers(
+        0, FULL["vocab"], int(rng.integers(64, 489))).astype(np.int32)]),
+        num_new) for i in range(n)]
+
+
+def timed_windows(eng, windows: list, in_window: list) -> None:
+    """Record each decode window of ``eng`` as (k, active slots, start
+    and end CUDA events, replayed, host clock at dispatch); ``in_window``
+    flags the forwards a window runs."""
+    import torch
+
+    step_k = eng._step_k
+
+    def timed(k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        active, replay = sum(eng.active), k in eng._graphs
+        in_window[0] = True
+        t = time.perf_counter()
+        s.record()
+        try:
+            out = step_k(k)
+        finally:
+            in_window[0] = False
+        e.record()
+        windows.append((k, active, s, e, replay, t))
+        return out
+
+    eng._step_k = timed
+
+
+def block_error(src, got, codec):
+    """(largest |got - src|, largest error over its own block's bound)
+    of adopted or onloaded rows against their source rows, on the card;
+    the bound of a quantized codec is its scale's (scale/2, fp8 scale*16)
+    plus the pool dtype's rounding of the reconstruction."""
+    from vtpu_torch.ops.quant import (
+        quantize_blockwise,
+        quantize_blockwise_fp8,
+        quantize_blockwise_int4,
+    )
+
+    diff = (got.float() - src.float()).abs()
+    quantize = {"int8": quantize_blockwise, "fp8": quantize_blockwise_fp8,
+                "int4": quantize_blockwise_int4}.get(codec)
+    if quantize is None:
+        return float(diff.max()), None
+    import torch
+
+    per = quantize(src)[1] * (16.0 if codec == "fp8" else 0.5)
+    per = per + torch.maximum(got.float().abs(), src.float().abs()) * (
+        torch.finfo(src.dtype).eps / 2)
+    return float(diff.max()), float((diff / per).max())
+
+
+def spill_arm(model, seed: int, *, count: bool):
+    """The host spill tier at full width: a PrefillEngine on a standalone
+    pool of ``SPILL_POOL`` blocks (a clone sharing the model's weights)
+    with the prefix cache, ``host_spill`` (the int8 spill codec) and
+    ``persist_dir`` in a temporary directory, handing off by device copy
+    to a DecodeEngine(max_batch=8) on the full pool.  Eight prompts of
+    distinct ``PREFIX_TOKENS``-token prefixes and suffixes shorter than a
+    block (so a prompt's digest chain is its prefix's), then the eight
+    prefixes again with new suffixes: the working set (256 prefix blocks)
+    is twice the pool, so the first pass demotes and the second onloads.  Every onloaded block must equal the dequantization
+    of its payload (parsed by numpy, dequantized on the card) bit for
+    bit, and lie within the codec's bound of the block demoted.  Then a
+    fresh PrefillEngine on the same directory must rehydrate the journal
+    and onload on its first revisit.  Returns (outputs, metrics)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vtpu_torch.ops.quant import dequantize_blockwise
+    from vtpu_torch.serving import wirecodec
+    from vtpu_torch.serving.disagg import DecodeEngine, PrefillEngine
+
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, FULL["vocab"], PREFIX_TOKENS).astype(
+        np.int32) for _ in range(8)]
+
+    def requests(tag):
+        return [(f"{tag}{i}", np.concatenate([p, rng.integers(
+            0, FULL["vocab"], int(rng.integers(1, 16))).astype(np.int32)]),
+            32) for i, p in enumerate(prefixes)]
+
+    small = model.clone(kv_pool_blocks=SPILL_POOL)
+    dec = DecodeEngine(model, max_batch=8)
+    windows, in_window, pf_forwards = [], [False], [0]
+    timed_windows(dec, windows, in_window)
+    hook = model.register_forward_hook(
+        lambda *_: pf_forwards.__setitem__(
+            0, pf_forwards[0] + (not in_window[0])))
+    demoted, onloaded = {}, []
+    host = {"demote_s": 0.0, "onload_s": 0.0, "check_s": 0.0}
+    onload_events = []
+
+    def instrument(pf):
+        store, demote, scatter = (pf.pool.store_spilled, pf._demote_for,
+                                  pf._spill_scatter)
+
+        def store_spilled(chain, payload, codec):
+            # the run still holds what is demoted: keep it to compare
+            t = time.perf_counter()
+            run = pf.pool._prefix_runs[chain[-1]]
+            demoted[tuple(chain)] = (
+                [x[list(run)].clone() for x in pf.pool_leaves()], payload)
+            host["check_s"] += time.perf_counter() - t
+            store(chain, payload, codec)
+
+        def demote_for(need):
+            t, c = time.perf_counter(), host["check_s"]
+            try:
+                return demote(need)
+            finally:
+                host["demote_s"] += (time.perf_counter() - t
+                                     - (host["check_s"] - c))
+
+        def spill_scatter(blocks, payload, codec):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            s.record()
+            scatter(blocks, payload, codec)
+            e.record()
+            host["onload_s"] += time.perf_counter() - t
+            onload_events.append((s, e))
+            onloaded.append(([x[list(blocks)].clone()
+                              for x in pf.pool_leaves()], payload, codec))
+
+        pf.pool.store_spilled = store_spilled
+        pf._demote_for = demote_for
+        pf._spill_scatter = spill_scatter
+
+    def drive(pf, reqs):
+        for rid, p, n in reqs:
+            pf.submit(rid, p, num_new=n)
+        while pf.queue or dec.queue or any(dec.active) or dec._inflight:
+            for res in pf.step():
+                dec.submit_handle(res.rid, res.handle, res.first_token,
+                                  res.num_new, source=pf, admit=False)
+            dec.admit_pending()
+            dec.step()
+
+    torch.cuda.synchronize()
+    if count:
+        zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vtpu-spill-") as d:
+        pf = PrefillEngine(small, prefix_cache=True, host_spill=True,
+                           persist_dir=d)
+        check(pf.host_spill and pf._spill_codec == "int8",
+              "spill: the engine refused the host tier")
+        instrument(pf)
+        drive(pf, requests("a"))
+        pass1 = dict(demotions=pf.spill_demotions, onloads=pf.spill_onloads)
+        drive(pf, requests("b"))
+        st = pf.stats()
+        pf._persist.close()
+        # a restart: a fresh engine on the same journal
+        pf2 = PrefillEngine(small, prefix_cache=True, host_spill=True,
+                            persist_dir=d)
+        st2 = pf2.pool.stats()
+        instrument(pf2)
+        drive(pf2, requests("c")[:1])
+        out = dec.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts() if count else None
+        hook.remove()
+        pf2_onloads = pf2.spill_onloads
+        journal_mb = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d)) / 1e6
+        pf2._persist.close()
+    # the onloads against their payloads and their demoted blocks
+    exact, err, ratio, max_scale = True, 0.0, 0.0, 0.0
+    by_payload = {payload: rows for rows, payload in demoted.values()}
+    for rows, payload, codec in onloaded:
+        meta = [(int(np.prod(x.shape[1:])), tuple(x.shape[1:]), None)
+                for x in rows]
+        k = rows[0].shape[0]
+        for (scales, q), got, leaf_src in zip(
+                wirecodec.split_payload(payload, meta, k, codec), rows,
+                by_payload.get(payload, [None] * len(rows))):
+            max_scale = max(max_scale, float(scales.max()))
+            sc = torch.from_numpy(scales.copy()).cuda().reshape(
+                (k,) + (1,) * (got.dim() - 1))
+            want = dequantize_blockwise(torch.from_numpy(q.copy()).cuda(),
+                                        sc, got.dtype)
+            exact = exact and torch.equal(got, want)
+            if leaf_src is not None:
+                e, r = block_error(leaf_src, got, codec)
+                err, ratio = max(err, e), max(ratio, r)
+    dst = dec.pool.stats()
+    replays = [w for w in windows if w[4]]
+    rms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in replays)
+    rsteps = sum(k for k, *_ in replays)
+    demotions = st["spill_demotions"]
+    metrics = dict(
+        requests=17, finished=sum(len(t) == 32 for t in out.values()),
+        demotions=demotions, onloads=st["spill_onloads"],
+        pass1=pass1, rehydrated_runs=st2["spilled_runs"],
+        rehydrated_blocks=st2["spilled_blocks"],
+        disk_blocks=st2["disk_blocks"], restart_onloads=pf2_onloads,
+        spilled_runs=st["spilled_runs"],
+        spill_mb=st["spilled_bytes"] / 1e6, journal_mb=journal_mb,
+        payload_mb_per_run=(st["spilled_bytes"] / st["spilled_runs"] / 1e6
+                            if st["spilled_runs"] else None),
+        demote_host_ms_per_run=host["demote_s"] * 1e3 / max(1, demotions),
+        onload_host_ms_per_run=host["onload_s"] * 1e3 / max(
+            1, len(onloaded)),
+        onload_device_ms_per_run=(sum(s.elapsed_time(e) for s, e in
+                                      onload_events) / len(onload_events)
+                                  if onload_events else None),
+        onloads_bit_equal_payload=exact, onloads_checked=len(onloaded),
+        max_abs_err=err, error_bound=wirecodec.error_bound(max_scale,
+                                                           "int8"),
+        max_err_over_block_bound=ratio,
+        prefix_hits=st["prefix_hits"],
+        leaked_prefill_pool=(st["leased"] - st["prefix_blocks"]
+                             + st["detached_handles"]),
+        leaked_decode_pool=dst["leased"] + dst["detached_handles"],
+        decode_steps=dec.steps, prefill_forwards=pf_forwards[0],
+        replayed_windows=len(replays),
+        decode_step_ms_replayed=rms / rsteps if rsteps else None,
+        wall_s=wall, check_host_s=host["check_s"], launches=counts)
+    dec.__dict__.pop("_step_k", None)
+    return out, metrics
+
+
+def session_arm(model, reqs, mono, *, codec: str = "fp32", count: bool):
+    """Live session moves at full width: two DecodeEngines (max_batch 8)
+    with pools of their own; a PrefillEngine shares A's pool.  Nine
+    requests: eight decode on A, the ninth waits in A's queue (a claimed
+    adoption).  After 8 decode steps the port's SessionMover moves four
+    live sessions and the queued one to B over the wire (``codec``, the
+    port's hub over LoopbackLink, speculative adoption); then both
+    engines run to the end.  At each FIN the rows that shipped are copied
+    on the card and compared after the run.  Returns (outputs, metrics)."""
+    import torch
+
+    from vtpu_torch.serving.disagg import (
+        DecodeEngine,
+        PrefillEngine,
+        wire_leaves,
+    )
+    from vtpu_torch.serving.migrate import SessionMover
+
+    a = DecodeEngine(model, max_batch=8, replica_id="A")
+    b = DecodeEngine(model, max_batch=8, replica_id="B")
+    pf = PrefillEngine(model, shared_with=a)
+    wins, in_window, pf_forwards = {"A": [], "B": []}, [False], [0]
+    timed_windows(a, wins["A"], in_window)
+    timed_windows(b, wins["B"], in_window)
+    hook = model.register_forward_hook(
+        lambda *_: pf_forwards.__setitem__(
+            0, pf_forwards[0] + (not in_window[0])))
+    pairs = []
+    finish = b.wire_finish
+
+    def wire_finish(ctx, meta):
+        shipped = meta["handle"]["blocks"][ctx["skip"]:]
+        si = torch.as_tensor(shipped, device=model.device).long()
+        di = torch.as_tensor(ctx["dst"], device=model.device).long()
+        pairs.append([(s.index_select(0, si), d.index_select(0, di))
+                      for s, d in zip(wire_leaves(a.cache["layers"]),
+                                      wire_leaves(b.cache["layers"]))])
+        finish(ctx, meta)
+
+    b.wire_finish = wire_finish
+    torch.cuda.synchronize()
+    if count:
+        zero_counts()
+    t0 = time.perf_counter()
+    for rid, prompt, n in reqs:
+        pf.submit(rid, prompt, num_new=n)
+    while pf.queue:
+        for res in pf.step():
+            a.submit_handle(res.rid, res.handle, res.first_token,
+                            res.num_new, admit=False)
+    a.admit_pending()
+    while a.steps < 8:
+        a.step()
+    live = [r for r in a.rid if r is not None][:4]
+    queued = [pa.rid for pa in a.queue]
+    check(len(live) == 4 and len(queued) == 1,
+          f"session: {len(live)} live and {len(queued)} queued to move")
+    mover = SessionMover(codec=codec)
+    t_move = time.perf_counter()
+    moves = []
+    for rid in live + queued:
+        t = time.perf_counter()
+        rep = mover.move(rid, a, [("B", b)])
+        moves.append(((time.perf_counter() - t) * 1e3, rep))
+    moved_s = time.perf_counter()
+    while (any(a.active) or a.queue or a._inflight or any(b.active)
+           or b.queue or b._inflight):
+        a.step()
+        b.step()
+    a._flush_first_tokens()
+    b._flush_first_tokens()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts() if count else None
+    hook.remove()
+    out = {**a.out, **b.out}
+    err = 0.0
+    for pair in pairs:
+        for s, d in pair:
+            err = max(err, block_error(s, d, codec)[0])
+    pairs.clear()
+    sa, sb = a.pool.stats(), b.pool.stats()
+    after = {k: [w for w in ws if w[4] and w[5] >= moved_s]
+             for k, ws in wins.items()}
+    replays = [w for ws in wins.values() for w in ws if w[4]]
+    rms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in replays)
+    rsteps = sum(k for k, *_ in replays)
+    ms = sorted(m for m, _r in moves)
+    metrics = dict(
+        requests=len(reqs),
+        finished=sum(len(out.get(rid, [])) == n for rid, _p, n in reqs),
+        tokens_equal_mono=all(out.get(rid) == mono[rid]
+                              for rid, *_ in reqs),
+        agree_share=sum(x == y for rid, *_ in reqs for x, y in zip(
+            out.get(rid, []), mono[rid])) / max(1, sum(
+                len(mono[rid]) for rid, *_ in reqs)),
+        moved=len(moves), moved_live=len(live), moved_queued=len(queued),
+        on_b=sum(rid in b.out for rid in live + queued),
+        move_ms_per_session=sum(ms) / len(ms), move_ms_p50=ms[len(ms) // 2],
+        move_ms_max=ms[-1], moves_s=moved_s - t_move,
+        blocks_shipped=[r.blocks_shipped for _m, r in moves],
+        blocks_skipped=[r.blocks_skipped for _m, r in moves],
+        wire_mb=sum(r.wire_bytes for _m, r in moves) / 1e6, codec=codec,
+        max_abs_err=err,
+        replayed_steps_after_move={k: sum(w[0] for w in v)
+                                   for k, v in after.items()},
+        decode_step_ms_replayed=rms / rsteps if rsteps else None,
+        decode_steps=a.steps + b.steps, decode_steps_ab=[a.steps, b.steps],
+        prefill_forwards=pf_forwards[0],
+        leaked_pool_a=sa["leased"] + sa["detached_handles"],
+        leaked_pool_b=sb["leased"] + sb["detached_handles"],
+        wall_s=wall, launches=counts)
+    for eng in (a, b):
+        for attr in ("_step_k", "wire_finish"):
+            eng.__dict__.pop(attr, None)
+    return out, metrics
+
+
+def release_arm(arm, *args, **kw):
+    """``arm(*args, **kw)`` (an arm of this phase), and the device memory
+    it left behind (GB)."""
     import torch
 
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
-    out, met = disagg_arm(model, reqs, mono, **kw)
+    out, met = arm(*args, **kw)
     gc.collect()
     torch.cuda.empty_cache()
     met["mem_left_after_release_gb"] = (
@@ -1896,7 +2278,9 @@ def release_arm(model, reqs, mono, **kw):
 def disagg_exactness_phase(card: str, seed: int) -> None:
     """Depth 2, f32, the exactness phase's model on both pools: shared,
     copy and fp32-wire disaggregation give exactly the monolithic
-    PagedBatcher's tokens."""
+    PagedBatcher's tokens; so do the prefix arm's requests with the
+    prefix cache off and on (fp32 wire, two waves), and the session arm
+    (fp32 wire), whose moved blocks arrive bit for bit."""
     import torch
 
     from vtpu_torch.models.transformer import TransformerLM
@@ -1905,26 +2289,175 @@ def disagg_exactness_phase(card: str, seed: int) -> None:
     small = TransformerLM(**dict(FULL, depth=2), device="cuda",
                           dtype=torch.float32, generator=gen)
     reqs = make_requests(seed)
+    preqs = make_prefix_requests(seed + 2)
+    sreqs = make_requests(seed + 3, n=9)
     for pool in ("native", "int8"):
         m = small.clone(kv_cache_dtype=pool)
-        mono, _ = serve(m, reqs, count=False)
-        for mode, codec in (("shared", None), ("copy", None),
-                            ("wire", "fp32")):
-            out, met = release_arm(m, reqs, mono, mode=mode, codec=codec,
-                                   count=False)
+        runs = [(reqs, disagg_arm, dict(mode=mode, codec=codec))
+                for mode, codec in (("shared", None), ("copy", None),
+                                    ("wire", "fp32"))]
+        runs += [(preqs, disagg_arm, dict(mode="wire", codec="fp32",
+                                          waves=True, prefix_cache=on))
+                 for on in (False, True)]
+        runs += [(sreqs, session_arm, dict(codec="fp32"))]
+        monos = {}
+        for rq, arm, kw in runs:
+            key = id(rq)
+            if key not in monos:
+                monos[key] = serve(m, rq, count=False)[0]
+            out, met = release_arm(arm, m, rq, monos[key], count=False, **kw)
+            name = ("session" if arm is session_arm else
+                    "prefix" if kw.get("waves") else kw["mode"])
+            leaked = sum(v for k, v in met.items() if k.startswith("leaked"))
             emit(phase="disagg_exactness", depth=2, dtype="float32",
-                 pool=pool, arm=mode, codec=codec, requests=len(reqs),
+                 pool=pool, arm=name, codec=kw.get("codec"),
+                 prefix_cache=kw.get("prefix_cache"), requests=len(rq),
                  token_identical=met["tokens_equal_mono"],
-                 max_abs_err=met["max_abs_err"],
-                 leaked=met["leaked_decode_pool"]
-                 + met["leaked_prefill_pool"], card=card)
+                 max_abs_err=met["max_abs_err"], leaked=leaked,
+                 prefix_hits=met.get("prefix_hits"),
+                 skip_blocks=met.get("skip_blocks"),
+                 moved=met.get("moved"), card=card)
+            what = f"f32 {pool} {name} {kw.get('prefix_cache') or ''}"
             check(met["tokens_equal_mono"],
-                  f"f32 {pool} {mode}: disaggregated tokens differ from "
-                  f"the monolithic engine's")
-            check(mode != "wire" or met["max_abs_err"] == 0.0,
-                  f"f32 {pool} fp32 wire: adopted blocks differ")
+                  f"{what}: disaggregated tokens differ from the "
+                  f"monolithic engine's")
+            check(kw.get("codec") != "fp32" or met["max_abs_err"] == 0.0,
+                  f"{what}: fp32 wire blocks differ")
+            check(leaked == 0, f"{what}: leaked blocks")
+            check(not kw.get("prefix_cache")
+                  or met["prefix_hits"] == len(rq) - 1,
+                  f"{what}: {met.get('prefix_hits')} prefix hits")
     del small, m
     torch.cuda.empty_cache()
+
+
+def check_launches(what: str, met: dict, depth: int, pool: str) -> None:
+    """The serve phase's bounds: LN in every block of every forward (one
+    before each of the two sublayers, one at the end), paged decode in
+    every layer of every decode step."""
+    c = met["launches"]
+    paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
+    forwards = met["prefill_forwards"] + met["decode_steps"]
+    check(met["prefill_forwards"] > 0 and c["fused_layernorm"]
+          >= (2 * depth + 1) * forwards,
+          f"{what}: layernorm launches {c['fused_layernorm']} for "
+          f"{forwards} forwards")
+    check(c[paged] >= depth * met["decode_steps"] > 0,
+          f"{what}: {paged} launches {c[paged]} for "
+          f"{met['decode_steps']} decode steps")
+
+
+def session_phase(card: str, model, seed: int, pool: str) -> dict:
+    """The session arm on ``pool`` (fp32 wire; 4 live sessions and 1
+    queued moved A -> B), checked and emitted.  Returns its launches."""
+    import torch
+
+    sreqs = make_requests(seed + 3, n=9)
+    torch.cuda.reset_peak_memory_stats()
+    _out, met = release_arm(session_arm, model, sreqs,
+                            serve(model, sreqs, count=False)[0],
+                            codec="fp32", count=True)
+    emit(phase="disagg_session", pool=pool, depth=model.depth,
+         dtype="bfloat16", reduced=REDUCED, card=card, **met)
+    what = f"{pool} session"
+    check(met["finished"] == len(sreqs), f"{what}: unfinished")
+    check(met["moved"] == 5 and met["on_b"] == 5,
+          f"{what}: {met['on_b']} of 5 sessions on B")
+    check(met["leaked_pool_a"] == 0 and met["leaked_pool_b"] == 0,
+          f"{what}: leaked blocks")
+    check(met["max_abs_err"] == 0.0, f"{what}: fp32 blocks differ")
+    check(all(v > 0 for v in met["replayed_steps_after_move"].values()),
+          f"{what}: replayed steps after the move "
+          f"{met['replayed_steps_after_move']}")
+    check(met["mem_left_after_release_gb"] < 0.5,
+          f"{what}: the arm kept {met['mem_left_after_release_gb']} GB")
+    check_launches(what, met, model.depth, pool)
+    return met["launches"]
+
+
+def prefix_phase(card: str, model, seed: int) -> dict:
+    """The prefix arm (native pool, int8 wire, one shared 512-token
+    prefix, two waves) with the prefix cache off and on, checked and
+    emitted.  Adopted blocks are held to their own block's bound (the
+    codec's scale bound plus the bf16 rounding of the reconstruction).
+    Returns the launches of both."""
+    import torch
+
+    preqs = make_prefix_requests(seed + 2)
+    pmono = serve(model, preqs, count=False)[0]
+    prefix, launches = {}, {}
+    for on in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        _out, met = release_arm(disagg_arm, model, preqs, pmono,
+                                mode="wire", codec="int8", waves=True,
+                                prefix_cache=on, count=True)
+        prefix[on] = met
+        emit(phase="disagg_prefix", pool="native", codec="int8",
+             prefix_cache=on, depth=model.depth, dtype="bfloat16",
+             reduced=REDUCED, prefix_tokens=PREFIX_TOKENS, card=card, **met)
+        what = f"prefix cache {'on' if on else 'off'}"
+        check(met["finished"] == len(preqs), f"{what}: unfinished")
+        check(met["leaked_decode_pool"] == 0
+              and met["leaked_prefill_pool"] == 0, f"{what}: leaked blocks")
+        check(met["max_err_over_block_bound"] <= 1.0,
+              f"{what}: an adopted block past its own bound")
+        check(met["replayed_windows"] > 0, f"{what}: no graph replay")
+        check(met["mem_left_after_release_gb"] < 0.5,
+              f"{what}: the arm kept {met['mem_left_after_release_gb']} GB")
+        check_launches(what, met, model.depth, "native")
+        for k, v in met["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    hits = prefix[True]
+    check(hits["prefix_hits"] == len(preqs) - 1
+          and hits["prefix_tokens_skipped"] == PREFIX_TOKENS
+          * (len(preqs) - 1),
+          f"prefix: {hits['prefix_hits']} hits skipping "
+          f"{hits['prefix_tokens_skipped']} tokens")
+    blocks = PREFIX_TOKENS // FULL["kv_block_size"]
+    check(sorted(hits["skip_blocks"]) == [0] + [blocks] * (len(preqs) - 1),
+          f"prefix: skip_blocks {hits['skip_blocks']}")
+    check(prefix[False]["prefix_hits"] == 0
+          and not any(prefix[False]["skip_blocks"]),
+          "prefix off: a hit or a skip")
+    emit(phase="disagg_prefix_saving",
+         wire_mb_per_request=[prefix[o]["wire_bytes_per_request"] / 1e6
+                              for o in (False, True)],
+         ttft_s_p50=[prefix[o]["ttft_s_p50"] for o in (False, True)],
+         prefill_host_s=[prefix[o]["host_s"]["prefill"]
+                         for o in (False, True)], card=card)
+    return launches
+
+
+def spill_phase(card: str, model, seed: int) -> dict:
+    """The spill arm, checked and emitted: an onloaded block is within the
+    codec's bound of the block demoted, each held to its own block's
+    scale plus the bf16 rounding of the reconstruction.  Returns its
+    launches."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _out, met = release_arm(spill_arm, model, seed + 4, count=True)
+    emit(phase="disagg_spill", pool="native", codec="int8",
+         prefill_pool_blocks=SPILL_POOL, depth=model.depth,
+         dtype="bfloat16", reduced=REDUCED, card=card, **met)
+    check(met["finished"] == met["requests"], "spill: unfinished")
+    check(met["demotions"] >= 1 and met["onloads"] >= 1,
+          f"spill: {met['demotions']} demotions, {met['onloads']} onloads")
+    check(met["onloads_bit_equal_payload"] and met["onloads_checked"] >= 1,
+          "spill: an onloaded block is not its payload's dequantization")
+    check(met["max_err_over_block_bound"] <= 1.0,
+          f"spill: onloaded blocks {met['max_err_over_block_bound']} of "
+          f"their own bound off their source")
+    check(met["rehydrated_runs"] >= 1 and met["restart_onloads"] >= 1,
+          f"spill: restart rehydrated {met['rehydrated_runs']} runs, "
+          f"onloaded {met['restart_onloads']}")
+    check(met["leaked_decode_pool"] == 0 and met["leaked_prefill_pool"] == 0,
+          "spill: leaked blocks")
+    check(met["replayed_windows"] > 0, "spill: no graph replay")
+    check(met["mem_left_after_release_gb"] < 0.5,
+          f"spill: the arm kept {met['mem_left_after_release_gb']} GB")
+    check_launches("spill", met, model.depth, "native")
+    return met["launches"]
 
 
 def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
@@ -1946,6 +2479,11 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
     serve(model, make_requests(seed + 1, n=1, num_new=2), count=False)
     reqs = make_requests(seed)
     launches = {}
+
+    def tally(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
     for pool in ("native", "int8"):
         m = model if pool == "native" else model.clone(kv_cache_dtype="int8")
         mono = (mono_out or {}).get(pool) or serve(m, reqs, count=False)[0]
@@ -1954,14 +2492,14 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
                                   else ("fp32",))]
         for mode, codec in arms:
             torch.cuda.reset_peak_memory_stats()
-            _out, met = release_arm(m, reqs, mono, mode=mode, codec=codec,
-                                    count=True)
+            _out, met = release_arm(disagg_arm, m, reqs, mono, mode=mode,
+                                    codec=codec, count=True)
             emit(phase="disagg", pool=pool, arm=mode, codec=codec,
                  depth=depth, dtype="bfloat16", reduced=REDUCED,
                  agree_note="information only: bf16 admission groups "
                             "round differently from the monolithic "
                             "engine's", card=card, **met)
-            c, what = met["launches"], f"{pool} {mode} {codec or ''}"
+            what = f"{pool} {mode} {codec or ''}"
             check(met["finished"] == len(reqs), f"{what}: unfinished")
             check(met["leaked_decode_pool"] == 0
                   and met["leaked_prefill_pool"] == 0,
@@ -1982,20 +2520,12 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
             check(met["mem_left_after_release_gb"] < 0.5,
                   f"{what}: the arm kept "
                   f"{met['mem_left_after_release_gb']} GB")
-            # the serve phase's bounds: LN in every block of every
-            # forward, paged decode in every layer of every decode step
-            paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
-            forwards = met["prefill_forwards"] + met["decode_steps"]
-            check(met["prefill_forwards"] > 0 and c["fused_layernorm"]
-                  >= (2 * depth + 1) * forwards,
-                  f"{what}: layernorm launches {c['fused_layernorm']} for "
-                  f"{forwards} forwards")
-            check(c[paged] >= depth * met["decode_steps"] > 0,
-                  f"{what}: {paged} launches {c[paged]} for "
-                  f"{met['decode_steps']} decode steps")
-            for k, v in c.items():
-                launches[k] = launches.get(k, 0) + v
+            check_launches(what, met, depth, pool)
+            tally(met["launches"])
+        tally(session_phase(card, m, seed, pool))
         del m
+    tally(prefix_phase(card, model, seed))
+    tally(spill_phase(card, model, seed))
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -199,6 +199,32 @@ def test_paced_rate_takes_the_reference_rule(tmp_path):
     assert rate > 0
 
 
+def test_duty_probe_brackets_the_paced_window():
+    """The duty probe reads the rate at 100 % before and after the paced
+    window, keeps both readings and their ratio, and divides the paced
+    rate (and the reference rule's) by their mean."""
+    calls = []
+    rates = {"at_100_before": 4000.0, "port": 1500.0,
+             "at_100_after": 2000.0, "reference": 2700.0}
+
+    def rate_of(name, limit, cls):
+        calls.append((name, limit, cls))
+        return rates[name]
+
+    doc = share.duty_probe(rate_of, 50)
+    assert [c[0] for c in calls] == ["at_100_before", "port",
+                                     "at_100_after", "reference"]
+    assert [c[1] for c in calls] == [100, 50, 100, 50]
+    assert calls[-1][2] is share.ReferencePacing
+    assert all(c[2] is share.ShimRuntime for c in calls[:3])
+    assert doc["img_s_at_100_before"] == 4000.0
+    assert doc["img_s_at_100_after"] == 2000.0
+    assert doc["at_100_after_over_before"] == 0.5
+    assert doc["img_s_at_100"] == 3000.0
+    assert doc["measured"] == pytest.approx(0.5)
+    assert doc["reference_rule_measured"] == pytest.approx(0.9)
+
+
 def test_busy_ms_counts_overlapping_kernels_once():
     """The share arms' idle share: kernels on several streams overlap,
     and each instant of the union counts once (times in us)."""

@@ -5,8 +5,9 @@ PagedBatcher and of the JAX package's PrefillEngine/DecodeEngine on the
 same weights, over shared × (pipeline_depth, harvest_every); handles
 round-trip, stale stamps and missing sources are refused, raw prompts
 too; adoption waits for blocks; purge frees a claim; the JAX package's
-unchanged Router drives two torch decode replicas token-exactly; and
-what is not ported yet raises NotImplementedError.
+unchanged Router drives two torch decode replicas token-exactly.  The
+prefix cache, the host spill tier and session moves have files of their
+own: tests/test_torch_{prefix,spill,session}.py.
 
 The JAX side runs once, in a module-scoped fixture, so its compiles do
 not repeat.
@@ -326,39 +327,6 @@ def test_submit_validation(ref):
     with pytest.raises(ValueError):
         dec.submit_handle("a", res.handle, res.first_token, 2, source=pf)
     dec.run()
-
-
-@pytest.mark.parametrize("what", ["prefix_cache", "host_spill",
-                                  "persist_dir", "chain", "export_session",
-                                  "exportable_sessions", "adopt_session",
-                                  "decode_extract"])
-def test_not_yet_ported_surfaces_raise(ref, what):
-    """The prefix-cache adoption, the spill tier with its persistence and
-    session export and adoption are not ported yet: each says so."""
-    tm = ref["tm"]
-    if what in ("prefix_cache", "host_spill", "persist_dir"):
-        arg = {"prefix_cache": True, "host_spill": True,
-               "persist_dir": "/nonexistent"}[what]
-        with pytest.raises(NotImplementedError):
-            PrefillEngine(tm, device="cpu", **{what: arg})
-        return
-    dec = DecodeEngine(tm, 2, device="cpu")
-    if what == "chain":
-        pf = PrefillEngine(tm, device="cpu")
-        pf.submit("c", np.arange(9, dtype=np.int32), 2)
-        res = pf.step()[0]
-        with pytest.raises(NotImplementedError):
-            dec.submit_handle("c", res.handle, res.first_token, 2,
-                              source=pf, chain=["d0"])
-        pf.pool.release_handle(res.handle)  # the refusal claimed nothing
-        assert _leak_free(pf.pool)
-        return
-    call = {"export_session": lambda: dec.export_session("x"),
-            "exportable_sessions": dec.exportable_sessions,
-            "adopt_session": lambda: dec.adopt_session(None),
-            "decode_extract": lambda: dec.start_extract([1])}[what]
-    with pytest.raises(NotImplementedError):
-        call()
 
 
 # -- the pool's handle surface ---------------------------------------------

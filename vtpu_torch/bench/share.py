@@ -20,9 +20,11 @@ The workload is ResNet-V2-50 in bf16 (weights and activations) at batch
   eager share also runs without the runtime (four bare threads).
 - Every arm's window is traced on the device only (torch.profiler), so
   its img/s and its device idle share come from the same window.
-- Duty probe: one tenant at ``core_limit=q`` against the same tenant at
-  100 on the same loop; the ratio of their step rates is its duty.  It
-  runs eager and graphed, each with the port's pacing and with the
+- Duty probe (``duty_probe``): one tenant at ``core_limit=q`` between
+  two windows of the same tenant at 100 on the same loop; its step rate
+  over the mean of the two rates at 100 is its duty, so a change in the
+  host's speed during the probe moves both sides of the ratio.  It runs
+  eager and graphed, each with the port's pacing and with the
   reference's (``ReferencePacing``): the two differ where a launch
   returns long before its step is done, as a graph replay does.
 - Four-process arm (``run_processes``): four tenant processes
@@ -301,6 +303,26 @@ def paced_rate(forward, x, batch: int, window: float, core_limit: int,
     return rates[0]
 
 
+def duty_probe(rate_of, q: int) -> dict:
+    """The duty of a tenant at core limit ``q``: the paced window (the
+    port's rule) between two windows at 100, its rate over their mean,
+    and the reference's rule after them, over the same mean.
+    ``rate_of(name, core_limit, runtime_cls)`` runs one window and gives
+    its img/s.  The two readings at 100 and their ratio are kept: a ratio
+    far from 1 says the host's speed moved during the probe."""
+    before = rate_of("at_100_before", 100, ShimRuntime)
+    port = rate_of("port", q, ShimRuntime)
+    after = rate_of("at_100_after", 100, ShimRuntime)
+    reference = rate_of("reference", q, ReferencePacing)
+    at_100 = (before + after) / 2
+    return {"img_s_at_100_before": before, "img_s_at_100_after": after,
+            "at_100_after_over_before": after / before,
+            "img_s_at_100": at_100, "img_s": port,
+            "measured": port / at_100,
+            "reference_rule_img_s": reference,
+            "reference_rule_measured": reference / at_100}
+
+
 def card_uuid() -> str:
     """NVML's name of the card (``GPU-<uuid>``), which the plugin writes
     into ``VTPU_PJRT_VISIBLE_UUIDS``."""
@@ -513,20 +535,11 @@ def run(device="cuda", *, window: float = 10.0, quota: int = 4 << 30,
         q = DUTY_CORE_LIMIT
         doc["duty"] = {"core_limit": q, "window_s": duty_window}
         for kind, fwd in (("eager", forward), ("graphed", replays[0])):
-            rate = {}
-            for name, limit, cls in (("at_100", 100, ShimRuntime),
-                                     ("port", q, ShimRuntime),
-                                     ("reference", q, ReferencePacing)):
-                rate[name] = paced_rate(
+            doc["duty"][kind] = duty_probe(
+                lambda name, limit, cls: paced_rate(
                     fwd, x, batch, duty_window, limit,
                     os.path.join(tmp, f"duty_{kind}_{name}.cache"),
-                    device=dev, runtime_cls=cls)
-            doc["duty"][kind] = {
-                "img_s_at_100": rate["at_100"], "img_s": rate["port"],
-                "measured": rate["port"] / rate["at_100"],
-                "reference_rule_img_s": rate["reference"],
-                "reference_rule_measured": rate["reference"]
-                / rate["at_100"]}
+                    device=dev, runtime_cls=cls), q)
         doc["processes"] = {
             kind: run_processes(kind == "graphed", process_window, tmp)
             for kind in ("eager", "graphed")}

@@ -1,3 +1,4 @@
 """Serving tier of the port: ``PagedBatcher`` over a ``BlockPool``, and
 the disaggregated ``PrefillEngine``/``DecodeEngine`` with the K/V wire
-transport and its codecs."""
+transport and its codecs, the prefix registry and host spill tier with
+its journal (``kvpersist``), and live session moves (``migrate``)."""

@@ -43,16 +43,35 @@ tell a layer-order stream from it; the order is what makes a JAX
 prefill's stream land in the right layers of a torch decode engine, and
 back (tests/test_torch_wire.py runs at depth 12 for that reason).
 
-Not yet ported (each raises ``NotImplementedError``): the prefix-cache
-adoption (``PrefillEngine(prefix_cache=True)``, a ``chain`` handed to
-``submit_handle`` or carried by a stream), the host spill tier and its
-persistence, and session export and adoption.
+The rest of the JAX engines' surface:
+
+- **prefix cache** (``PrefillEngine(prefix_cache=True)``): prompts digest
+  into chained block digests (``prefix.chain_digests``); admission
+  matches them against the pool's registry and prefills only the
+  unmatched suffix.  A decode engine handed the chain registers the
+  adopted prefix in its own pool, and a stream whose OPEN carries a
+  chain its registry matches ships only the suffix (``skip_blocks``).
+- **host spill** (``host_spill=True``, standalone pools only): under
+  lease pressure the least recently used registered run is gathered,
+  quantized (``VTPU_KV_SPILL_CODEC``, default int8) and kept on the
+  host; a prompt that matches it onloads it back through the decode
+  engine's dequantizing scatter.  ``persist_dir`` journals every demotion
+  (``kvpersist.PrefixStore``) and rehydrates the host tier when an
+  engine starts on the same directory.
+- **session export and adoption** (``DecodeEngine.export_session``,
+  ``adopt_session``, ``start_extract``; ``migrate.SessionMover`` moves a
+  session over the wire, the OPEN carrying a ``session`` document).
+  An export drains the windows in flight and parks the slot's table row
+  on the garbage block before the next window, so no captured window
+  writes into blocks that now belong to a handle.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import json
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -71,14 +90,21 @@ from vtpu_torch.ops.quant import (
     quantize_blockwise_int4,
 )
 from vtpu_torch.serving import wirecodec
-from vtpu_torch.serving.kvpool import BlockPool, KVHandle, PoolMismatchError
+from vtpu_torch.serving.kvpersist import PrefixStore
+from vtpu_torch.serving.kvpool import (
+    BlockPool,
+    KVHandle,
+    KVHandoffError,
+    PoolMismatchError,
+)
+from vtpu_torch.serving.migrate import SessionExport, SessionGoneError
 from vtpu_torch.serving.paged import PagedBatcher, pool_prefill, suffix_bucket
+from vtpu_torch.serving.prefix import chain_digests
 from vtpu_torch.serving.transport import WireError
+from vtpu_torch.utils.envs import env_bool, env_str
 
 __all__ = ["DecodeEngine", "HostExtract", "PrefillEngine",
            "PrefillResult", "pool_layout", "wire_leaves"]
-
-_NOT_YET = "comes with the prefix-registry, spill and session slice"
 
 
 def wire_leaves(layers: Sequence[dict]) -> List[torch.Tensor]:
@@ -129,10 +155,6 @@ class HostExtract:
         if codec in wirecodec.QUANT_CODECS:
             self.per_block += 4 * len(gathered)
         self._event = None
-        # only the real rows reach the host, never the pad rows
-        gathered = [t[:nblocks] for t in gathered]
-        if scales is not None:
-            scales = [s[:nblocks] for s in scales]
         if gathered and gathered[0].device.type == "cuda":
             self._host = [self._pinned_copy(t) for t in gathered]
             self._host_scales = ([self._pinned_copy(s) for s in scales]
@@ -185,8 +207,9 @@ class HostExtract:
 @dataclasses.dataclass(frozen=True)
 class PrefillResult:
     """One finished prefill: the first generated token and the claim
-    ticket for the K/V it wrote.  ``chain`` (the prompt's block digests)
-    stays empty until the prefix registry is ported."""
+    ticket for the K/V it wrote.  ``chain`` is the prompt's block digests
+    (prefix-cache runs only): it rides the handoff, so the decode side
+    registers the adopted prefix and later streams ship only suffixes."""
 
     rid: str
     first_token: int
@@ -199,7 +222,10 @@ class PrefillResult:
 @dataclasses.dataclass
 class _PendingAdopt:
     """A handle whose blocks are claimed but still waiting for a slot
-    (and, in copy mode, for destination blocks)."""
+    (and, in copy mode, for destination blocks).  ``tail`` is set for a
+    migrated session: its tokens so far, the slot resuming at ``seq_len``
+    with ``first == tail[-1]`` as the next step's input; ``frozen``
+    carries its EOS freeze."""
 
     rid: str
     blocks: List[int]     # claimed from the handle (ownership moved here)
@@ -209,6 +235,9 @@ class _PendingAdopt:
     mode: str             # "shared" | "copy" | "wire"
     source: object        # the source engine (copy mode), else None
     submitted: float
+    tail: Optional[List[int]] = None
+    frozen: bool = False
+    chain: Optional[List[str]] = None  # registered after adoption
 
 
 def _pow2(n: int) -> int:
@@ -260,17 +289,87 @@ def _make_wire_gathers() -> dict:
 
 
 def _extract_blocks(leaves, blocks, codec, gathers: dict) -> HostExtract:
-    """Gather (quantizing under int8/fp8/int4) and start the async D2H.
-    The block list is padded to a power of two with the garbage block 0,
-    as the JAX extract pads it to bound its compiled programs; the pad
-    rows are gathered on the device but never copied to the host or
-    shipped."""
-    blocks = list(blocks)
-    n = len(blocks)
-    idx = torch.as_tensor(blocks + [0] * (_pow2(n) - n),
-                          device=leaves[0].device).long()
+    """Gather exactly ``blocks`` (quantizing under int8/fp8/int4) and
+    start the async D2H.  The JAX extract pads the list to a power of two
+    to bound its compiled programs; eager PyTorch has none to bound, so
+    no pad row is gathered.  The caller fences the dispatch where a
+    donating program could race it (the prefill engine's lock)."""
+    idx = torch.as_tensor(list(blocks), device=leaves[0].device).long()
     gathered, scales = gathers[codec](leaves, idx)
-    return HostExtract(gathered, n, codec=codec, scales=scales)
+    return HostExtract(gathered, idx.numel(), codec=codec, scales=scales)
+
+
+def _leaf_meta(leaves) -> list:
+    """``[(n_elem, shape, dtype, itemsize)]`` of pool leaves in wire
+    order: a payload's parse input."""
+    return [(int(np.prod(t.shape[1:])), tuple(t.shape[1:]), t.dtype,
+             t.element_size()) for t in leaves]
+
+
+def _payload_bytes(meta, codec: str, nblocks: int) -> int:
+    """Bytes of an ``nblocks``-block payload under ``codec``
+    (``wirecodec.block_bytes`` times ``nblocks``)."""
+    if codec in wirecodec.QUANT_CODECS:
+        return sum(4 * nblocks + _quant_bytes(codec, n, nblocks)
+                   for n, *_ in meta)
+    return nblocks * sum(n * isz for n, _sh, _dt, isz in meta)
+
+
+def _quant_bytes(codec: str, n_elem: int, nblocks: int) -> int:
+    if codec == wirecodec.CODEC_INT4:
+        return nblocks * ((n_elem + 1) // 2)
+    return nblocks * n_elem
+
+
+def _segment(buf: torch.Tensor, off: int, nbytes: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    seg = buf[off:off + nbytes]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if off % itemsize:
+        seg = seg.clone()  # an unaligned view cannot change its type
+    return seg.view(dtype)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, codec: str,
+                n_elem: int, nblocks: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """One leaf's received bytes -> ``[nblocks, n_elem]`` in the pool's
+    dtype, as ``vtpu_torch.ops.quant``'s dequantizers compute it."""
+    s = scale.reshape(nblocks, 1)
+    if codec == wirecodec.CODEC_FP8:
+        return (_e4m3_to_f32(q.reshape(nblocks, n_elem)) * s).to(dtype)
+    if codec == wirecodec.CODEC_INT4:
+        packed = q.reshape(nblocks, (n_elem + 1) // 2)
+        nib = torch.stack([packed & 0x0F, packed >> 4], dim=-1)
+        u = nib.reshape(nblocks, -1)[:, :n_elem].to(torch.int8)
+        q = torch.where(u > 7, u - 16, u)
+    else:
+        q = q.view(torch.int8).reshape(nblocks, n_elem)
+    return dequantize_blockwise(q, s, dtype)
+
+
+def scatter_payload(leaves, meta, idx: torch.Tensor, buf: torch.Tensor,
+                    codec: str) -> None:
+    """Write a payload of ``idx.numel()`` blocks (wire layout, already on
+    the device as uint8 ``buf``) into rows ``idx`` of the pool
+    ``leaves``: raw bytes under fp32, else dequantized on the device
+    (int4: the nibble unpack too).  The wire chunk's and the spill
+    onload's scatter."""
+    nblocks = idx.numel()
+    off = 0
+    for leaf, (n_elem, shape, dtype, isz) in zip(leaves, meta):
+        if codec not in wirecodec.QUANT_CODECS:
+            nbytes = nblocks * n_elem * isz
+            src = _segment(buf, off, nbytes, dtype)
+            off += nbytes
+        else:
+            scale = _segment(buf, off, 4 * nblocks, torch.float32)
+            off += 4 * nblocks
+            nbytes = _quant_bytes(codec, n_elem, nblocks)
+            src = _dequantize(buf[off:off + nbytes], scale, codec, n_elem,
+                              nblocks, dtype)
+            off += nbytes
+        leaf.index_copy_(0, idx, src.reshape((nblocks,) + shape))
 
 
 def chunk_to_device(payload, device: torch.device) -> torch.Tensor:
@@ -293,7 +392,10 @@ class PrefillEngine:
     the cross-pool topology, one copy per handoff), or co-located with
     ``shared_with=<DecodeEngine>``, whose pool and cache leaves it writes
     in place (handoff is a bind).  Admission is head-of-line FIFO on
-    block backpressure, like the monolithic engine."""
+    block backpressure, like the monolithic engine.  ``prefix_cache``,
+    ``host_spill`` (``VTPU_KV_HOST_SPILL``; standalone pools only) and
+    ``persist_dir`` (``VTPU_KV_PERSIST_DIR``; needs the spill tier) as in
+    the module docstring."""
 
     def __init__(self, model: TransformerLM, *,
                  shared_with: Optional["DecodeEngine"] = None,
@@ -305,10 +407,6 @@ class PrefillEngine:
             raise ValueError(
                 "PrefillEngine needs kv_cache_layout='paged' and a real "
                 "pool (kv_pool_blocks > 1)")
-        if prefix_cache or host_spill or persist_dir:
-            raise NotImplementedError(
-                f"the prefill engine's prefix cache, host spill and "
-                f"persistence: {_NOT_YET}")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"the model lives on {model.device}, the "
@@ -335,8 +433,38 @@ class PrefillEngine:
         self.queue: collections.deque = collections.deque()
         self._rids: set = set()
         self.prefills = 0
-        self.prefix_cache = False
         self._wire_gathers = _make_wire_gathers()
+        self.prefix_cache = bool(prefix_cache) and self.pool.prefix_cap > 0
+        self.prefix_hits = 0
+        self.prefix_tokens_skipped = 0
+        # the host spill tier: a shared pool's decode engine keeps its
+        # prefixes in the one device pool, so spilling is standalone only
+        spill = (env_bool("VTPU_KV_HOST_SPILL", False)
+                 if host_spill is None else bool(host_spill))
+        self.host_spill = bool(spill and self._layers is not None
+                               and self.prefix_cache)
+        self._spill_codec = env_str("VTPU_KV_SPILL_CODEC",
+                                    wirecodec.CODEC_INT8)
+        if self._spill_codec not in wirecodec.QUANT_CODECS:
+            self._spill_codec = wirecodec.CODEC_INT8
+        self.spill_demotions = 0
+        self.spill_onloads = 0
+        self._spill_meta = None
+        pdir = (env_str("VTPU_KV_PERSIST_DIR", "") if persist_dir is None
+                else persist_dir)
+        self._persist = None
+        if pdir and self.host_spill:
+            self._persist = PrefixStore(pdir, sig=self._persist_sig())
+            meta = self._spill_leaf_meta()
+            for chain, payload, codec, bs in self._persist.load():
+                if (bs != self.block_size
+                        or codec not in wirecodec.QUANT_CODECS
+                        or len(payload) != _payload_bytes(meta, codec,
+                                                          len(chain))
+                        or len(chain) > self.pool.leasable()):
+                    continue  # foreign geometry, or never onloadable here
+                self.pool.rehydrate_spilled(chain, payload, codec)
+            self.pool.set_disk_blocks(self._persist.blocks_journaled)
 
     # -- wire transport (sender side) ----------------------------------
     def wire_layout(self) -> list:
@@ -366,6 +494,87 @@ class PrefillEngine:
             return self._host.cache["layers"]
         return self._layers
 
+    # -- the host spill tier ---------------------------------------------
+    def _spill_leaf_meta(self) -> list:
+        if self._spill_meta is None:
+            self._spill_meta = _leaf_meta(self.pool_leaves())
+        return self._spill_meta
+
+    def _persist_sig(self) -> str:
+        """The layout signature journaled with every run, as the JAX
+        engine computes it (``pool_layout`` is equal across the two
+        packages), so a journal of either package's engine rehydrates the
+        other's, and never one of another geometry."""
+        doc = {"layout": pool_layout(self.pool_leaves()),
+               "block_size": self.block_size}
+        return hashlib.sha256(
+            json.dumps(doc, sort_keys=True).encode()).hexdigest()[:16]
+
+    def _demote_for(self, need: int) -> bool:
+        """Lease pressure, demotion before eviction: gather and quantize
+        the least recently used maximal registered run into the host tier
+        (and the journal), drop its pins, until ``need`` blocks are free
+        or no candidate is left.  The D2H wait is deliberate: this runs
+        only when the pool is out of blocks."""
+        if not self.host_spill:
+            return False
+        progressed = False
+        while self.pool.free_blocks() < need:
+            cand = self.pool.demotion_candidate()
+            if cand is None:
+                break
+            chain, run = cand
+            ex = self.start_extract(run, codec=self._spill_codec)
+            payload = ex.payload(0, len(run))  # waits for the D2H
+            self.pool.store_spilled(chain, payload, self._spill_codec)
+            self.spill_demotions += 1
+            progressed = True
+            if self._persist is not None:
+                self._persist.append(chain, payload, self._spill_codec,
+                                     self.block_size)
+                self.pool.set_disk_blocks(self._persist.blocks_journaled)
+        return progressed and self.pool.free_blocks() >= need
+
+    def _maybe_onload(self, chain: List[str], max_blocks: int) -> None:
+        """A host-tier run deeper than the device registry's match: lease
+        blocks (demoting others if need be), scatter the dequantized
+        payload into them and register the chain, so the admission's
+        ``match_and_ref`` right after hits on the device.  Demotion, to
+        make room, never picks the run being onloaded (it is spilled, not
+        registered), so two runs cannot take turns evicting each other.
+        When no blocks can be had, the prompt prefills from scratch."""
+        if not self.host_spill or not chain:
+            return
+        hit = self.pool.match_spilled(chain, max_blocks)
+        if hit is None:
+            return
+        sub_chain, payload, codec, k = hit
+        if k <= self.pool.prefix_match_depth(chain, include_spilled=False):
+            return  # the device registry serves this depth already
+        if len(payload) != _payload_bytes(self._spill_leaf_meta(), codec, k):
+            return  # a corrupt host entry: recompute instead
+        blocks = self.pool.try_lease(k)
+        if blocks is None and self._demote_for(k):
+            blocks = self.pool.try_lease(k)
+        if blocks is None:
+            return
+        self._spill_scatter(blocks, payload, codec)
+        self.pool.register_prefix(sub_chain, blocks)
+        self.pool.release(blocks)  # the registry's pins keep them
+        self.spill_onloads += 1
+        self.pool.count(spill_onloads=1)
+
+    def _spill_scatter(self, blocks: List[int], payload: bytes,
+                       codec: str) -> None:
+        """The device half of an onload: the payload to the device in one
+        copy, dequantized there and written into exactly ``blocks`` (the
+        decode engine's wire scatter)."""
+        buf = chunk_to_device(payload, self.device)
+        idx = torch.as_tensor(blocks, device=self.device).long()
+        with self._dispatch_lock:
+            scatter_payload(self.pool_leaves(), self._spill_leaf_meta(),
+                            idx, buf, codec)
+
     # ------------------------------------------------------------------
     def _blocks_needed(self, prompt_len: int, num_new: int) -> int:
         # the lease covers prompt + decode budget, so the same blocks
@@ -374,8 +583,9 @@ class PrefillEngine:
 
     def submit(self, rid: str, prompt, num_new: int, *,
                chain: Optional[list] = None) -> None:
-        """Queue one prompt.  ``chain`` is ignored while the prefix cache
-        is off, as in the JAX engine."""
+        """Queue one prompt.  ``chain`` is an optional precomputed digest
+        chain (a router's, so the prompt is not hashed twice); ignored
+        while the prefix cache is off."""
         if num_new < 1:
             raise ValueError(f"num_new must be >= 1, got {num_new}")
         p = np.asarray(prompt, np.int32).reshape(-1)
@@ -391,48 +601,88 @@ class PrefillEngine:
         if rid in self._rids:
             raise ValueError(f"duplicate request id {rid!r}")
         self._rids.add(rid)
-        self.queue.append((rid, p, num_new, time.perf_counter()))
+        # matched at admission (the registry may grow while the prompt
+        # waits), registered after its prefill
+        if not self.prefix_cache:
+            chain = []
+        elif chain is None or len(chain) != p.size // self.block_size:
+            # absent, or of another block granularity: compute ours
+            chain = chain_digests(p.tolist(), self.block_size)
+        self.queue.append((rid, p, num_new, time.perf_counter(),
+                           list(chain)))
 
     def step(self) -> List[PrefillResult]:
         """One admission round: take as many queued prompts as the pool
         can lease (head-of-line FIFO), prefill them in one forward per
-        suffix-length bucket, and detach every lease into a handle.  The
-        first tokens are the only host materialization -- tokens, never
-        cache contents."""
+        suffix-length bucket, and detach every lease into a handle.  With
+        the prefix cache on, a prompt's matched blocks are referenced
+        (shared, never copied) and only its suffix prefills, from the
+        matched position.  The first tokens are the only host
+        materialization -- tokens, never cache contents."""
         taken: List[Tuple] = []
         while self.queue:
-            rid, p, num_new, t0 = self.queue[0]
-            # atomic check-and-lease: a co-located decode engine may be
-            # leasing from the same pool on another thread
-            blocks = self.pool.try_lease(self._blocks_needed(p.size, num_new))
+            rid, p, num_new, t0, chain = self.queue[0]
+            shared: List[int] = []
+            shared_tok = 0
+            if chain:
+                # leave >= 1 suffix token: admission needs its logits
+                max_blocks = (p.size - 1) // self.block_size
+                self._maybe_onload(chain, max_blocks)
+                shared, k = self.pool.match_and_ref(chain, max_blocks)
+                shared_tok = k * self.block_size
+            need = self._blocks_needed(p.size, num_new) - len(shared)
+            # atomic check-and-lease (a co-located decode engine may lease
+            # on another thread); under pressure demotion goes first, then
+            # registry entries yield their pins
+            blocks = self.pool.try_lease(need)
+            if blocks is None and self._demote_for(need):
+                blocks = self.pool.try_lease(need)
+            if blocks is None and self.pool.evict_prefixes_for(need):
+                blocks = self.pool.try_lease(need)
             if blocks is None:
+                if shared:
+                    self.pool.release(shared)  # un-ref the match
                 break  # the oldest waits for blocks; FIFO completion
+            # counted at admission: a retried head counts once
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_tokens_skipped += shared_tok
+                self.pool.count(prefix_hits=1)
+            elif chain:
+                self.pool.count(prefix_misses=1)
             self.queue.popleft()
-            taken.append((rid, p, num_new, t0, blocks))
+            taken.append((rid, p, num_new, t0, chain, shared + blocks,
+                          shared_tok))
         if not taken:
             return []
         by_bucket: Dict[int, list] = {}
         for item in taken:
             by_bucket.setdefault(
-                suffix_bucket(item[1].size, 0, self.model.max_seq,
+                suffix_bucket(item[1].size, item[6], self.model.max_seq,
                               self.bucket_prefill), []).append(item)
         out: List[PrefillResult] = []
         for blen, sub in by_bucket.items():
             n = len(sub)
             rows = []
-            for _rid, p, _n, _t0, blocks in sub:
+            for _rid, p, _n, _t0, _c, blocks, shared_tok in sub:
                 row = np.zeros((self.nb_max,), np.int32)
                 row[:len(blocks)] = blocks
-                rows.append((p, 0, row))
+                rows.append((p, shared_tok, row))
             with self._dispatch_lock:
                 firsts, _table = pool_prefill(
                     self.model, self._live_layers(), rows,
                     _pow2(n) if self.bucket_prefill else n, blen)
+            # registered once the forward is enqueued: a later matching
+            # prefill, behind it on the stream, reads written blocks
+            for _rid, _p, _n, _t0, chain, blocks, _st in sub:
+                if chain:
+                    self.pool.register_prefix(chain, blocks)
             vals = firsts.tolist()  # the first-token harvest
-            for (rid, p, num_new, t0, blocks), first in zip(sub, vals):
+            for (rid, p, num_new, t0, chain, blocks, _st), first in zip(
+                    sub, vals):
                 handle = self.pool.detach(blocks, seq_len=int(p.size))
                 out.append(PrefillResult(rid, int(first), handle, num_new,
-                                         t0))
+                                         t0, chain=tuple(chain)))
         self.prefills += len(out)
         return out
 
@@ -456,10 +706,11 @@ class PrefillEngine:
         return out
 
     def stats(self) -> dict:
-        return {"queued": len(self.queue), "prefills": self.prefills,
-                "prefix_hits": 0, "prefix_tokens_skipped": 0,
-                "spill_demotions": 0, "spill_onloads": 0,
-                **self.pool.stats()}
+        return {**self.pool.stats(), "queued": len(self.queue),
+                "prefills": self.prefills, "prefix_hits": self.prefix_hits,
+                "prefix_tokens_skipped": self.prefix_tokens_skipped,
+                "spill_demotions": self.spill_demotions,
+                "spill_onloads": self.spill_onloads}
 
 
 class DecodeEngine(PagedBatcher):
@@ -482,14 +733,24 @@ class DecodeEngine(PagedBatcher):
         self.wire_quant_max_scale = 0.0
         self.wire_quant_codec = wirecodec.CODEC_INT8
         self._wire_meta = None
+        # per slot, the device position of its first published token
+        # (cursor - (tokens - 1)): an export derives the cursor from it
+        # without a device read -- after the drain every harvested token
+        # advanced the slot by one
+        self._slot_base: Dict[int, int] = {}
+        # per slot, the prompt's chain when the handoff carried one: an
+        # export re-ships it, so the target can skip the matched prefix
+        # (decode writes land past the chain's full prompt blocks)
+        self._slot_chain: Dict[int, List[str]] = {}
+        # the sender half of a session move
+        self._wire_gathers = _make_wire_gathers()
 
     def ping(self) -> bool:
         return True
 
     # the router hands a prompt's digest chain only to replicas that
-    # declare they register it; this one cannot until the prefix
-    # registry is ported, so it adopts chain-less
-    accepts_chain = False
+    # declare they register it
+    accepts_chain = True
 
     # speculative reservations hold their slot against every other
     # admission until FIN binds it (or a rollback frees it)
@@ -515,10 +776,13 @@ class DecodeEngine(PagedBatcher):
         ``source`` is the engine owning the handle's pool when that is
         not this engine's own (copy mode).  ``admit=False`` defers the
         admission so that a batch of handles binds as one group; call
-        :meth:`admit_pending` after the batch."""
-        if chain:
-            raise NotImplementedError(
-                f"decode-side prefix adoption (a chain): {_NOT_YET}")
+        :meth:`admit_pending` after the batch.  ``chain`` (the prompt's
+        digests) registers the adopted prefix in this pool after the
+        bind, so later streams of sibling prompts and session moves ship
+        only their suffix; a chain of another block size is dropped."""
+        if chain and source is not None and getattr(
+                source, "block_size", None) != self.block_size:
+            chain = None  # another digest granularity: never register
         if num_new < 1:
             raise ValueError(f"num_new must be >= 1, got {num_new}")
         if handle.seq_len + num_new > self.model.max_seq:
@@ -542,9 +806,9 @@ class DecodeEngine(PagedBatcher):
             blocks = source.pool.adopt(handle)  # claim the src references
             mode, src = "copy", source
         self._rids.add(rid)
-        self.queue.append(_PendingAdopt(rid, blocks, handle.seq_len,
-                                        int(first_token), num_new, mode,
-                                        src, submitted))
+        self.queue.append(_PendingAdopt(
+            rid, blocks, handle.seq_len, int(first_token), num_new, mode,
+            src, submitted, chain=list(chain) if chain else None))
         if admit:
             self._admit_pending()
 
@@ -568,18 +832,131 @@ class DecodeEngine(PagedBatcher):
             return True
         return False
 
-    # -- session export and adoption come later ---------------------------
+    # -- live session export and adoption (migrate.py) -------------------
+    # A mover runs on this engine's driving thread, the wire sink's
+    # contract: the export's gather and the decode windows are ordered on
+    # the device by the order they were issued in.
     def exportable_sessions(self) -> List[str]:
-        raise NotImplementedError(f"session export: {_NOT_YET}")
+        """Rids a mover can export: live slots, and queued adoptions
+        whose blocks are in this pool (shared and wire; a copy entry's
+        claimed blocks are still the source's, so it finishes here)."""
+        live = [r for r in self.rid if r is not None]
+        queued = [pa.rid for pa in self.queue
+                  if isinstance(pa, _PendingAdopt)
+                  and pa.mode in ("shared", "wire")]
+        return live + queued
 
-    def export_session(self, rid: str):
-        raise NotImplementedError(f"session export: {_NOT_YET}")
+    def _export_pending(self, rid: str) -> SessionExport:
+        """Detach a queued adoption into an export: the record holds what
+        a slot would have published, and no device state exists yet."""
+        for i, pa in enumerate(self.queue):
+            if not isinstance(pa, _PendingAdopt) or pa.rid != rid:
+                continue
+            if pa.mode == "copy":
+                raise SessionGoneError(
+                    f"session {rid!r} is a cross-pool pending adoption "
+                    f"on replica {self.replica_id}; it finishes in place")
+            del self.queue[i]
+            tail = [int(t) for t in
+                    (pa.tail if pa.tail is not None else [pa.first])]
+            chain = tuple(pa.chain or self.pool.digests_for_run(pa.blocks))
+            handle = self.pool.detach(pa.blocks, seq_len=int(pa.seq_len))
+            self._rids.discard(rid)
+            frozen = pa.frozen or (self.eos_id is not None
+                                   and pa.first == self.eos_id)
+            return SessionExport(
+                rid=rid, handle=handle, cursor=int(pa.seq_len),
+                tail=tuple(tail), remaining=int(pa.num_new) - 1,
+                frozen=frozen, chain=chain, block_size=self.block_size)
+        raise SessionGoneError(
+            f"session {rid!r} is not live on replica {self.replica_id} "
+            f"(finished, mid-stream, or never here)")
 
-    def adopt_session(self, export, *, blocks=None, submitted=0.0):
-        raise NotImplementedError(f"session adoption: {_NOT_YET}")
+    def _retire_rows(self, slots: List[int]) -> None:
+        for slot in slots:
+            self._slot_base.pop(slot, None)
+            self._slot_chain.pop(slot, None)
+        super()._retire_rows(slots)
 
-    def start_extract(self, blocks, codec: str = wirecodec.CODEC_FP32):
-        raise NotImplementedError(f"session export streams: {_NOT_YET}")
+    def export_session(self, rid: str) -> SessionExport:
+        """Detach a live slot into a :class:`~vtpu_torch.serving.migrate.
+        SessionExport`: drain the windows in flight, take the cursor,
+        tail and budget, detach the blocks into a one-adoption handle and
+        free the slot.  The slot's table row goes to the garbage block and
+        its position to 0 in place, before any later window: a captured
+        window keeps running the now inactive row, and must not write into
+        blocks that belong to the handle.  Raises
+        :class:`~vtpu_torch.serving.migrate.SessionGoneError` when the rid
+        finished during the drain."""
+        while self._inflight:
+            self._harvest_oldest()
+        self._flush_first_tokens()
+        slot = next((i for i in range(self.max_batch)
+                     if self.rid[i] == rid), None)
+        if slot is None:
+            return self._export_pending(rid)
+        tail = [int(t) for t in self.out[rid]]
+        cursor = self._slot_base.pop(slot) + len(tail) - 1
+        remaining = int(self.remaining[slot])
+        frozen = bool(self.done_frozen[slot])
+        blocks = self._slot_blocks.pop(slot)
+        chain = tuple(self._slot_chain.pop(slot, None)
+                      or self.pool.digests_for_run(blocks))
+        handle = self.pool.detach(blocks, seq_len=cursor)
+        # the slot's references moved into the handle: free the slot
+        # without releasing them
+        self.active[slot] = False
+        self.rid[slot] = None
+        self.done_frozen[slot] = False
+        self.remaining[slot] = 0
+        self._rids.discard(rid)
+        del self.out[rid]
+        idx = torch.as_tensor([slot], device=self.device).long()
+        zero = torch.zeros((1, self.nb_max), dtype=torch.int32,
+                           device=self.device)
+        self.cache["block_table"].index_copy_(0, idx, zero)
+        self.cache["pos"].index_copy_(0, idx, zero[:, 0])
+        return SessionExport(rid=rid, handle=handle, cursor=cursor,
+                             tail=tuple(tail), remaining=remaining,
+                             frozen=frozen, chain=chain,
+                             block_size=self.block_size)
+
+    def adopt_session(self, export: SessionExport, *,
+                      blocks: Optional[List[int]] = None,
+                      submitted: float = 0.0) -> None:
+        """Adopt a same-pool export: a failed move's restore, or a move
+        between engines on one pool.  ``blocks`` is a claim the caller
+        already took from the handle; else the handle is claimed here (a
+        stale stamp fails).  The slot opens at the cursor with
+        ``tail[-1]`` as its next input, through the bind's in-place
+        writes.  A cross-pool export adopts over the wire instead."""
+        if export.rid in self._rids:
+            raise KVHandoffError(f"duplicate request id {export.rid!r}")
+        if not export.tail:
+            raise KVHandoffError(
+                f"session export for {export.rid!r} has an empty tail")
+        if export.cursor + export.remaining + 1 > self.model.max_seq:
+            raise ValueError(
+                f"cursor ({export.cursor}) + remaining ({export.remaining}) "
+                f"exceeds max_seq ({self.model.max_seq})")
+        if blocks is None:
+            blocks = self.pool.adopt(export.handle)  # StaleHandleError
+        self._rids.add(export.rid)
+        self.queue.append(_PendingAdopt(
+            export.rid, list(blocks), int(export.cursor),
+            int(export.tail[-1]), int(export.remaining) + 1, "shared",
+            None, submitted, tail=[int(t) for t in export.tail],
+            frozen=bool(export.frozen)))
+        self._admit_pending()
+
+    def start_extract(self, blocks,
+                      codec: str = wirecodec.CODEC_FP32) -> HostExtract:
+        """Async D2H of exported blocks: the sender half of a session
+        move.  Runs on the engine's driving thread, so the gather is
+        ordered after the windows before it; detached blocks are never
+        written again, so the live pool is the right one to read."""
+        return _extract_blocks(wire_leaves(self.cache["layers"]), blocks,
+                               codec, self._wire_gathers)
 
     # -- wire transport (receiver sink) --------------------------------
     # The ReceiverHub drives these: open pre-leases destination blocks
@@ -610,9 +987,6 @@ class DecodeEngine(PagedBatcher):
             raise PoolMismatchError(
                 "handle needs more blocks than this pool can ever lease")
         if meta is not None:
-            if meta.get("session") is not None or meta.get("chain"):
-                raise NotImplementedError(
-                    f"suffix-only and session streams: {_NOT_YET}")
             try:
                 seq_len = int(meta["handle"]["seq_len"])
                 num_new = int(meta.get("num_new", 1))
@@ -623,18 +997,34 @@ class DecodeEngine(PagedBatcher):
                     raise WireError(
                         f"seq_len ({seq_len}) + num_new ({num_new}) "
                         f"exceeds max_seq ({self.model.max_seq})")
-        dst = self.pool.lease_upto(total_blocks)
+        # suffix-only: the OPEN's chain (a plain handoff's or a session's)
+        # against this pool's registry; every matched leading block is
+        # referenced for the stream instead of shipped, and the count
+        # rides the OPEN answer.  A chain of another granularity never
+        # matches; at least one block always streams (its FIN adopts)
+        sess = (meta or {}).get("session")
+        shared: List[int] = []
+        skip = 0
+        chain = ((sess or {}).get("chain") or (meta or {}).get("chain")
+                 or [])
+        if chain and total_blocks > 1:
+            shared, skip = self.pool.match_and_ref(
+                chain, min(len(chain), total_blocks - 1))
+        dst = self.pool.lease_upto(total_blocks - skip)
         if not dst:
+            if shared:
+                self.pool.release(shared)
             return None  # saturated: credits 0, the router backs off
         self._rids.add(rid)
-        ctx = {"rid": rid, "dst": dst, "total": total_blocks,
+        ctx = {"rid": rid, "dst": dst, "total": total_blocks - skip,
                "chunk_blocks": int(chunk_blocks), "written": 0,
                "closed": False, "codec": str(codec), "slot": None,
+               "skip": skip, "shared": shared,
                "opened": time.perf_counter()}
         # speculative adoption: reserve a free slot and publish the
-        # prefill's first token now.  Device state is untouched until FIN
-        # (the slot stays inactive, its row on the garbage block), so a
-        # rollback is host work only.
+        # prefill's first token (a session: its whole tail) now.  Device
+        # state is untouched until FIN (the slot stays inactive, its row
+        # on the garbage block), so a rollback is host work only.
         if self.speculative and meta is not None:
             try:
                 first = int(meta["first"])
@@ -645,7 +1035,11 @@ class DecodeEngine(PagedBatcher):
                 if slot is not None:
                     self._spec_slots[slot] = rid
                     ctx["slot"] = slot
-                    self.out[rid] = [first]
+                    try:
+                        self.out[rid] = ([int(t) for t in sess["tail"]]
+                                         if sess else [first])
+                    except (KeyError, TypeError, ValueError):
+                        self.out[rid] = [first]  # malformed: FIN decides
                     self.pool.count(spec_adoptions=1)
         return ctx
 
@@ -662,20 +1056,8 @@ class DecodeEngine(PagedBatcher):
         """``[(n_elem, shape, torch dtype, itemsize)]`` of the pool
         leaves in wire order, fixed for the engine's life."""
         if self._wire_meta is None:
-            self._wire_meta = [
-                (int(np.prod(leaf.shape[1:])), tuple(leaf.shape[1:]),
-                 leaf.dtype, leaf.element_size())
-                for leaf in wire_leaves(self.cache["layers"])]
+            self._wire_meta = _leaf_meta(wire_leaves(self.cache["layers"]))
         return self._wire_meta
-
-    @staticmethod
-    def _segment(buf: torch.Tensor, off: int, nbytes: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-        seg = buf[off:off + nbytes]
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        if off % itemsize:
-            seg = seg.clone()  # an unaligned view cannot change its type
-        return seg.view(dtype)
 
     def wire_write(self, ctx, block_off: int, nblocks: int,
                    payload) -> None:
@@ -687,88 +1069,53 @@ class DecodeEngine(PagedBatcher):
         codec = ctx.get("codec")
         meta = self._wire_leaf_meta()
         buf = memoryview(payload)
-        quant = codec in wirecodec.QUANT_CODECS
-        if quant:
-            expect = sum(4 * nblocks + self._quant_bytes(codec, n, nblocks)
-                         for n, *_ in meta)
-        else:
-            expect = nblocks * sum(n * isz for n, _sh, _dt, isz in meta)
+        expect = _payload_bytes(meta, codec, nblocks)
         if len(buf) != expect:
             raise ValueError(
                 f"{codec} chunk payload {len(buf)} bytes != expected "
                 f"{expect} (truncated scale or data segment)")
         # the scales are read on the host from the bytes already there:
-        # the error bound's input, before any padding
-        if quant:
+        # the error bound's input
+        if codec in wirecodec.QUANT_CODECS:
             off = 0
-            for n_elem, _shape, _dt, _isz in meta:
+            for n_elem, *_ in meta:
                 scales = np.frombuffer(buf[off:off + 4 * nblocks], "<f4")
                 if scales.size:
                     self.wire_quant_max_scale = max(
                         self.wire_quant_max_scale, float(scales.max()))
-                off += 4 * nblocks + self._quant_bytes(codec, n_elem,
-                                                       nblocks)
+                off += 4 * nblocks + _quant_bytes(codec, n_elem, nblocks)
             self.wire_quant_codec = codec
-        dev = chunk_to_device(buf, self.device)
         idx = torch.as_tensor(ctx["dst"][block_off:block_off + nblocks],
                               device=self.device).long()
-        off = 0
-        for leaf, (n_elem, shape, dtype, isz) in zip(
-                wire_leaves(self.cache["layers"]), meta):
-            if not quant:
-                nbytes = nblocks * n_elem * isz
-                src = self._segment(dev, off, nbytes, dtype)
-                off += nbytes
-            else:
-                scale = self._segment(dev, off, 4 * nblocks, torch.float32)
-                off += 4 * nblocks
-                nbytes = self._quant_bytes(codec, n_elem, nblocks)
-                q = dev[off:off + nbytes]
-                off += nbytes
-                src = self._dequantize(q, scale, codec, n_elem, nblocks,
-                                       dtype)
-            leaf.index_copy_(0, idx, src.reshape((nblocks,) + shape))
+        scatter_payload(wire_leaves(self.cache["layers"]), meta, idx,
+                        chunk_to_device(buf, self.device), codec)
         self.pool.count(handoff_host_bytes=len(buf))
         ctx["written"] = block_off + nblocks
 
-    @staticmethod
-    def _quant_bytes(codec: str, n_elem: int, nblocks: int) -> int:
-        if codec == wirecodec.CODEC_INT4:
-            return nblocks * ((n_elem + 1) // 2)
-        return nblocks * n_elem
-
-    @staticmethod
-    def _dequantize(q: torch.Tensor, scale: torch.Tensor, codec: str,
-                    n_elem: int, nblocks: int,
-                    dtype: torch.dtype) -> torch.Tensor:
-        """One leaf's received bytes -> ``[nblocks, n_elem]`` in the
-        pool's dtype, as ``vtpu_torch.ops.quant``'s dequantizers compute
-        it."""
-        s = scale.reshape(nblocks, 1)
-        if codec == wirecodec.CODEC_FP8:
-            return (_e4m3_to_f32(q.reshape(nblocks, n_elem)) * s).to(dtype)
-        if codec == wirecodec.CODEC_INT4:
-            packed = q.reshape(nblocks, (n_elem + 1) // 2)
-            nib = torch.stack([packed & 0x0F, packed >> 4], dim=-1)
-            u = nib.reshape(nblocks, -1)[:, :n_elem].to(torch.int8)
-            q = torch.where(u > 7, u - 16, u)
-        else:
-            q = q.view(torch.int8).reshape(nblocks, n_elem)
-        return dequantize_blockwise(q, s, dtype)
-
     def _wire_release(self, ctx) -> None:
-        """Release the blocks a stream's ctx pre-leased."""
-        if ctx["dst"]:
-            self.pool.release(ctx["dst"])
+        """Release every reference a stream's ctx holds: its pre-leased
+        blocks and the registry-matched prefix of a suffix-only OPEN."""
+        blocks = list(ctx.get("shared") or []) + list(ctx["dst"])
+        if blocks:
+            self.pool.release(blocks)
 
     def wire_finish(self, ctx, meta: dict) -> None:
         ctx["closed"] = True
         ctx["finished"] = time.perf_counter()
+        sess = (meta or {}).get("session")
         try:
             seq_len = int(meta["handle"]["seq_len"])
             first = int(meta.get("first", 0))
             num_new = int(meta.get("num_new", 1))
             submitted = float(meta.get("submitted", 0.0))
+            tail = None
+            frozen = False
+            if sess is not None:
+                tail = [int(t) for t in sess["tail"]]
+                if not tail:
+                    raise ValueError("empty session tail")
+                frozen = bool(sess.get("done"))
+                first = tail[-1]  # the next decode step's input token
         except (KeyError, TypeError, ValueError) as e:
             self._spec_rollback(ctx)
             self._wire_release(ctx)
@@ -782,9 +1129,19 @@ class DecodeEngine(PagedBatcher):
             raise WireError(
                 f"seq_len ({seq_len}) + num_new ({num_new}) exceeds "
                 f"max_seq ({self.model.max_seq})")
-        blocks = list(ctx["dst"])
-        pa = _PendingAdopt(ctx["rid"], blocks, seq_len, first, num_new,
-                           "wire", None, submitted)
+        # the matched prefix, then the streamed blocks, in table order;
+        # the shared references now belong to the slot
+        blocks = list(ctx.get("shared") or []) + list(ctx["dst"])
+        doc = sess if sess is not None else meta
+        chain = doc.get("chain") or []
+        # an absent or zero granularity never registers: an unattested
+        # chain could name the wrong token spans
+        bs = int(doc.get("chain_bs", 0) or 0)
+        pa = _PendingAdopt(
+            ctx["rid"], blocks, seq_len, first, num_new, "wire", None,
+            submitted, tail=tail, frozen=frozen,
+            chain=(list(chain)[:len(blocks)]
+                   if chain and bs == self.block_size else None))
         slot = ctx.get("slot")
         with self._spec_lock:
             reserved = (slot is not None
@@ -864,14 +1221,23 @@ class DecodeEngine(PagedBatcher):
         for sub in by_src.values():
             self._copy_rows(sub)
         # host bookkeeping: the first token is a known int (the prefill
-        # harvested it as a token; cache contents never reach the host)
-        for slot, pa, _dst in group:
+        # harvested it as a token; cache contents never reach the host).
+        # A migrated session resumes its whole transcript and EOS state.
+        for slot, pa, dst in group:
+            tail = pa.tail if pa.tail is not None else [pa.first]
             self.rid[slot] = pa.rid
-            self.out[pa.rid] = [pa.first]
+            self.out[pa.rid] = list(tail)
             self.active[slot] = True
-            self.done_frozen[slot] = (self.eos_id is not None
-                                      and pa.first == self.eos_id)
+            self.done_frozen[slot] = pa.frozen or (
+                self.eos_id is not None and pa.first == self.eos_id)
             self.remaining[slot] = pa.num_new - 1
+            self._slot_base[slot] = pa.seq_len - (len(tail) - 1)
+            self._slot_chain.pop(slot, None)
+            if pa.chain:
+                # decode-side prefix adoption (the bind or copy is
+                # enqueued above, so later readers see written blocks)
+                self.pool.register_prefix(pa.chain[:len(dst)], dst)
+                self._slot_chain[slot] = list(pa.chain)
             self._maybe_retire(slot)
 
     def _bind_rows(self, entries) -> None:
@@ -922,4 +1288,3 @@ class DecodeEngine(PagedBatcher):
         out["slots_active_ratio"] = out["active_slots"] / max(
             1, self.max_batch)
         return out
-

@@ -165,7 +165,8 @@ class ReplicaSaturatedError(WireError):
 
 
 # typed-error round trip over non-raising links (HTTP): the server maps
-# a WireError to its class name, the client maps the name back
+# a WireError to its class name, the client maps the name back (the
+# session mover's errors join the table: vtpu_torch/serving/migrate.py)
 _ERROR_TYPES: Dict[str, type] = {
     cls.__name__: cls
     for cls in (
