@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving and training paths, its
-ai-benchmark rows and its four-tenant share run on one NVIDIA GPU.
+"""Drive the PyTorch port's paged and dense serving, generate and
+training paths, its ai-benchmark rows and its four-tenant share run on
+one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, full width (one card)
 
@@ -126,10 +127,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    arm a line: the share of tokens equal to the serve phase's
    (information: a different admission grouping rounds bf16
    differently), the adopted blocks' largest error against their source
-   beside ``error_bound(wire_quant_max_scale, codec)`` (required within;
-   and each block within its own scale's bound plus half a pool-dtype
-   ulp of the value; fp32 exact; the rows are copied on the device at
-   FIN and compared after the run, outside its timing), blocks
+   beside ``error_bound(wire_quant_max_scale, codec)`` plus half a bf16
+   ulp of the largest adopted value, the pool's own rounding
+   (``wire_error_bound``; required within; and each block within its own
+   scale's bound plus half a pool-dtype ulp of the value; fp32 exact;
+   the rows are copied on the device at FIN and compared after the run,
+   outside its timing), blocks
    leaked on each pool (required 0), handoff host bytes (required 0 but
    on the wire), wire bytes a request, handoff ms a request (device copy
    or bind by CUDA events; wire_open to FIN by the host clock), TTFT
@@ -154,7 +157,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    payload's dequantization bit for bit and within its own block's bound
    of the block demoted, and a fresh engine on the journal rehydrating
    and onloading on its first revisit; demote and onload host ms a run.
-   Every arm's LN and paged-decode launches at the serve phase's bounds.
+   Every arm's LN and paged-decode launches at the serve phase's bounds;
+12. (after phase 4) the dense layout: the serve configuration and
+   weights cloned to ``kv_cache_layout="dense"`` (the reference's
+   default) through ``ContinuousBatcher(max_batch=8)`` on native and int8
+   caches, the serve lines' metrics (``dense_serve``), LN at its bound a
+   forward, no paged launch, replayed windows > 0, every request
+   finished, memory released; at depth 2, f32, on both caches, the dense
+   engine's tokens equal PagedBatcher's, the dense ``generate`` of each
+   prompt alone and its own eager windows', and speculative decoding (a
+   paged dense-equivalent target, a depth-1 draft of its first block)
+   equals the target's greedy ``generate``; then at full width, bf16, on
+   two prompts: sampled ``generate`` (temperature 0.8, top_k 50, a
+   generator seeded on the card; ``top_k=1`` must give the greedy tokens
+   and every draw must lie in its step's top 50), ``generate_beam``
+   (beam 4) and ``generate_speculative`` (k 4, the paged dense-equivalent
+   target, a depth-2 draft of its first two blocks, ln_f and head:
+   verify forwards, acceptance, and the share of tokens equal to greedy
+   as information), with the phase's launches (the draft's one-token
+   steps must launch the paged kernel).
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -747,20 +768,24 @@ def read_counts() -> dict:
 
 
 def serve(model, reqs, *, count: bool, decode_graph: str = "auto"):
-    """Serve ``reqs`` (all submitted at t=0) on a fresh PagedBatcher
-    whose decode windows are CUDA graphs (``decode_graph="auto"``) or
-    eager.  Returns (outputs, metrics).  With ``count``, the kernels'
-    launch counts are zeroed just before and read just after: a replay
-    adds the launches its graph holds.  The engine and its graphs are
-    released before returning."""
+    """Serve ``reqs`` (all submitted at t=0) on a fresh PagedBatcher (a
+    paged model) or ContinuousBatcher (a dense one) whose decode windows
+    are CUDA graphs (``decode_graph="auto"``) or eager.  Returns
+    (outputs, metrics).  With ``count``, the kernels' launch counts are
+    zeroed just before and read just after: a replay adds the launches
+    its graph holds.  The engine and its graphs are released before
+    returning."""
     import torch
 
+    from vtpu_torch.serving.batcher import ContinuousBatcher
     from vtpu_torch.serving.paged import PagedBatcher
 
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
-    eng = PagedBatcher(model, max_batch=8, decode_graph=decode_graph)
-    free0 = eng.pool_stats()["free"]
+    paged = model.kv_cache_layout == "paged"
+    eng = (PagedBatcher if paged else ContinuousBatcher)(
+        model, max_batch=8, decode_graph=decode_graph)
+    free0 = eng.pool_stats()["free"] if paged else None
     # forwards outside the decode windows (admission), by a hook; a
     # window makes one forward a step, which a replay runs without Python
     prefill_forwards, in_window = [0], [False]
@@ -822,7 +847,8 @@ def serve(model, reqs, *, count: bool, decode_graph: str = "auto"):
     metrics = dict(
         requests=len(reqs), finished=sum(
             len(out.get(rid, [])) == n for rid, _p, n in reqs),
-        pool_free_before=free0, pool_free_after=eng.pool_stats()["free"],
+        pool_free_before=free0,
+        pool_free_after=eng.pool_stats()["free"] if paged else None,
         decode_steps=eng.steps, forwards=prefill_forwards[0] + eng.steps,
         wall_s=wall, tokens=sum(len(t) for t in out.values()),
         tokens_per_s=sum(len(t) for t in out.values()) / wall,
@@ -889,8 +915,7 @@ def serve_phase(card: str, seed: int):
               f"{pool}: the engine kept {met['mem_left_after_release_gb']} "
               f"GB after release")
         results[pool] = out
-        for k, v in c.items():
-            launches[k] = launches.get(k, 0) + v
+        tally(launches, c)
     return model, reqs, results, launches
 
 
@@ -985,6 +1010,215 @@ def exactness_phase(card: str, seed: int, model_bf16, reqs, kernel_out):
          agree_share=sum(x == y for x, y in pairs) / len(pairs),
          note="information only: bf16 rounds differently on the two paths",
          card=card)
+
+
+# -- phase 12: the dense layout and the generate entries --------------------
+GEN_NEW = 32                       # new tokens of every generate arm
+
+
+def tally(into: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        into[k] = into.get(k, 0) + v
+
+
+def dense_serve_phase(card: str, model, reqs) -> dict:
+    """The serve configuration and weights cloned to the dense layout
+    (the reference's default) through ContinuousBatcher(max_batch=8) on
+    both cache dtypes: the serve lines' metrics, with LN at its bound a
+    forward, no paged launch, replayed windows and every request
+    finished.  Returns the launches."""
+    import torch
+
+    depth, launches = model.depth, {}
+    for cache in ("native", "int8"):
+        m = model.clone(kv_cache_layout="dense", kv_cache_dtype=cache)
+        torch.cuda.reset_peak_memory_stats()
+        _out, met = serve(m, reqs, count=True)
+        emit(phase="dense_serve", layout="dense", cache=cache,
+             reduced=REDUCED, card=card, **met)
+        c = met["launches"]
+        what = f"dense {cache}"
+        check(met["finished"] == len(reqs), f"{what}: unfinished requests")
+        check(c["fused_layernorm"] >= (2 * depth + 1) * met["forwards"] > 0,
+              f"{what}: layernorm launches {c['fused_layernorm']} for "
+              f"{met['forwards']} forwards")
+        check(c["paged_decode"] == 0 and c["paged_decode_q8"] == 0,
+              f"{what}: a dense engine launched the paged kernel")
+        check(met["replayed_windows"] > 0 and met["decode_graphs"],
+              f"{what}: no decode window was a graph replay")
+        check(met["mem_left_after_release_gb"] < 0.5,
+              f"{what}: the engine kept {met['mem_left_after_release_gb']} "
+              f"GB after release")
+        tally(launches, c)
+        del m
+    return launches
+
+
+def draft_of(target, depth: int):
+    """A draft of the target's widths at ``depth``: the target's first
+    ``depth`` blocks, embeddings, ln_f and head (the same tensors)."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+
+    knobs = ("vocab", "d_model", "num_heads", "max_seq", "num_kv_heads",
+             "pos_embedding", "attn_window", "kv_cache_dtype",
+             "kv_cache_layout", "kv_block_size", "kv_pool_blocks")
+    draft = TransformerLM(**{k: getattr(target, k) for k in knobs},
+                          depth=depth, device="cuda", dtype=target.dtype)
+    draft.wte, draft.ln_f, draft.lm_head = (target.wte, target.ln_f,
+                                            target.lm_head)
+    if target.pos_embedding == "learned":
+        draft.wpe = target.wpe
+    draft.h = torch.nn.ModuleList(list(target.h)[:depth])
+    return draft
+
+
+def gen_prompts(reqs, n: int = 2):
+    """The first ``n`` requests' prompts cut to their common length."""
+    import numpy as np
+
+    length = min(len(p) for _r, p, _n in reqs[:n])
+    return np.stack([p[:length] for _r, p, _n in reqs[:n]])
+
+
+def dense_exactness_phase(card: str, seed: int, reqs) -> None:
+    """Depth 2, f32, both cache dtypes: the dense engine's tokens equal
+    PagedBatcher's, the dense ``generate`` of each prompt alone, and its
+    own eager windows'; speculative decoding on a paged dense-equivalent
+    target (a depth-1 draft of its first block) equals the target's
+    greedy ``generate``."""
+    import torch
+
+    from vtpu_torch.models.transformer import (
+        TransformerLM,
+        generate,
+        generate_speculative,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    small = TransformerLM(**dict(FULL, depth=2), device="cuda",
+                          dtype=torch.float32, generator=gen)
+    for cache in ("native", "int8"):
+        paged = small.clone(kv_cache_dtype=cache)
+        dense = paged.clone(kv_cache_layout="dense")
+        graphed, _ = serve(dense, reqs, count=False)
+        eager, _ = serve(dense, reqs, count=False, decode_graph="off")
+        pool, _ = serve(paged, reqs, count=False)
+        solo = {rid: generate(dense, p[None], n)[0].tolist()
+                for rid, p, n in reqs}
+        same = {name: all(graphed[rid] == other[rid] for rid, *_ in reqs)
+                for name, other in (("paged", pool), ("generate", solo),
+                                    ("eager", eager))}
+        emit(phase="dense_exactness", depth=2, dtype="float32", cache=cache,
+             requests=len(reqs), dense_equals_paged=same["paged"],
+             dense_equals_generate=same["generate"],
+             graphed_equals_eager=same["eager"], card=card)
+        for name, ok in same.items():
+            check(ok, f"f32 dense {cache}: engine tokens differ from "
+                      f"{name}")
+    target = small.clone(kv_pool_blocks=0)
+    prompts = gen_prompts(reqs)
+    spec, stats = generate_speculative(target, draft_of(target, 1), prompts,
+                                       GEN_NEW, k=4, return_stats=True)
+    greedy = generate(target, prompts, GEN_NEW)
+    emit(phase="speculative_exactness", depth=2, draft_depth=1, k=4,
+         dtype="float32", layout="paged", kv_pool_blocks=0,
+         prompts=list(prompts.shape), equals_greedy=torch.equal(spec, greedy),
+         verify_forwards=stats["verify_forwards"], card=card)
+    check(torch.equal(spec, greedy),
+          "f32 speculative tokens differ from the target's greedy decode")
+    del small, paged, dense, target
+    torch.cuda.empty_cache()
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn`` ended by a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def generate_phase(card: str, model, reqs, seed: int) -> dict:
+    """The generate entries at full width in bf16 on two prompts: sampled
+    (temperature 0.8, top_k 50, a generator seeded on the card), beam 4,
+    and speculative (k 4) on the paged dense-equivalent target with a
+    depth-2 draft of its first two blocks.  Returns the launches of the
+    whole phase (the speculative steps launch the paged kernel)."""
+    import torch
+
+    from vtpu_torch.models.transformer import (
+        generate,
+        generate_beam,
+        generate_speculative,
+    )
+
+    prompts = gen_prompts(reqs)
+    dense = model.clone(kv_cache_layout="dense")
+    zero_counts()
+    greedy, greedy_s = timed(lambda: generate(dense, prompts, GEN_NEW))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sampled, sampled_s = timed(lambda: generate(
+        dense, prompts, GEN_NEW, temperature=0.8, top_k=50, generator=gen))
+    top1 = generate(dense, prompts, GEN_NEW, temperature=0.8, top_k=1,
+                    generator=gen)
+    # the logits each sampled token was drawn from, by the same forwards
+    cache = dense.init_cache(prompts.shape[0])
+    with torch.no_grad():
+        steps = [dense(torch.as_tensor(prompts, device="cuda"),
+                       cache)[:, -1]]
+        for t in range(GEN_NEW - 1):
+            steps.append(dense(sampled[:, t:t + 1], cache)[:, -1])
+    scaled = torch.stack(steps, dim=1) / 0.8
+    kth = torch.topk(scaled, 50, dim=-1).values[..., -1]
+    in_top = bool((scaled.gather(-1, sampled.long()[..., None])[..., 0]
+                   >= kth).all())
+    emit(phase="generate_sampled", layout="dense", dtype="bfloat16",
+         prompts=list(prompts.shape), new=GEN_NEW, temperature=0.8,
+         top_k=50, seconds=sampled_s, greedy_seconds=greedy_s,
+         tokens_per_s=sampled.numel() / sampled_s,
+         top_k_1_equals_greedy=torch.equal(top1, greedy),
+         every_token_in_top_k=in_top,
+         equal_to_greedy_share=float((sampled == greedy).float().mean()),
+         card=card)
+    check(torch.equal(top1, greedy), "sampling at top_k=1 is not greedy")
+    check(in_top, "a sampled token lies outside its step's top 50")
+    beams, beam_s = timed(lambda: generate_beam(dense, prompts, GEN_NEW,
+                                                beam=4))
+    emit(phase="generate_beam", layout="dense", dtype="bfloat16", beam=4,
+         prompts=list(prompts.shape), new=GEN_NEW, seconds=beam_s,
+         equal_to_greedy_share=float((beams == greedy).float().mean()),
+         card=card)
+    check(beams.shape == greedy.shape and bool(
+        ((beams >= 0) & (beams < model.vocab)).all()), "beam output")
+    del dense
+    target = model.clone(kv_pool_blocks=0)
+    draft = draft_of(target, 2)
+    (spec, stats), spec_s = timed(lambda: generate_speculative(
+        target, draft, prompts, GEN_NEW, k=4, return_stats=True))
+    tgreedy, tgreedy_s = timed(lambda: generate(target, prompts, GEN_NEW))
+    vf = stats["verify_forwards"]
+    counts = read_counts()
+    emit(phase="generate_speculative", layout="paged", kv_pool_blocks=0,
+         dtype="bfloat16", k=4, draft_depth=2, prompts=list(prompts.shape),
+         new=GEN_NEW, seconds=spec_s, greedy_seconds=tgreedy_s,
+         verify_forwards=vf,
+         # drafts kept over drafts proposed (the last round's cut aside)
+         draft_acceptance=(GEN_NEW - 1 - vf) / (4 * vf),
+         equal_to_greedy_share=float((spec == tgreedy).float().mean()),
+         agree_note="information only at bf16: the (k+1)-token verify "
+                    "rounds differently from one-token steps",
+         launches=counts, card=card)
+    check(counts["paged_decode"] > 0,
+          "the speculative steps launched no paged kernel")
+    check(counts["fused_layernorm"] > 0, "no layernorm launch")
+    del target, draft
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase 6: the training path at full width ----------------------------
@@ -1710,7 +1944,6 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
     import torch
 
     from vtpu_torch.serving import transport as ttp
-    from vtpu_torch.serving import wirecodec
     from vtpu_torch.serving.disagg import (
         DecodeEngine,
         PrefillEngine,
@@ -1831,12 +2064,16 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
     wall = time.perf_counter() - t0
     counts = read_counts() if count else None
     hook.remove()
-    # the largest error, and the largest over its own block's bound
-    err, err_ratio = 0.0, None
+    # the largest error, the largest over its own block's bound, and the
+    # largest adopted value (the pool's rounding of it is in the bound)
+    err, err_ratio, top = 0.0, None, 0.0
     for sb, db in snap:
         e, r = block_error(sb[:snap_at[0]], db[:snap_at[0]], codec)
         err = max(err, e)
         err_ratio = r if err_ratio is None else max(err_ratio, r)
+        if snap_at[0]:
+            top = max(top, float(db[:snap_at[0]].float().abs().max()))
+    pool_dtype = snap[0][1].dtype if snap else None
     snap.clear()
     if mode == "wire":
         per_req = sorted(handoff)
@@ -1863,8 +2100,11 @@ def disagg_arm(model, reqs, mono, *, mode: str, codec=None,
         tokens_equal_mono=all(out.get(rid) == mono[rid]
                               for rid, *_ in reqs),
         max_abs_err=err if mode == "wire" else None,
-        error_bound=(wirecodec.error_bound(dec.wire_quant_max_scale, codec)
+        error_bound=(wire_error_bound(dec.wire_quant_max_scale, top, codec,
+                                      pool_dtype)
                      if mode == "wire" and codec != "fp32" else None),
+        max_adopted_abs=(top if mode == "wire" and codec != "fp32"
+                         else None),
         wire_quant_max_scale=(dec.wire_quant_max_scale
                               if mode == "wire" else None),
         max_err_over_block_bound=err_ratio,
@@ -1940,6 +2180,21 @@ def timed_windows(eng, windows: list, in_window: list) -> None:
         return out
 
     eng._step_k = timed
+
+
+def wire_error_bound(max_scale: float, max_value: float, codec: str,
+                     pool_dtype) -> float:
+    """The largest error a stream's adopted blocks may show against
+    their source: the codec's bound at the stream's largest scale (the
+    f32 reconstruction, ``wirecodec.error_bound``) plus the pool's own
+    rounding of the reconstruction, at most half an ulp of the largest
+    adopted value (the JAX scatter rounds the same way)."""
+    import torch
+
+    from vtpu_torch.serving import wirecodec
+
+    return (wirecodec.error_bound(max_scale, codec)
+            + max_value * torch.finfo(pool_dtype).eps / 2)
 
 
 def block_error(src, got, codec):
@@ -2405,8 +2660,7 @@ def prefix_phase(card: str, model, seed: int) -> dict:
         check(met["mem_left_after_release_gb"] < 0.5,
               f"{what}: the arm kept {met['mem_left_after_release_gb']} GB")
         check_launches(what, met, model.depth, "native")
-        for k, v in met["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        tally(launches, met["launches"])
     hits = prefix[True]
     check(hits["prefix_hits"] == len(preqs) - 1
           and hits["prefix_tokens_skipped"] == PREFIX_TOKENS
@@ -2479,11 +2733,6 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
     serve(model, make_requests(seed + 1, n=1, num_new=2), count=False)
     reqs = make_requests(seed)
     launches = {}
-
-    def tally(counts):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-
     for pool in ("native", "int8"):
         m = model if pool == "native" else model.clone(kv_cache_dtype="int8")
         mono = (mono_out or {}).get(pool) or serve(m, reqs, count=False)[0]
@@ -2521,11 +2770,11 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
                   f"{what}: the arm kept "
                   f"{met['mem_left_after_release_gb']} GB")
             check_launches(what, met, depth, pool)
-            tally(met["launches"])
-        tally(session_phase(card, m, seed, pool))
+            tally(launches, met["launches"])
+        tally(launches, session_phase(card, m, seed, pool))
         del m
-    tally(prefix_phase(card, model, seed))
-    tally(spill_phase(card, model, seed))
+    tally(launches, prefix_phase(card, model, seed))
+    tally(launches, spill_phase(card, model, seed))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2574,20 +2823,23 @@ def main() -> int:
     model, reqs, results, launches = serve_phase(card, args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])
+    t_dense = time.perf_counter()
+    tally(launches, dense_serve_phase(card, model, reqs))
+    dense_exactness_phase(card, args.seed, reqs)
+    tally(launches, generate_phase(card, model, reqs, args.seed))
+    emit(phase="dense_phase", seconds=time.perf_counter() - t_dense,
+         card=card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    for k, v in train_phase(card, args.seed).items():
-        launches[k] = launches.get(k, 0) + v
+    tally(launches, train_phase(card, args.seed))
     train_exactness_phase(card, args.seed)
     train_exactness_bf16_phase(card, args.seed)
     ai_kernel_rows(card, gen)
-    for k, v in ai_benchmark_phase(card, args.seed).items():
-        launches[k] = launches.get(k, 0) + v
+    tally(launches, ai_benchmark_phase(card, args.seed))
     resnet_f32_phase(card, args.seed)
     node_phase(card, share_phase(card))
-    for k, v in disagg_phase(card, args.seed, results).items():
-        launches[k] = launches.get(k, 0) + v
+    tally(launches, disagg_phase(card, args.seed, results))
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s report of the flash and paged kernels in the
-built library.
+built library, and the bound its wire arms hold adopted blocks to.
 
 The report comes from ``cuobjdump -res-usage -sass`` of the library
 alone, so a library reused from an earlier build reports the same
@@ -189,3 +189,35 @@ def test_the_report_needs_only_the_library(monkeypatch):
                       "/lib/libk.so"]]
     assert report["flash_dkv_tc<128>"]["stack_bytes"] == 16
     assert chip_smoke.build_failures(report)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4", "fp8"])
+def test_wire_bound_covers_the_pool_rounding(codec):
+    """A stream with no all-zero block (so no block's scale is 1.0 and
+    lifts the bound): its blocks quantized by the wire codec and written
+    into a bf16 pool stay within ``wire_error_bound``, the codec's bound
+    at the largest scale plus half a bf16 ulp of the largest adopted
+    value, while the codec's bound alone (the f32 reconstruction's) is
+    exceeded: the bf16 write rounds once more."""
+    import torch
+
+    from vtpu_torch.ops import quant
+    from vtpu_torch.serving import wirecodec
+
+    quantize, dequantize = {
+        "int8": (quant.quantize_blockwise, quant.dequantize_blockwise),
+        "int4": (quant.quantize_blockwise_int4, quant.dequantize_blockwise),
+        "fp8": (quant.quantize_blockwise_fp8,
+                quant.dequantize_blockwise_fp8)}[codec]
+    gen = torch.Generator().manual_seed(0)
+    src = (torch.randn((32, 8, 16, 128), generator=gen) * 2).to(
+        torch.bfloat16)
+    q, scale = quantize(src)
+    assert bool((scale != 1.0).all())
+    got = dequantize(q, scale, torch.bfloat16)
+    err = float((got.float() - src.float()).abs().max())
+    max_scale = float(scale.max())
+    bound = chip_smoke.wire_error_bound(
+        max_scale, float(got.float().abs().max()), codec, torch.bfloat16)
+    assert err <= bound
+    assert err > wirecodec.error_bound(max_scale, codec)

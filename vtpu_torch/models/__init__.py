@@ -1,3 +1,3 @@
-"""Models of the port: ``TransformerLM`` (paged decode and training
-paths) and the ai-benchmark models (``resnet``, ``vgg``, ``deeplab``,
+"""Models of the port: ``TransformerLM`` (dense and paged decode, the
+generate entries, the training path) and the ai-benchmark models (``resnet``, ``vgg``, ``deeplab``,
 ``lstm``; ``registry`` names them as the reference does)."""

@@ -1,28 +1,35 @@
 """Decoder-only transformer LM: ``vtpu/models/transformer.py`` in
-PyTorch, its full forward (training) and its paged decode path.
+PyTorch, its full forward (training) and its decode path over either
+cache layout.
 
 What is here: MHA or GQA, learned ``wpe`` or half-split ``rope``,
 sliding-window attention, the dense MLP with tanh-approximate GELU, the
 fused LayerNorm kernel; the full forward ``model(tokens, decode=False)``
 through the flash-attention kernels, differentiable, with
-:func:`lm_loss`; and the decode path over a native or int8 K/V pool
-behind a block table (``kv_cache_layout="paged"``) with the paged decode
-kernel.  What waits raises ``NotImplementedError`` naming the slice that
-brings it.
+:func:`lm_loss`; the decode path over a dense cache
+(``kv_cache_layout="dense"``, the reference's default) or over a K/V pool
+behind a block table (``"paged"``, with the paged decode kernel), each
+native or int8; greedy or sampled :func:`generate`,
+:func:`generate_beam` and :func:`generate_speculative`.  MoE blocks
+raise ``NotImplementedError`` naming the slice that brings them.
 
 The cache is an explicit dict of tensors that every forward updates in
 place, the position counter included (the JAX model returns a new cache;
-writing the pools in place saves a copy of the whole pool per step, and
-keeps every tensor at the address a captured CUDA graph reads)::
+writing in place saves a copy of the whole cache per step, and keeps
+every tensor at the address a captured CUDA graph reads)::
 
-    {"pos": [b] int32,                  # the ONE per-row position counter
-     "block_table": [b, nb_max] int32,  # logical -> physical pool block
-     "layers": [{"k_pool", "v_pool"[, "k_pool_scale", "v_pool_scale"]}]}
+    dense: {"pos": [b] int32,           # the ONE per-row position counter
+            "layers": [{"k", "v"[, "k_scale", "v_scale"]}]}
+    paged: {"pos": [b] int32,
+            "block_table": [b, nb_max] int32,  # logical -> pool block
+            "layers": [{"k_pool", "v_pool"[, "k_pool_scale",
+                                            "v_pool_scale"]}]}
 
-Pools are ``[P, n_kv, bs, hd]`` in the model's dtype (int8 with f32
-scale pools ``[P, n_kv, bs, 1]`` when ``kv_cache_dtype="int8"``).
-Dense weights are ``nn.Linear`` (``weight`` is the flax kernel
-transposed, see ``vtpu_torch.models.convert``).
+Dense K/V are ``[b, n_kv, max_seq, hd]`` and pools ``[P, n_kv, bs,
+hd]``, in the model's dtype; with ``kv_cache_dtype="int8"`` they are
+int8, with f32 scales of the same shape but a last dim of 1.  Dense
+weights are ``nn.Linear`` (``weight`` is the flax kernel transposed, see
+``vtpu_torch.models.convert``).
 """
 
 from __future__ import annotations
@@ -140,71 +147,128 @@ class Attention(nn.Module):
     def _decode(self, x, layer: dict, pos0, table, *, window: int,
                 block_size: int, max_seq: int, use_kernel: bool):
         b, s, d = x.shape
-        hd, n_kv, nh = self.hd, self.n_kv, self.num_heads
         q, k, v = self._heads(x)
         steps = torch.arange(s, device=x.device)
         qpos = pos0.long()[:, None] + steps[None]      # [b, s]
         if self.use_rope:
-            # absolute positions: the pool holds rotated keys
+            # absolute positions: the cache holds rotated keys
             q, k = rope(q, qpos), rope(k, qpos)
-
-        # write each (row, token) at its physical (block, :, offset).  The
-        # logical block index is clamped to the table, as the reference's
-        # gather clamps it: a finished row that decodes past max_seq
-        # writes into its last table entry instead of raising.
-        kp, vp = layer["k_pool"], layer["v_pool"]
-        quant = "k_pool_scale" in layer
-        nb_max = table.shape[1]
-        flat = qpos.reshape(-1)
-        rows = torch.arange(b, device=x.device).repeat_interleave(s)
-        bidx = table[rows, (flat // block_size).clamp_(max=nb_max - 1)].long()
-        off = flat % block_size
-        if quant:
-            kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
-            k_store, v_store = kq.q, vq.q
+        if table is None:
+            k_read, v_read = _dense_rw(layer, k, v, pos0, max_seq)
         else:
-            k_store, v_store = k, v
-        kp[bidx, :, off] = k_store.transpose(1, 2).reshape(
-            b * s, n_kv, hd).to(kp.dtype)
-        vp[bidx, :, off] = v_store.transpose(1, 2).reshape(
-            b * s, n_kv, hd).to(vp.dtype)
-        ks = vs = None
-        if quant:
-            ks, vs = layer["k_pool_scale"], layer["v_pool_scale"]
-            ks[bidx, :, off] = kq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
-            vs[bidx, :, off] = vq.scale.transpose(1, 2).reshape(b * s, n_kv, 1)
+            _paged_write(layer, k, v, qpos, table, block_size)
+            if s == 1 and window == 0 and use_kernel:
+                o = paged_attention_decode(
+                    q[:, :, 0], layer["k_pool"], layer["v_pool"], table,
+                    pos0, layer.get("k_pool_scale"),
+                    layer.get("v_pool_scale"))
+                return self.out(o.reshape(b, 1, d))
+            k_read, v_read = _paged_read(layer, table, b, max_seq)
+        return self.out(_masked_attention(q, k_read, v_read, qpos, window))
 
-        if s == 1 and window == 0 and use_kernel:
-            o = paged_attention_decode(q[:, :, 0], kp, vp, table, pos0, ks, vs)
-            return self.out(o.reshape(b, 1, d))
 
-        # gather path: each row's pages back into [b, n_kv, L, hd]; dtypes
-        # mirror the reference (K in the pool's dtype, V in f32)
-        tl = table.long()
+def _store_kv(layer: dict, names, k, v, put) -> None:
+    """Write this step's K and V (``[b, n_kv, s, w]``) by ``put(tensor,
+    values)`` into the cache tensors ``names`` (``("k", "v")`` or
+    ``("k_pool", "v_pool")``); as int8 levels beside their
+    ``<name>_scale`` tensors when the cache holds those."""
+    kn, vn = names
+    if kn + "_scale" in layer:
+        kq, vq = quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+        put(layer[kn], kq.q)
+        put(layer[vn], vq.q)
+        put(layer[kn + "_scale"], kq.scale)
+        put(layer[vn + "_scale"], vq.scale)
+    else:
+        put(layer[kn], k)
+        put(layer[vn], v)
 
-        def page_read(pool):
-            return pool[tl].transpose(1, 2).reshape(b, n_kv, max_seq, -1)
 
-        if quant:
-            k_read = page_read(kp).float() * page_read(ks)
-            v_read = page_read(vp).float() * page_read(vs)
-        else:
-            k_read = page_read(kp)
-            v_read = page_read(vp).float()
-        kpos = torch.arange(max_seq, device=x.device)
-        mask = kpos[None, None, :] <= qpos[:, :, None]  # [b, s, L]
-        if window > 0:
-            mask &= kpos[None, None, :] > qpos[:, :, None] - window
-        g = nh // n_kv
-        ct = torch.promote_types(q.dtype, k_read.dtype)
-        qg = q.reshape(b, n_kv, g, s, hd).to(ct)
-        scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_read.to(ct))
-        scores = scores.float().mul_(hd ** -0.5)
-        scores.masked_fill_(~mask[:, None, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bngqk,bnkd->bngqd", probs, v_read).to(q.dtype)
-        o = o.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, d)
-        return self.out(o)
+def _load_kv(layer: dict, names, view):
+    """K and V of the whole cache through ``view``, in the reference's
+    dtypes: K in the cache's dtype and V in f32, or both in f32 after
+    the int8 dequantize (so paged equals dense bit for bit)."""
+    kn, vn = names
+    if kn + "_scale" in layer:
+        return (view(layer[kn]).float() * view(layer[kn + "_scale"]),
+                view(layer[vn]).float() * view(layer[vn + "_scale"]))
+    return view(layer[kn]), view(layer[vn]).float()
+
+
+def _dense_rw(layer: dict, k, v, pos0, max_seq: int):
+    """Dense ``[b, n_kv, max_seq, hd]`` cache: write the s new tokens of
+    each row at its position, read every position.
+
+    The start of a row's s-token write is clamped to ``[0, max_seq - s]``
+    as a whole, as ``jax.lax.dynamic_update_slice`` clamps it: a write
+    that would pass max_seq lands earlier, over real K/V (the batcher
+    caps its chunk pad for this reason), and a finished row that decodes
+    past max_seq writes into its own last position."""
+    b, n_kv, s, _hd = k.shape
+    start = pos0.long().clamp(0, max_seq - s)
+    cols = (start[:, None] + torch.arange(s, device=k.device)).reshape(-1)
+    rows = torch.arange(b, device=k.device).repeat_interleave(s)
+
+    def put(t, val):  # t[row, :, col] = val
+        t[rows, :, cols] = val.transpose(1, 2).reshape(
+            b * s, n_kv, -1).to(t.dtype)
+
+    _store_kv(layer, ("k", "v"), k, v, put)
+    return _load_kv(layer, ("k", "v"), lambda t: t)
+
+
+def _paged_write(layer: dict, k, v, qpos, table, block_size: int) -> None:
+    """Write each (row, token) at its physical (block, :, offset) of the
+    pools.  The logical block index is clamped to the table token by
+    token, as the reference's gather clamps it: a finished row that
+    decodes past max_seq writes into its last table entry."""
+    b, n_kv, s, _hd = k.shape
+    nb_max = table.shape[1]
+    flat = qpos.reshape(-1)
+    rows = torch.arange(b, device=k.device).repeat_interleave(s)
+    bidx = table[rows, (flat // block_size).clamp_(max=nb_max - 1)].long()
+    off = flat % block_size
+
+    def put(t, val):  # t[block, :, offset] = val
+        t[bidx, :, off] = val.transpose(1, 2).reshape(
+            b * s, n_kv, -1).to(t.dtype)
+
+    _store_kv(layer, ("k_pool", "v_pool"), k, v, put)
+
+
+def _paged_read(layer: dict, table, b: int, max_seq: int):
+    """The gather path: each row's pages back into ``[b, n_kv, max_seq,
+    hd]``."""
+    tl = table.long()
+
+    def page_read(pool):
+        return pool[tl].transpose(1, 2).reshape(b, pool.shape[1], max_seq,
+                                                -1)
+
+    return _load_kv(layer, ("k_pool", "v_pool"), page_read)
+
+
+def _masked_attention(q, k_read, v_read, qpos, window: int):
+    """The decode path's attention over a whole ``[b, n_kv, L, hd]``
+    cache, one copy for both layouts (the reference's masked tail, plain
+    XLA there): a key is kept iff its position is <= the query's (and
+    > the query's - window); grouped heads, f32 scores and softmax.
+    Returns ``[b, s, H * hd]``."""
+    b, nh, s, hd = q.shape
+    n_kv, length = k_read.shape[1], k_read.shape[2]
+    kpos = torch.arange(length, device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # [b, s, L]
+    if window > 0:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    g = nh // n_kv
+    ct = torch.promote_types(q.dtype, k_read.dtype)
+    qg = q.reshape(b, n_kv, g, s, hd).to(ct)
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, k_read.to(ct))
+    scores = scores.float().mul_(hd ** -0.5)
+    scores.masked_fill_(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bngqk,bnkd->bngqd", probs, v_read).to(q.dtype)
+    return o.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, nh * hd)
 
 
 class Block(nn.Module):
@@ -229,8 +293,8 @@ class Block(nn.Module):
 
 
 # knobs a clone may change: none of them shapes a weight
-_CLONE_KNOBS = ("kv_cache_dtype", "kv_block_size", "kv_pool_blocks",
-                "paged_kernel", "ln_kernel", "flash_kernel")
+_CLONE_KNOBS = ("kv_cache_dtype", "kv_cache_layout", "kv_block_size",
+                "kv_pool_blocks", "paged_kernel", "ln_kernel", "flash_kernel")
 
 
 class TransformerLM(nn.Module):
@@ -293,8 +357,8 @@ class TransformerLM(nn.Module):
     # -- configuration --------------------------------------------------
     def _validate(self) -> None:
         """The reference's ValueErrors for bad knobs (checked at
-        construction here, at apply time there), then what this slice
-        does not port yet."""
+        construction here, at apply time there), then what the port does
+        not have yet."""
         if self.pos_embedding not in ("learned", "rope"):
             raise ValueError(
                 f"pos_embedding must be 'learned' or 'rope', "
@@ -340,14 +404,6 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "MoE blocks come with the parallel slice of the port")
 
-    def _check_paged(self) -> None:
-        """The decode path's cache is the paged pool; a dense-layout
-        model runs full forwards only."""
-        if self.kv_cache_layout == "dense":
-            raise NotImplementedError(
-                "the dense KV cache layout comes with a later slice of the "
-                "port (dense serving); use kv_cache_layout='paged'")
-
     def clone(self, **updates) -> "TransformerLM":
         """A model that shares this one's weights with some cache or
         kernel knobs changed (flax's ``Module.clone`` counterpart)."""
@@ -382,23 +438,35 @@ class TransformerLM(nn.Module):
 
     # -- cache ----------------------------------------------------------
     def init_cache(self, batch: int) -> dict:
-        """Pristine decode cache for ``batch`` rows.  The block table is
-        the identity map (row i owns blocks [i*nb, (i+1)*nb)) when
-        ``kv_pool_blocks == 0``, all zeros (the garbage block) when a
-        serving engine allocates a real pool."""
-        self._check_paged()
+        """Pristine (zero) decode cache for ``batch`` rows.  Paged: the
+        block table is the identity map (row i owns blocks [i*nb,
+        (i+1)*nb)) when ``kv_pool_blocks == 0``, all zeros (the garbage
+        block) when a serving engine allocates a real pool."""
         dev = self.device
-        nb_max = self.max_seq // self.kv_block_size
         n_kv = self.num_kv_heads or self.num_heads
         hd = self.d_model // self.num_heads
+        quant = self.kv_cache_dtype == "int8"
+        store = torch.int8 if quant else self.dtype
+        pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        if self.kv_cache_layout == "dense":
+            shape = (batch, n_kv, self.max_seq, hd)
+            layers = []
+            for _ in range(self.depth):
+                layer = {"k": torch.zeros(shape, dtype=store, device=dev),
+                         "v": torch.zeros(shape, dtype=store, device=dev)}
+                if quant:
+                    sc = (*shape[:3], 1)
+                    layer["k_scale"] = torch.zeros(sc, device=dev)
+                    layer["v_scale"] = torch.zeros(sc, device=dev)
+                layers.append(layer)
+            return {"pos": pos, "layers": layers}
+        nb_max = self.max_seq // self.kv_block_size
         pool = self.kv_pool_blocks or batch * nb_max
         if self.kv_pool_blocks == 0:
             table = (torch.arange(batch, device=dev)[:, None] * nb_max
                      + torch.arange(nb_max, device=dev)[None, :])
         else:
             table = torch.zeros((batch, nb_max), dtype=torch.int32, device=dev)
-        quant = self.kv_cache_dtype == "int8"
-        store = torch.int8 if quant else self.dtype
         shape = (pool, n_kv, self.kv_block_size, hd)
         layers = []
         for _ in range(self.depth):
@@ -409,8 +477,7 @@ class TransformerLM(nn.Module):
                 layer["k_pool_scale"] = torch.zeros(sc, device=dev)
                 layer["v_pool_scale"] = torch.zeros(sc, device=dev)
             layers.append(layer)
-        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-                "block_table": table.to(torch.int32),
+        return {"pos": pos, "block_table": table.to(torch.int32),
                 "layers": layers}
 
     # -- forward --------------------------------------------------------
@@ -421,7 +488,6 @@ class TransformerLM(nn.Module):
         if cache is None:
             raise ValueError("decode=True needs a cache (model.init_cache); "
                              "pass decode=False for a full forward")
-        self._check_paged()
         with torch.no_grad():
             return self._decode(tokens, cache)
 
@@ -445,7 +511,7 @@ class TransformerLM(nn.Module):
         b, s = tokens.shape
         assert s <= self.max_seq, f"seq {s} > max_seq {self.max_seq}"
         pos0 = cache["pos"]  # the one position counter, advanced below
-        table = cache["block_table"]
+        table = cache.get("block_table")  # None: the dense layout
         x = self.wte(tokens.long())
         if self.pos_embedding == "learned":
             # a finished row may decode past max_seq; its logits are
@@ -454,7 +520,7 @@ class TransformerLM(nn.Module):
                 s, device=tokens.device)[None]
             x = x + self.wpe(pos_ids.clamp(max=self.max_seq - 1))
         # the paged kernel serves one-token steps without a window (the
-        # reference's condition); the rest takes the gather path
+        # reference's condition); the rest takes the masked tail
         use_kernel = (self.paged_kernel == "on"
                       or (self.paged_kernel == "auto"
                           and self.device.type == "cuda"))
@@ -493,21 +559,26 @@ def set_cache_pos(cache: dict, pos) -> dict:
     return cache
 
 
+def _model_device(model: TransformerLM, device, who: str) -> torch.device:
+    if model.device.type != resolve_device(device).type:
+        raise ValueError(f"the model lives on {model.device}, {who}() "
+                         f"was asked for {device}")
+    return model.device
+
+
 def _check_generate(model: TransformerLM, s: int, num_new: int,
-                    temperature: float) -> None:
+                    temperature: float, generator) -> None:
     if num_new < 1:
         raise ValueError(f"num_new must be >= 1, got {num_new}")
-    if model.kv_pool_blocks > 0:
+    if model.kv_cache_layout == "paged" and model.kv_pool_blocks > 0:
         raise ValueError(
             "a paged model with an explicit pool needs a serving "
             "engine (vtpu_torch.serving.paged.PagedBatcher) to allocate "
             "its block table; generate() supports the dense-equivalent "
             "pool only (kv_pool_blocks=0)"
         )
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampled decoding (temperature > 0) comes with a later slice "
-            "of the port; generate() is greedy")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs an rng")
     if s + num_new > model.max_seq:
         raise ValueError(
             f"prompt ({s}) + num_new ({num_new}) exceeds "
@@ -515,30 +586,55 @@ def _check_generate(model: TransformerLM, s: int, num_new: int,
         )
 
 
+def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
+                  top_k: int = 0, generator=None) -> torch.Tensor:
+    """The next token of each row of ``logits`` ``[b, V]``, int32: the
+    argmax at temperature 0, else one draw from softmax(logits /
+    temperature) with ``generator``, over the ``top_k`` largest scaled
+    logits when ``top_k > 0`` (every logit >= the k-th stays in, ties
+    included, as the reference's ``scaled >= kth``)."""
+    if temperature <= 0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    scaled = logits / temperature
+    if top_k > 0:
+        kk = min(top_k, scaled.shape[-1])
+        kth = torch.topk(scaled, kk, dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    probs = torch.softmax(scaled, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
 @torch.no_grad()
 def generate(model: TransformerLM, prompt, num_new: int,
              temperature: float = 0.0, prefill_chunk: int = 0,
-             eos_id: int | None = None, *, device="cuda") -> torch.Tensor:
-    """Greedy decoding: prefill the cache with ``prompt`` [b, s] (in
-    chunks of ``prefill_chunk`` when set), then ``num_new`` one-token
-    steps.  ``eos_id`` freezes a row once it emits it.  ``device`` must
-    be the model's.  Returns [b, num_new] int32."""
-    if model.device.type != resolve_device(device).type:
-        raise ValueError(f"the model lives on {model.device}, generate() "
-                         f"was asked for {device}")
-    prompt = torch.as_tensor(prompt, device=model.device).to(torch.int32)
+             eos_id: int | None = None, *, top_k: int = 0, generator=None,
+             device="cuda") -> torch.Tensor:
+    """Prefill the cache with ``prompt`` [b, s] (in chunks of
+    ``prefill_chunk`` when set), then ``num_new`` one-token steps.
+    Greedy at ``temperature`` 0; otherwise each token is drawn by
+    :func:`sample_tokens` with ``generator`` (a ``torch.Generator`` on
+    the model's device, where the reference takes a JAX key), restricted
+    to the ``top_k`` largest logits when set.  ``eos_id`` freezes a row
+    once it emits it.  ``device`` must be the model's.  Returns
+    [b, num_new] int32."""
+    dev = _model_device(model, device, "generate")
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, s = prompt.shape
-    _check_generate(model, s, num_new, temperature)
+    _check_generate(model, s, num_new, temperature, generator)
+
+    def pick(logits_last):
+        return sample_tokens(logits_last, temperature, top_k, generator)
+
     cache = model.init_cache(b)
     step = prefill_chunk if prefill_chunk > 0 else s
     for lo in range(0, s, step):
         logits = model(prompt[:, lo:lo + step], cache)
-    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+    tok = pick(logits[:, -1])
     done = (tok == eos_id) if eos_id is not None else None
     out = [tok]
     for _ in range(num_new - 1):
-        nxt = model(tok[:, None], cache)[:, -1].argmax(dim=-1)
-        nxt = nxt.to(torch.int32)
+        nxt = pick(model(tok[:, None], cache)[:, -1])
         if eos_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             done = done | (nxt == eos_id)
@@ -547,11 +643,134 @@ def generate(model: TransformerLM, prompt, num_new: int,
     return torch.stack(out, dim=1)
 
 
-def generate_beam(*_a, **_k):
-    raise NotImplementedError(
-        "generate_beam comes with the dense-layout slice of the port")
+def _top(x: torch.Tensor, k: int):
+    """The k largest of each row of ``x`` and their indices, ties toward
+    the lower index, as ``jax.lax.top_k`` breaks them.  ``torch.topk``
+    promises no order among equal values, so this is a stable sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
-def generate_speculative(*_a, **_k):
-    raise NotImplementedError(
-        "generate_speculative comes with the dense-layout slice of the port")
+@torch.no_grad()
+def generate_beam(model: TransformerLM, prompt, num_new: int,
+                  beam: int = 4, *, device="cuda") -> torch.Tensor:
+    """Beam search with the KV cache: beams ride the batch dim ([b·beam]
+    rows) and each step gathers every cache tensor along it, in place,
+    to follow the parent hypotheses.  Pure log-prob objective, no length
+    penalty.  Dense layout only.  Returns the best beam per batch row,
+    [b, num_new] int32."""
+    dev = _model_device(model, device, "generate_beam")
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    b, s0 = prompt.shape
+    if num_new < 1:
+        raise ValueError(f"num_new must be >= 1, got {num_new}")
+    if model.kv_cache_layout == "paged":
+        raise ValueError(
+            "beam search tiles and gathers the cache along the batch "
+            "dim, which has no meaning for a pool-indexed paged cache — "
+            "use the dense layout for beam decoding"
+        )
+    if s0 + num_new > model.max_seq:
+        raise ValueError(
+            f"prompt ({s0}) + num_new ({num_new}) exceeds max_seq "
+            f"({model.max_seq})"
+        )
+    vocab = model.vocab
+    cache = model.init_cache(b)
+    logits = model(prompt, cache)
+    scores, toks0 = _top(torch.log_softmax(logits[:, -1], dim=-1), beam)
+    # a fixed [b, beam, num_new] history, written at step t
+    hist = torch.zeros((b, beam, num_new), dtype=torch.int32, device=dev)
+    hist[:, :, 0] = toks0
+    # each row's cache tiled to its beam copies: [b, ...] -> [b·beam, ...]
+    cache = {"pos": cache["pos"].repeat_interleave(beam, dim=0),
+             "layers": [{n: t.repeat_interleave(beam, dim=0)
+                         for n, t in layer.items()}
+                        for layer in cache["layers"]]}
+    tensors = [cache["pos"]] + [t for layer in cache["layers"]
+                                for t in layer.values()]
+    tok = toks0.reshape(b * beam).to(torch.int32)
+    base = torch.arange(b, device=dev)[:, None] * beam
+    for t in range(1, num_new):
+        logits = model(tok[:, None], cache)
+        logp = torch.log_softmax(logits[:, -1], dim=-1).reshape(
+            b, beam, vocab)
+        total = scores[:, :, None] + logp
+        scores, idx = _top(total.reshape(b, beam * vocab), beam)
+        parent = idx // vocab
+        ntok = (idx % vocab).to(torch.int32)
+        sel = (base + parent).reshape(-1)
+        for x in tensors:
+            x.copy_(x.index_select(0, sel))
+        hist = torch.gather(hist, 1,
+                            parent[:, :, None].expand(-1, -1, num_new))
+        hist[:, :, t] = ntok
+        tok = ntok.reshape(b * beam)
+    best = scores.argmax(dim=1)  # the first of equal scores, as jnp's
+    return hist[torch.arange(b, device=dev), best]
+
+
+@torch.no_grad()
+def generate_speculative(model: TransformerLM, draft_model: TransformerLM,
+                         prompt, num_new: int, k: int = 4,
+                         return_stats: bool = False, *, device="cuda"):
+    """Speculative greedy decoding: ``draft_model`` proposes ``k`` tokens
+    a round, the target verifies them in one (k+1)-token forward, and the
+    longest matching prefix plus the target's own next token are
+    accepted (the batch's minimum, in lockstep).  The tokens are exactly
+    the target's greedy decode.  A rejected draft is rewound by
+    :func:`set_cache_pos` alone: K/V past the counter are never read and
+    are overwritten on the next advance.  With ``return_stats`` also
+    returns ``{"verify_forwards": n}``."""
+    dev = _model_device(model, device, "generate_speculative")
+    _model_device(draft_model, device, "generate_speculative")
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    b, s0 = prompt.shape
+    for m, who in ((model, "target"), (draft_model, "draft")):
+        if m.kv_cache_layout == "paged" and m.kv_pool_blocks > 0:
+            raise ValueError(
+                f"the {who} model's explicit paged pool needs a serving "
+                "engine to allocate its block table (kv_pool_blocks=0 "
+                "is the dense-equivalent form speculative decode supports)"
+            )
+        if s0 + num_new + k + 1 > m.max_seq:
+            raise ValueError(
+                f"prompt ({s0}) + num_new ({num_new}) + draft window "
+                f"({k + 1}) exceeds the {who} model's max_seq ({m.max_seq})"
+            )
+
+    def argmax(logits):
+        return logits.argmax(dim=-1).to(torch.int32)
+
+    # prefill both; the prompt's last position gives the first token
+    t_cache = model.init_cache(b)
+    pending = argmax(model(prompt, t_cache)[:, -1])
+    d_cache = draft_model.init_cache(b)
+    draft_model(prompt, d_cache)
+    out = [pending]
+    n_done, pos, verify_forwards = 1, s0, 0
+    while n_done < num_new:
+        verify_forwards += 1
+        # k drafts from the pending token, plus one step that feeds the
+        # last draft so its K/V lands in the draft cache (without it a
+        # fully accepted round leaves a hole the next round reads)
+        set_cache_pos(d_cache, pos)
+        drafts, tok = [], pending
+        for _ in range(k + 1):
+            tok = argmax(draft_model(tok[:, None], d_cache)[:, -1])
+            drafts.append(tok)
+        d_stack = torch.stack(drafts[:k], dim=1)           # [b, k]
+        set_cache_pos(t_cache, pos)
+        block = torch.cat([pending[:, None], d_stack], dim=1)
+        greedy = argmax(model(block, t_cache))             # [b, k+1]
+        match = (d_stack == greedy[:, :-1]).to(torch.int32)
+        n_min = int(match.cumprod(dim=1).sum(dim=1).min())  # host sync
+        out.extend(d_stack[:, i] for i in range(n_min))
+        pending = greedy[:, n_min]
+        out.append(pending)
+        n_done += n_min + 1
+        pos += n_min + 1
+    toks = torch.stack(out[:num_new], dim=1)
+    if return_stats:
+        return toks, {"verify_forwards": verify_forwards}
+    return toks

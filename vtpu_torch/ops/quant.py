@@ -2,11 +2,13 @@
 device halves of the K/V wire codecs.
 
 - ``quantize_int8`` (absmax/127 per vector, reconstruction-nearest
-  rounding) and ``dequantize``: the int8 pool.  Bytes and scales are
-  bit-identical to ``vtpu.ops.quant.quantize_int8`` run eagerly on the
-  same input (tests/test_torch_ops.py).  Under ``jax.jit`` XLA folds the
-  ``/ 127`` into a multiply by its reciprocal, so a jitted JAX caller can
-  differ from both by one ulp in a scale.
+  rounding) and ``dequantize``: the int8 K/V cache of both layouts.
+  Bytes and scales are bit-identical to ``vtpu.ops.quant.quantize_int8``
+  run eagerly on the same input (tests/test_torch_ops.py), on the CPU
+  and on the card alike: the divisor is a tensor, as in the wire codec
+  below.  Under ``jax.jit`` XLA folds the ``/ 127`` into a multiply by
+  its reciprocal, so a jitted JAX caller can differ from both by one ulp
+  in a scale.
 - the blockwise codecs of the wire (one f32 scale per leading-axis
   block): ``quantize_blockwise`` / ``dequantize_blockwise`` (int8),
   ``quantize_blockwise_int4`` with ``pack_int4``, and
@@ -58,7 +60,9 @@ def quantize_int8(w: torch.Tensor, axis: int = 0) -> QuantizedTensor:
     where the absmax is 0.  Reconstruction error <= scale/2."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a tensor divisor: IEEE division on every device (module doc)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
     q = _nearest_int(wf, scale)
     return QuantizedTensor(q.to(torch.int8), scale, axis % w.dim())
 

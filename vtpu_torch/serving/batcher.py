@@ -1,13 +1,14 @@
 """Continuous batching for the port's TransformerLM serving path.
 
-The scheduling core of ``vtpu/serving/batcher.py::ContinuousBatcher``,
-which ``PagedBatcher`` builds on: a fixed ``[max_batch]`` slot array
-where each slot is an independent request at its own depth; requests
-join mid-flight, in batched admission rounds whose prompts are padded
-to power-of-two buckets; decode runs in windows of ``harvest_every``
-steps, with up to ``pipeline_depth`` windows in flight, each carrying
-the slot->rid snapshot it was dispatched under; post-EOS tokens are
-frozen to ``eos_id`` and overshoot past a budget is dropped at harvest.
+``vtpu/serving/batcher.py::ContinuousBatcher`` over the dense KV cache,
+and the scheduling core that ``PagedBatcher`` builds on: a fixed
+``[max_batch]`` slot array where each slot is an independent request at
+its own depth; requests join mid-flight, in batched admission rounds
+whose prompts are padded to power-of-two buckets; decode runs in windows
+of ``harvest_every`` steps, with up to ``pipeline_depth`` windows in
+flight, each carrying the slot->rid snapshot it was dispatched under;
+post-EOS tokens are frozen to ``eos_id`` and overshoot past a budget is
+dropped at harvest.
 
 On CUDA a window of k decode steps is one captured CUDA graph, the
 counterpart of the reference's jitted ``_step_k``: the first window of
@@ -32,14 +33,18 @@ that event only.  PyTorch dispatches kernels asynchronously, so the next
 window is already queued on the card while the host harvests the
 previous one.
 
-The dense-layout engine (``_prefill``, ``_admit_prog``,
-``_scatter_rows``) comes with the dense-layout slice; this class is the
-base of :class:`vtpu_torch.serving.paged.PagedBatcher` and is not used
-on its own.  Tracing hooks (request ledger, spans, histograms) come
-with the observability slice.
+Dense admission (the reference's ``_admit_prog``): per prompt-length
+bucket, the group's padded prompts prefill in a zero row cache of the
+group's row bucket, each row's first token is the argmax at its true
+last prompt token, and the rows replace whole rows of the batch cache
+(``index_copy_``, in place, for the graphs) with their true positions.
+A prompt longer than ``prefill_chunk`` prefills in a row cache of its
+own, one chunk per ``step()``.  Tracing hooks (request ledger, spans,
+histograms) come with the observability slice.
 
 Greedy decoding; every request's tokens are identical to the JAX
-engine's on the same weights and schedule (tests/test_torch_paged.py).
+engine's on the same weights and schedule (tests/test_torch_dense.py,
+tests/test_torch_paged.py).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import numpy as np
 import torch
 
 from vtpu_torch.device import resolve_device
-from vtpu_torch.models.transformer import TransformerLM
+from vtpu_torch.models.transformer import TransformerLM, bucket_length
 from vtpu_torch.ops.layernorm import fused_layernorm
 from vtpu_torch.ops.paged_attention import paged_attention_decode
 
@@ -170,13 +175,15 @@ class ContinuousBatcher:
         # np.ndarray; a transport layer may override it
         self._fetch = lambda hc, issued: hc.numpy()
         self.steps = 0  # decode forwards executed (batch-wide)
+        self._row_tmpls: Dict[int, dict] = {}  # rows -> zero row cache
 
     # ------------------------------------------------------------------
     def _step_k(self, k: int) -> torch.Tensor:
         """k decode steps over every slot; returns the [k, b] tokens and
         leaves the last ones in ``self.tok``.  Finished rows overshoot
-        harmlessly: their writes fall off the leased table into the
-        garbage block (or clamp into their own last block).  On CUDA the
+        harmlessly: dense writes clamp into the row's own last position;
+        paged writes fall off the leased table into the garbage block (or
+        clamp into their own last block).  On CUDA the
         returned buffer is the window graph's own, rewritten by its next
         replay: the caller copies it out first."""
         wg = self._graphs.get(k)
@@ -244,8 +251,41 @@ class ContinuousBatcher:
         return not self.active[slot] and slot not in self.prefilling
 
     def _admit_pending(self) -> None:
-        raise NotImplementedError(
-            "dense-layout admission comes with the dense-layout slice")
+        """Drain the queue into every free slot, one batched prefill per
+        prompt-length bucket.  Loops because a group may retire at once
+        (num_new == 1) and free its slots for the next group."""
+        progress = True
+        while progress and self.queue:
+            progress = False
+            group: List[Tuple[int, _Request]] = []
+            for slot in self._free_slots():
+                if not self.queue:
+                    break
+                if not self._slot_is_free(slot):
+                    continue
+                req = self.queue.popleft()
+                if 0 < self.prefill_chunk < req.prompt.size:
+                    # long prompt: reserve the slot and prefill chunk by
+                    # chunk from step().  The cache is its own: prefill
+                    # writes it in place, so a shared template could
+                    # not hold two prefills at once
+                    self.prefilling[slot] = {
+                        "req": req, "cache": self.model.init_cache(1),
+                        "done": 0, "pf": self._prefill}
+                    progress = True
+                    continue
+                group.append((slot, req))
+            if group:
+                self._admit_batch(group)
+                progress = True
+
+    def _prefill(self, cache: dict, chunk: torch.Tensor):
+        return self.model(chunk, cache), cache
+
+    def _bucket_len(self, n: int) -> int:
+        if not self.bucket_prefill:
+            return n
+        return bucket_length(n, self.model.max_seq)
 
     def _bucket_rows(self, n: int) -> int:
         """Row-count bucket of an admission group (a power of two);
@@ -254,10 +294,68 @@ class ContinuousBatcher:
             return n
         return 1 << (n - 1).bit_length()
 
+    def _row_template(self, rows: int) -> dict:
+        """The zero row cache of a ``rows``-row admission group: one per
+        row bucket for the engine's life, never the batch cache's
+        tensors.  Prefill writes it in place, so it is zeroed before each
+        use, as the reference prefills in a fresh zero cache."""
+        tmpl = self._row_tmpls.get(rows)
+        if tmpl is None:
+            tmpl = self._row_tmpls[rows] = self.model.init_cache(rows)
+            return tmpl
+        tmpl["pos"].zero_()
+        for layer in tmpl["layers"]:
+            for t in layer.values():
+                t.zero_()
+        return tmpl
+
+    def _admit_batch(self, group: List[Tuple[int, _Request]]) -> None:
+        """Per prompt-length bucket, the reference's ``_admit_prog``:
+        prefill the padded group in a zero row cache, argmax each row's
+        logits at its true last prompt token (the padding after it is
+        causally invisible), and write the rows, their true positions
+        and first tokens into the batch state.  No host sync: the first
+        tokens are read at the next harvest."""
+        by_bucket: Dict[int, List[Tuple[int, _Request]]] = {}
+        for slot, req in group:
+            by_bucket.setdefault(self._bucket_len(req.prompt.size),
+                                 []).append((slot, req))
+        dev = self.device
+        for blen, sub in by_bucket.items():
+            n = len(sub)
+            rows = self._bucket_rows(n)
+            toks = np.zeros((rows, blen), np.int32)
+            for r, (_slot, req) in enumerate(sub):
+                toks[r, :req.prompt.size] = req.prompt
+            lens = np.asarray([req.prompt.size for _s, req in sub], np.int32)
+            tmpl = self._row_template(rows)
+            logits = self.model(torch.as_tensor(toks, device=dev), tmpl)
+            last = torch.as_tensor(lens - 1, device=dev).long()
+            firsts = logits[torch.arange(n, device=dev), last].argmax(
+                dim=-1).to(torch.int32)
+            # the reference scatters every row and drops the pad rows
+            # (slot index max_batch is out of bounds there); index_copy_
+            # raises on such an index, so only the group's rows go
+            slots = np.asarray([slot for slot, _r in sub], np.int32)
+            self._merge_rows(slots, tmpl, lens)
+            self.tok.index_copy_(
+                0, torch.as_tensor(slots, device=dev).long(), firsts)
+            self._queue_first(firsts, sub)
+
     def _merge_rows(self, slots: np.ndarray, rows_cache,
                     pos: np.ndarray) -> None:
-        raise NotImplementedError(
-            "dense-layout row merge comes with the dense-layout slice")
+        """Replace whole rows of the batch cache at ``slots`` with the
+        first ``len(slots)`` rows of ``rows_cache`` (a slot's previous
+        tenant leaves no K/V behind; masking only hides positions >= its
+        counter) and publish each row's true position.  In place: the
+        decode graphs read these tensors."""
+        n = len(slots)
+        idx = torch.as_tensor(np.asarray(slots), device=self.device).long()
+        for dst, src in zip(self.cache["layers"], rows_cache["layers"]):
+            for name, t in dst.items():
+                t.index_copy_(0, idx, src[name][:n])
+        self.cache["pos"].index_copy_(0, idx, torch.as_tensor(
+            np.asarray(pos, np.int32), device=self.device))
 
     def _on_retire(self, slot: int) -> None:
         """Hook: a slot left decode rotation."""
