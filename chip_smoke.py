@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged and dense serving, generate and
-training paths, its ai-benchmark rows and its four-tenant share run on
-one NVIDIA GPU.
+"""Drive the PyTorch port's paged and dense serving, its serving front
+door, generate and training paths, its ai-benchmark rows and its
+four-tenant share run on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, full width (one card)
 
@@ -175,7 +175,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
    target, a depth-2 draft of its first two blocks, ln_f and head:
    verify forwards, acceptance, and the share of tokens equal to greedy
    as information), with the phase's launches (the draft's one-token
-   steps must launch the paged kernel).
+   steps must launch the paged kernel);
+13. (after phase 11) the serving front door: the serve configuration and
+   weights behind the port's ``Router`` (``vtpu_torch/serving/router.py``),
+   the serve phase's 16 requests over 8 sessions, one PrefillEngine and
+   (a) two DecodeEngine(max_batch=8) replicas, copy handoff, tracing
+   off: no span and no ledger record; (b) the same requests again on the
+   same Router and engines with tracing on: every request's five ledger
+   stages (p50 of each, ms and share of the TTFT) within 5 % of the TTFT
+   the driver measures (submit to the moment the host holds the first
+   token), span and record counts; then once more with tracing switched
+   on and off at every pump: the replayed windows dispatched with it on
+   within 5 % of those with it off (the hooks cost the window nothing on
+   the device; a fresh run's step moves by up to 9 % between runs, so
+   the serve phase's step and a monolithic engine's of this phase are
+   printed beside it as information, ``router_overhead``); (c) one replica reached by the loopback wire under int8 with a
+   1 + 8*32-block pool, so that the Router parks saturated handoffs and
+   retries them (parks > 0, host bytes = wire bytes); (d) two replicas,
+   the one holding most of the first eight requests failing its pings
+   until the Router drains it (``ReplicaDrained``), its requests
+   finishing in place and the last eight (new sessions) all on the
+   other; each arm a ``router`` line (decode tokens/s, replayed step ms,
+   TTFT p50, routes a replica, rejects, parks, handoff host bytes,
+   blocks leaked (required 0), LN and paged launches at the serve
+   bounds); then (e) at depth 2, f32, the copy and fp32-wire arms'
+   tokens equal the monolithic PagedBatcher's (``router_exactness``).
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -894,7 +918,7 @@ def serve_phase(card: str, seed: int):
     # warm-up (cuBLAS handles, allocator), outside every measured run
     serve(model, make_requests(seed + 1, n=1, num_new=2), count=False)
     reqs = make_requests(seed)
-    results, launches = {}, {}
+    results, launches, mets = {}, {}, {}
     for pool in ("native", "int8"):
         m = model if pool == "native" else model.clone(kv_cache_dtype="int8")
         torch.cuda.reset_peak_memory_stats()
@@ -915,8 +939,9 @@ def serve_phase(card: str, seed: int):
               f"{pool}: the engine kept {met['mem_left_after_release_gb']} "
               f"GB after release")
         results[pool] = out
+        mets[pool] = met
         tally(launches, c)
-    return model, reqs, results, launches
+    return model, reqs, results, launches, mets
 
 
 # -- phase 3: where the time goes ------------------------------------------
@@ -2783,6 +2808,396 @@ def disagg_phase(card: str, seed: int, mono_out=None) -> dict:
     return launches
 
 
+# -- phase 13: the serving front door ---------------------------------------
+ROUTER_SESSIONS = 8                # the serve phase's 16 requests over these
+ROUTER_SATURATE_POOL = 1 + 8 * 32  # arm (c)'s decode pool: the wire parks
+ROUTER_FAIL_THRESHOLD = 3
+
+
+def router_arm(model, reqs, mono, *, mode: str, codec=None, traced=False,
+               drain=False, decode_pool: int = 0):
+    """Serve ``reqs`` through the port's Router: one PrefillEngine (its own
+    pool) and two DecodeEngine(max_batch=8) replicas (``copy``) or one
+    reached by the loopback wire under ``codec`` (``wire``; with
+    ``decode_pool`` its pool holds that many blocks, so that the wire
+    saturates and the Router parks).  Sessions are ``sess<i % 8>``.  With
+    ``traced``, the same requests (new ids, the same sessions) go through
+    the same Router and engines a second time with tracing on, and a
+    third time with tracing switched on and off at every pump, so that
+    the runs share every allocation and graph and the third one's windows
+    of either kind share the device's state too.  With ``drain``, the
+    first eight requests are admitted and adopted, the replica holding
+    the most of them then fails every ping until the Router drains it
+    (``fail_threshold`` pings), and the last eight come as new sessions.
+    The driver stamps each request's submit and the moment the host holds
+    its first token (the adoption, or a speculative OPEN) on the host
+    clock; a traced run's ledger records them too.  The kernels' launch
+    counts are zeroed just before each run and read just after.  Returns
+    (outputs, metrics), a traced run's metrics under ``traced``."""
+    import collections
+
+    import torch
+
+    from vtpu_torch.obs import events
+    from vtpu_torch.serving import kvpool as tkv
+    from vtpu_torch.serving import transport as ttp
+    from vtpu_torch.serving.disagg import DecodeEngine, PrefillEngine
+    from vtpu_torch.serving.reqtrace import LEDGER, STAGES
+    from vtpu_torch.serving.router import Router, RouterReject
+    from vtpu_torch.utils import trace
+
+    dmodel = (model.clone(kv_pool_blocks=decode_pool) if decode_pool
+              else model)
+    pf = PrefillEngine(model, device=model.device)
+    decs = {f"d{i}": DecodeEngine(dmodel, max_batch=8, replica_id=f"d{i}",
+                                  device=model.device)
+            for i in range(1 if mode == "wire" else 2)}
+    windows, in_window, first = [], [False], {}
+    prefill_forwards = [0]
+    for dec in decs.values():
+        timed_windows(dec, windows, in_window)
+        adopt, wopen = dec._adopt_group, dec.wire_open
+
+        def stamped_adopt(group, adopt=adopt):
+            adopt(group)
+            t = time.perf_counter()
+            for _slot, pa, _dst in group:
+                first.setdefault(pa.rid, t)
+
+        def stamped_open(rid, *a, wopen=wopen, dec=dec, **kw):
+            ctx = wopen(rid, *a, **kw)
+            if ctx is not None and rid in dec.out:  # speculative publish
+                first.setdefault(rid, time.perf_counter())
+            return ctx
+
+        dec._adopt_group, dec.wire_open = stamped_adopt, stamped_open
+    hook = model.register_forward_hook(
+        lambda *_: prefill_forwards.__setitem__(
+            0, prefill_forwards[0] + (not in_window[0])))
+    if mode == "wire":
+        reps = {"w0": ttp.WireReplica(
+            ttp.LoopbackLink(ttp.ReceiverHub(decs["d0"])), "w0",
+            local=decs["d0"], codec=codec)}
+    else:
+        reps = dict(decs)
+    router = Router(pf, reps, fail_threshold=ROUTER_FAIL_THRESHOLD,
+                    migrate_on_drain=False)
+    journal = events.journal()
+    was = trace.tracing()
+
+    def drive(reqs, tracing) -> dict:
+        """One run of ``reqs``; ``tracing`` True, False or "alternate"
+        (flipped at every pump, each window tagged with the state it was
+        dispatched under)."""
+        seq0 = journal.snapshot()[-1]["seq"] if len(journal) else 0
+        trace.tracing(tracing is True)
+        trace.clear()
+        LEDGER.clear()
+        windows.clear()
+        prefill_forwards[0] = 0
+        steps0 = sum(d.steps for d in decs.values())
+        shed0 = router.stats()["shed"]
+        host0 = tkv.HANDOFF_HOST_BYTES.value()
+        wire0 = ttp.TRANSPORT_BYTES.value()
+        parks0 = ttp.TRANSPORT_STREAMS.value(outcome="saturated")
+        submitted, route_of, rejects = {}, {}, [0]
+
+        def submit(rid, prompt, n, sess):
+            while True:
+                submitted[rid] = time.perf_counter()
+                try:
+                    route_of[rid] = router.submit(sess, rid, prompt, n)
+                    return
+                except RouterReject:
+                    rejects[0] += 1
+                    router.pump()
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        extra = {}
+        if drain:
+            for i, (rid, p, n) in enumerate(reqs[:8]):
+                submit(rid, p, n, f"sess{i % ROUTER_SESSIONS}")
+            while any(rid not in first for rid, *_ in reqs[:8]):
+                router.pump()
+            victim = collections.Counter(
+                route_of[rid] for rid, *_ in reqs[:8]).most_common(1)[0][0]
+            decs[victim].ping = lambda: False
+            for _ in range(ROUTER_FAIL_THRESHOLD):
+                router.check_health()
+                router.pump()
+            extra.update(victim=victim,
+                         drained=victim not in router.stats()["healthy"])
+            for i, (rid, p, n) in enumerate(reqs[8:]):
+                submit(rid, p, n, f"new{i}")
+        else:
+            for i, (rid, p, n) in enumerate(reqs):
+                submit(rid, p, n, f"sess{i % ROUTER_SESSIONS}")
+        tags = []
+        if tracing == "alternate":
+            while not router.idle():
+                on = not trace.tracing()
+                trace.tracing(on)
+                n0 = len(windows)
+                router.pump()
+                tags += [on] * (len(windows) - n0)
+            out = router.results()
+        else:
+            out = router.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        out = {rid: out[rid] for rid, *_ in reqs if rid in out}
+        ttfts = sorted(first[rid] - submitted[rid] for rid, *_ in reqs
+                       if rid in first)
+        ms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in windows)
+        toks = sum(k * a for k, a, *_ in windows)
+        replays = [w for w in windows if w[4]]
+        rms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in replays)
+        rsteps = sum(k for k, *_ in replays)
+        full = [w for w in replays if w[1] == 8]
+        fms = sum(s.elapsed_time(e) for _k, _a, s, e, *_ in full)
+        fsteps = sum(k for k, *_ in full)
+        pools = [pf.pool] + [d.pool for d in decs.values()]
+        leaked = sum(p.stats()["leased"] - p.stats()["prefix_blocks"]
+                     + p.stats()["detached_handles"] for p in pools)
+        # a rerun's ids are the first run's with a letter appended
+        want = {rid: mono[rid] if rid in mono else mono[rid[:-1]]
+                for rid, *_ in reqs}
+        pairs = [(x, y) for rid, *_ in reqs
+                 for x, y in zip(out.get(rid, []), want[rid])]
+        evs = [r for r in journal.snapshot() if r["seq"] > seq0]
+        met = dict(
+            requests=len(reqs), sessions=ROUTER_SESSIONS, tracing=tracing,
+            finished=sum(len(out.get(rid, [])) == n for rid, _p, n in reqs),
+            tokens_equal_mono=all(out.get(rid) == want[rid]
+                                  for rid, *_ in reqs),
+            agree_share=sum(x == y for x, y in pairs) / max(1, len(pairs)),
+            routes=dict(collections.Counter(route_of.values())),
+            rejects=rejects[0], router_shed=router.stats()["shed"] - shed0,
+            parks=int(ttp.TRANSPORT_STREAMS.value(outcome="saturated")
+                      - parks0),
+            handoff_host_bytes=int(tkv.HANDOFF_HOST_BYTES.value() - host0),
+            wire_bytes=int(ttp.TRANSPORT_BYTES.value() - wire0),
+            leaked_blocks=leaked,
+            tokens=sum(len(t) for t in out.values()), wall_s=wall,
+            tokens_per_s=sum(len(t) for t in out.values()) / wall,
+            decode_tokens_per_s=toks / (ms / 1e3) if ms else None,
+            decode_tokens_per_s_replayed=(
+                sum(k * act for k, act, *_ in replays) / (rms / 1e3)
+                if rms else None),
+            decode_step_ms_replayed=rms / rsteps if rsteps else None,
+            decode_step_ms_replayed_full=fms / fsteps if fsteps else None,
+            windows=len(windows), replayed_windows=len(replays),
+            ttft_s_min=ttfts[0] if ttfts else None,
+            ttft_s_p50=ttfts[len(ttfts) // 2] if ttfts else None,
+            ttft_s_max=ttfts[-1] if ttfts else None,
+            prefill_forwards=prefill_forwards[0],
+            decode_steps=sum(d.steps for d in decs.values()) - steps0,
+            events=collections.Counter(r["type"] for r in evs),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts, **extra)
+        if drain:
+            met.update(
+                drained_events=[r.get("node") for r in evs if r["type"]
+                                == events.EventType.REPLICA_DRAINED],
+                new_session_routes=sorted({route_of[rid]
+                                           for rid, *_ in reqs[8:]}),
+                victim_finished=sum(len(out.get(rid, [])) == n
+                                    for rid, _p, n in reqs[:8]
+                                    if route_of[rid] == extra["victim"]))
+        if tracing == "alternate":
+            def replay_ms(on):
+                ws = [w for w, t in zip(windows, tags) if w[4] and t == on]
+                return (sum(s.elapsed_time(e) for _k, _a, s, e, *_ in ws)
+                        / max(1, sum(k for k, *_ in ws)), len(ws))
+            (met["step_ms_on"], met["windows_on"]), (
+                met["step_ms_off"], met["windows_off"]) = (
+                replay_ms(True), replay_ms(False))
+        elif tracing:
+            docs = {rid: LEDGER.get(rid) for rid, *_ in reqs}
+            done = {rid: d for rid, d in docs.items()
+                    if d and d["ttft_s"] is not None and rid in first}
+            stages = {s: sorted(1e3 * d["stages"][s] for d in done.values())
+                      for s in STAGES[:5]}
+            errs = [abs(sum(d["stages"][s] for s in STAGES[:5])
+                        - (first[rid] - submitted[rid]))
+                    / (first[rid] - submitted[rid])
+                    for rid, d in done.items()]
+            spans = collections.Counter(
+                sp["name"] for sp in trace.recent_spans(n=2048))
+            met.update(
+                stage_ms_p50={s: v[len(v) // 2] if v else None
+                              for s, v in stages.items()},
+                stage_share_of_ttft_p50={
+                    s: (v[len(v) // 2] / (1e3 * met["ttft_s_p50"])
+                        if v and met["ttft_s_p50"] else None)
+                    for s, v in stages.items()},
+                requests_attributed=len(errs),
+                stage_sum_max_rel_err=max(errs) if errs else None,
+                ledger=LEDGER.stats(), spans=dict(spans),
+                span_count=sum(spans.values()))
+        else:
+            met.update(span_count=len(trace.recent_spans(n=2048)),
+                       ledger=LEDGER.stats())
+        return out, met
+
+    try:
+        out, met = drive(reqs, False)
+        if traced:
+            out_t, met["traced"] = drive(
+                [(rid + "t", p, n) for rid, p, n in reqs], True)
+            out_a, met["alternate"] = drive(
+                [(rid + "a", p, n) for rid, p, n in reqs], "alternate")
+            out.update(out_t)
+            out.update(out_a)
+    finally:
+        trace.tracing(was)
+        trace.clear()
+        LEDGER.clear()
+        hook.remove()
+        for dec in decs.values():
+            for attr in ("_step_k", "_adopt_group", "wire_open", "ping"):
+                dec.__dict__.pop(attr, None)  # the wrappers hold the engine
+    return out, met
+
+
+def check_router_arm(what: str, met: dict, depth: int) -> None:
+    check(met["finished"] == met["requests"], f"{what}: unfinished")
+    check(met["leaked_blocks"] == 0, f"{what}: leaked blocks")
+    check(met["replayed_windows"] > 0,
+          f"{what}: no decode window was a graph replay")
+    check(met["mem_left_after_release_gb"] < 0.5,
+          f"{what}: the arm kept {met['mem_left_after_release_gb']} GB")
+    check_launches(what, met, depth, "native")
+
+
+def router_phase(card: str, seed: int, serve_native: dict) -> dict:
+    """Phase 13 (the module docstring): the serve configuration at full
+    width behind the port's Router, then its f32 depth-2 exactness.
+    ``serve_native`` is the serve phase's native-pool metrics.  Returns
+    the kernels' launches over the arms."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerLM(**FULL, device="cuda", dtype=torch.bfloat16,
+                          generator=gen)  # the serve phase's weights
+    depth = model.depth
+    reqs = make_requests(seed)
+    mono, ref_met = serve(model, reqs, count=False)
+    # the monolithic engine of this phase, beside the serve phase's: a
+    # fresh engine's replayed step varies between instances (PERF.md)
+    emit(phase="router_reference", engine="PagedBatcher",
+         decode_step_ms_replayed=ref_met["decode_step_ms_replayed"],
+         serve_phase_step_ms_replayed=serve_native["decode_step_ms_replayed"],
+         card=card)
+    launches, mets = {}, {}
+    arms = (("a_copy", dict(mode="copy", traced=True)),
+            ("c_wire_int8", dict(mode="wire", codec="int8",
+                                 decode_pool=ROUTER_SATURATE_POOL)),
+            ("d_drain", dict(mode="copy", drain=True)))
+    for name, kw in arms:
+        torch.cuda.reset_peak_memory_stats()
+        _out, met = release_arm(router_arm, model, reqs, mono, **kw)
+        runs = [(name, met)]
+        if "traced" in met:  # arm (b): the same engines, tracing on
+            alt = met.pop("alternate")
+            check_launches("alternating run", alt, depth, "native")
+            tally(launches, alt["launches"])
+            met["traced"]["mem_left_after_release_gb"] = met[
+                "mem_left_after_release_gb"]
+            runs.append(("b_copy_traced", met.pop("traced")))
+        for what, m in runs:
+            mets[what] = m
+            emit(phase="router", arm=what, depth=depth, dtype="bfloat16",
+                 codec=kw.get("codec"), decode_pool=kw.get("decode_pool"),
+                 reduced=REDUCED, agree_note="information only: bf16 "
+                 "admission groups round differently from the monolithic "
+                 "engine's", card=card, **m)
+            check_router_arm(what, m, depth)
+            check(m["handoff_host_bytes"] == (
+                m["wire_bytes"] if kw["mode"] == "wire" else 0),
+                f"{what}: {m['handoff_host_bytes']} handoff host bytes")
+            tally(launches, m["launches"])
+    a, b, c, d = (mets[k] for k in ("a_copy", "b_copy_traced",
+                                    "c_wire_int8", "d_drain"))
+    check(a["span_count"] == 0 and a["ledger"]["completed"] == 0,
+          "tracing off recorded spans or ledger records")
+    check(b["requests_attributed"] == len(reqs)
+          and b["stage_sum_max_rel_err"] <= 0.05,
+          f"traced arm: {b['requests_attributed']} records, stage sums "
+          f"{b['stage_sum_max_rel_err']} off the measured TTFT")
+    check(c["parks"] > 0, "the wire arm never parked a handoff")
+    check(d["drained"] and d["victim"] in d["drained_events"],
+          "the failing replica was not drained")
+    check(d["new_session_routes"] == sorted(
+        set(d["routes"]) - {d["victim"]}) and d["victim_finished"] > 0,
+          f"drain: new sessions went to {d['new_session_routes']}")
+    # the hooks' device cost: the replayed windows dispatched with tracing
+    # on against those with it off, alternating pump by pump on the same
+    # engines; the separate runs' steps, the serve phase's and this
+    # phase's monolithic engine's beside them (a fresh run's step moves
+    # by up to 9 % between runs, PERF.md)
+    step, on = a["decode_step_ms_replayed"], b["decode_step_ms_replayed"]
+    ratio = (alt["step_ms_on"] / alt["step_ms_off"]
+             if alt["windows_on"] and alt["windows_off"] else None)
+    emit(phase="router_overhead", alternate_step_ms_on=alt["step_ms_on"],
+         alternate_step_ms_off=alt["step_ms_off"],
+         alternate_windows=[alt["windows_on"], alt["windows_off"]],
+         alternate_on_over_off=ratio, alternate_finished=alt["finished"],
+         step_ms_replayed_off=step, step_ms_replayed_on=on,
+         serve_phase_step_ms_replayed=serve_native["decode_step_ms_replayed"],
+         off_over_serve_phase=(
+             step / serve_native["decode_step_ms_replayed"] if step
+             else None),
+         reference_step_ms_replayed=ref_met["decode_step_ms_replayed"],
+         tokens_per_s_off=a["tokens_per_s"], tokens_per_s_on=b["tokens_per_s"],
+         decode_tokens_per_s_replayed_off=a["decode_tokens_per_s_replayed"],
+         decode_tokens_per_s_replayed_on=b["decode_tokens_per_s_replayed"],
+         ttft_s_p50_off=a["ttft_s_p50"], ttft_s_p50_on=b["ttft_s_p50"],
+         card=card)
+    check(alt["finished"] == len(reqs) and alt["leaked_blocks"] == 0,
+          "alternating run: unfinished or leaked")
+    check(ratio is not None and abs(ratio - 1) <= 0.05,
+          f"replayed step {alt['step_ms_on']} ms traced against "
+          f"{alt['step_ms_off']} untraced")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) f32, depth 2: the Router's transcripts are the monolithic
+    # engine's, for the copy arm and the fp32 wire arm (parking too)
+    small = TransformerLM(**dict(FULL, depth=2), device="cuda",
+                          dtype=torch.float32,
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(seed))
+    smono = serve(small, reqs, count=False)[0]
+    for name, kw in (("e_copy_f32", dict(mode="copy")),
+                     ("e_wire_fp32", dict(mode="wire", codec="fp32",
+                                          decode_pool=ROUTER_SATURATE_POOL))):
+        _out, met = release_arm(router_arm, small, reqs, smono, **kw)
+        emit(phase="router_exactness", arm=name, depth=2, dtype="float32",
+             codec=kw.get("codec"), token_identical=met["tokens_equal_mono"],
+             routes=met["routes"], parks=met["parks"],
+             leaked_blocks=met["leaked_blocks"],
+             handoff_host_bytes=met["handoff_host_bytes"],
+             launches=met["launches"], card=card)
+        check(met["tokens_equal_mono"],
+              f"{name}: the Router's tokens differ from the monolithic "
+              f"engine's")
+        check_router_arm(name, met, 2)
+        tally(launches, met["launches"])
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="router_phase", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2820,7 +3235,8 @@ def main() -> int:
     rows = {"fused_layernorm": layernorm_phase(card, gen),
             **paged_phase(card, gen, args.seed), **flash_phase(card, gen)}
     wide_heads_phase(card, gen)
-    model, reqs, results, launches = serve_phase(card, args.seed)
+    model, reqs, results, launches, serve_mets = serve_phase(card,
+                                                            args.seed)
     profile_phase(card, model, reqs)
     exactness_phase(card, args.seed, model, reqs, results["native"])
     t_dense = time.perf_counter()
@@ -2840,6 +3256,7 @@ def main() -> int:
     resnet_f32_phase(card, args.seed)
     node_phase(card, share_phase(card))
     tally(launches, disagg_phase(card, args.seed, results))
+    tally(launches, router_phase(card, args.seed, serve_mets["native"]))
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

@@ -39,8 +39,17 @@ group's row bucket, each row's first token is the argmax at its true
 last prompt token, and the rows replace whole rows of the batch cache
 (``index_copy_``, in place, for the graphs) with their true positions.
 A prompt longer than ``prefill_chunk`` prefills in a row cache of its
-own, one chunk per ``step()``.  Tracing hooks (request ledger, spans,
-histograms) come with the observability slice.
+own, one chunk per ``step()``.
+
+Observability, at the reference's sites: ``LEDGER.ensure`` at submit,
+the ``prefill_start``/``prefill_done`` marks around each admission
+forward, ``first_token`` where the host first holds the token (the
+harvest's flush), ``token`` and ``finish`` at harvest; the
+``decode_window`` span, the dispatch histogram and the windows counter
+around the call that enqueues a window (on CUDA, the graph replay).  No
+hook sits inside a captured window: host code in a captured region runs
+once, at capture.  With tracing off the ledger and spans cost one flag
+check; the histograms, gauges and counters always count.
 
 Greedy decoding; every request's tokens are identical to the JAX
 engine's on the same weights and schedule (tests/test_torch_dense.py,
@@ -57,10 +66,43 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from vtpu_torch import obs
 from vtpu_torch.device import resolve_device
 from vtpu_torch.models.transformer import TransformerLM, bucket_length
 from vtpu_torch.ops.layernorm import fused_layernorm
 from vtpu_torch.ops.paged_attention import paged_attention_decode
+from vtpu_torch.serving.reqtrace import LEDGER
+from vtpu_torch.utils import trace
+
+_REG = obs.registry("serving")
+
+# submit() -> the request's first harvested token (queue wait + prefill)
+_QTFT_HIST = _REG.histogram(
+    "vtpu_batcher_queue_to_first_token_seconds",
+    "Latency from submit() to the request's first generated token",
+)
+# per-window host cost of the wait for tokens and the harvest;
+# overlapped=yes: a newer window was already queued on the device
+_HARVEST_HIST = _REG.histogram(
+    "vtpu_batcher_harvest_overlap_seconds",
+    "Host time to materialize and harvest one decode window's tokens",
+)
+_DISPATCH_HIST = _REG.histogram(
+    "vtpu_batcher_window_dispatch_seconds",
+    "Host time to enqueue one fused decode window (async dispatch)",
+)
+_DEPTH_GAUGE = _REG.gauge(
+    "vtpu_batcher_dispatch_depth_ratio",
+    "In-flight decode windows over the configured pipeline_depth",
+)
+_ACTIVE_GAUGE = _REG.gauge(
+    "vtpu_batcher_slots_active_ratio",
+    "Active decode slots over max_batch",
+)
+_WINDOWS_TOTAL = _REG.counter(
+    "vtpu_batcher_windows_dispatched_total",
+    "Fused decode windows dispatched to the device",
+)
 
 
 @dataclasses.dataclass
@@ -68,6 +110,7 @@ class _Request:
     rid: str
     prompt: np.ndarray  # [s] int32
     num_new: int
+    submitted: float = 0.0  # perf_counter at submit()
 
 
 class _HostCopy:
@@ -240,7 +283,9 @@ class ContinuousBatcher:
         if rid in self._rids:
             raise ValueError(f"duplicate request id {rid!r}")
         self._rids.add(rid)
-        self.queue.append(_Request(rid, prompt, num_new))
+        LEDGER.ensure(rid)  # direct-submit topologies skip the router
+        self.queue.append(_Request(rid, prompt, num_new,
+                                   submitted=time.perf_counter()))
         self._admit_pending()
 
     def _free_slots(self) -> List[int]:
@@ -321,6 +366,7 @@ class ContinuousBatcher:
             by_bucket.setdefault(self._bucket_len(req.prompt.size),
                                  []).append((slot, req))
         dev = self.device
+        tr = trace.tracing()
         for blen, sub in by_bucket.items():
             n = len(sub)
             rows = self._bucket_rows(n)
@@ -329,10 +375,18 @@ class ContinuousBatcher:
                 toks[r, :req.prompt.size] = req.prompt
             lens = np.asarray([req.prompt.size for _s, req in sub], np.int32)
             tmpl = self._row_template(rows)
+            if tr:
+                for _slot, req in sub:
+                    LEDGER.mark(req.rid, "prefill_start")
             logits = self.model(torch.as_tensor(toks, device=dev), tmpl)
             last = torch.as_tensor(lens - 1, device=dev).long()
             firsts = logits[torch.arange(n, device=dev), last].argmax(
                 dim=-1).to(torch.int32)
+            if tr:
+                # the enqueue boundary: the device's residue shows up in
+                # decode_window, at the harvest that reads the token
+                for _slot, req in sub:
+                    LEDGER.mark(req.rid, "prefill_done")
             # the reference scatters every row and drops the pad rows
             # (slot index max_batch is out of bounds there); index_copy_
             # raises on such an index, so only the group's rows go
@@ -388,13 +442,24 @@ class ContinuousBatcher:
             self._maybe_retire(slot)
 
     def _flush_first_tokens(self) -> None:
-        """Materialize every pending admission's first token (FIFO)."""
+        """Materialize every pending admission's first token (FIFO): the
+        host holds it here, so this is where the ledger's first_token
+        mark goes."""
+        tr = trace.tracing()
         while self._pending_first:
             firsts, items, issued = self._pending_first.popleft()
             vals = self._fetch(firsts, issued)
             for (slot, req), v in zip(items, vals):
                 first = int(v)
                 self.out[req.rid].append(first)
+                if req.submitted:
+                    _QTFT_HIST.observe(time.perf_counter() - req.submitted)
+                if tr:
+                    LEDGER.first_token(req.rid)
+                    if len(self.out[req.rid]) >= req.num_new:
+                        # num_new == 1: retired at admission, before
+                        # this flush could see the token
+                        LEDGER.finish(req.rid)
                 # freeze only if the rid still owns the slot
                 if (self.rid[slot] == req.rid and self.eos_id is not None
                         and first == self.eos_id):
@@ -431,9 +496,15 @@ class ContinuousBatcher:
 
     def _maybe_retire(self, slot: int) -> None:
         if self.remaining[slot] <= 0:
+            rid = self.rid[slot]
             self.active[slot] = False
             self.rid[slot] = None
             self._on_retire(slot)
+            # an instant retirement whose transcript already holds its
+            # tokens (an adoption published the first token) closes its
+            # record now; a pending first token closes it at the flush
+            if rid is not None and self.out.get(rid) and trace.tracing():
+                LEDGER.finish(rid)
 
     # ------------------------------------------------------------------
     def _inflight_tokens(self) -> int:
@@ -461,7 +532,13 @@ class ContinuousBatcher:
         if not self._inflight:
             return
         toks, rids, _k, issued = self._inflight.popleft()
+        overlapped = bool(self._inflight)
+        t0 = time.perf_counter()
         self._harvest_window(self._fetch(toks, issued), rids)
+        _HARVEST_HIST.observe(time.perf_counter() - t0,
+                              overlapped="yes" if overlapped else "no")
+        _DEPTH_GAUGE.set(len(self._inflight) / max(1, self.pipeline_depth))
+        _ACTIVE_GAUGE.set(sum(self.active) / max(1, self.max_batch))
 
     def _harvest_window(self, toks_np, rids) -> None:
         """Append a [k, b] window of tokens to each request active in
@@ -469,6 +546,7 @@ class ContinuousBatcher:
         while the window was in flight does not take its tokens), with
         EOS freeze and overshoot drop."""
         self._flush_first_tokens()
+        tr = trace.tracing()  # once per window, not per token
         k = toks_np.shape[0]
         finished = []
         for i in range(self.max_batch):
@@ -485,6 +563,8 @@ class ContinuousBatcher:
                     self.done_frozen[i] = True
                 self.out[rid].append(t)
                 self.remaining[i] -= 1
+                if tr:
+                    LEDGER.token(rid)
             if self.remaining[i] <= 0:
                 finished.append(i)
         for i in finished:
@@ -492,6 +572,9 @@ class ContinuousBatcher:
             self.rid[i] = None
         if finished:
             self._retire_rows(finished)
+            if tr:
+                for i in finished:
+                    LEDGER.finish(rids[i])
         self._admit_pending()
 
     def step(self) -> None:
@@ -511,10 +594,19 @@ class ContinuousBatcher:
         if k == 0:
             self._harvest_oldest()
             return
+        t0 = time.perf_counter()
+        # the span records the enqueue of the window (on CUDA, of its
+        # graph replay), as the reference's records the async dispatch;
+        # {} while tracing is off
+        sp = trace.start_span("decode_window", k=k, active=sum(self.active))
         toks = self._step_k(k)
+        trace.end_span(sp)
+        _DISPATCH_HIST.observe(time.perf_counter() - t0)
+        _WINDOWS_TOTAL.inc()
         self.steps += k
         self._inflight.append((_HostCopy(toks), list(self.rid), k,
                                time.perf_counter()))
+        _DEPTH_GAUGE.set(len(self._inflight) / max(1, self.pipeline_depth))
         while len(self._inflight) > self.pipeline_depth:
             self._harvest_oldest()
 

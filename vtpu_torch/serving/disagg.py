@@ -64,6 +64,14 @@ The rest of the JAX engines' surface:
   An export drains the windows in flight and parks the slot's table row
   on the garbage block before the next window, so no captured window
   writes into blocks that now belong to a handle.
+
+Observability, at the JAX engines' sites: the request ledger's
+``ensure``, ``prefill_start``, ``prefill_done``, ``handoff_done``,
+``adopted`` and ``first_token`` marks (a decode engine holds the first
+token on the host at adoption, or at a speculative OPEN), the
+``prefill``, ``kv_spill_demote`` and ``kv_spill_onload`` spans, the
+``spill_onload`` pause, and the pool counters (``kvpool._REGISTRY_OF``).
+All of it is host code outside every captured decode window.
 """
 
 from __future__ import annotations
@@ -98,9 +106,12 @@ from vtpu_torch.serving.kvpool import (
     PoolMismatchError,
 )
 from vtpu_torch.serving.migrate import SessionExport, SessionGoneError
+from vtpu_torch.serving.batcher import _QTFT_HIST
 from vtpu_torch.serving.paged import PagedBatcher, pool_prefill, suffix_bucket
 from vtpu_torch.serving.prefix import chain_digests
+from vtpu_torch.serving.reqtrace import LEDGER
 from vtpu_torch.serving.transport import WireError
+from vtpu_torch.utils import trace
 from vtpu_torch.utils.envs import env_bool, env_str
 
 __all__ = ["DecodeEngine", "HostExtract", "PrefillEngine",
@@ -524,25 +535,31 @@ class PrefillEngine:
             if cand is None:
                 break
             chain, run = cand
-            ex = self.start_extract(run, codec=self._spill_codec)
-            payload = ex.payload(0, len(run))  # waits for the D2H
-            self.pool.store_spilled(chain, payload, self._spill_codec)
-            self.spill_demotions += 1
-            progressed = True
-            if self._persist is not None:
-                self._persist.append(chain, payload, self._spill_codec,
-                                     self.block_size)
-                self.pool.set_disk_blocks(self._persist.blocks_journaled)
+            with trace.span("kv_spill_demote", blocks=len(run),
+                            codec=self._spill_codec):
+                ex = self.start_extract(run, codec=self._spill_codec)
+                payload = ex.payload(0, len(run))  # waits for the D2H
+                self.pool.store_spilled(chain, payload, self._spill_codec)
+                self.spill_demotions += 1
+                progressed = True
+                if self._persist is not None:
+                    self._persist.append(chain, payload, self._spill_codec,
+                                         self.block_size)
+                    self.pool.set_disk_blocks(
+                        self._persist.blocks_journaled)
         return progressed and self.pool.free_blocks() >= need
 
-    def _maybe_onload(self, chain: List[str], max_blocks: int) -> None:
+    def _maybe_onload(self, chain: List[str], max_blocks: int,
+                      rid: Optional[str] = None) -> None:
         """A host-tier run deeper than the device registry's match: lease
         blocks (demoting others if need be), scatter the dequantized
         payload into them and register the chain, so the admission's
         ``match_and_ref`` right after hits on the device.  Demotion, to
         make room, never picks the run being onloaded (it is spilled, not
         registered), so two runs cannot take turns evicting each other.
-        When no blocks can be had, the prompt prefills from scratch."""
+        When no blocks can be had, the prompt prefills from scratch.
+        ``rid`` (tracing on) takes the onload as its ``spill_onload``
+        pause."""
         if not self.host_spill or not chain:
             return
         hit = self.pool.match_spilled(chain, max_blocks)
@@ -558,11 +575,16 @@ class PrefillEngine:
             blocks = self.pool.try_lease(k)
         if blocks is None:
             return
-        self._spill_scatter(blocks, payload, codec)
-        self.pool.register_prefix(sub_chain, blocks)
-        self.pool.release(blocks)  # the registry's pins keep them
+        t_sp = time.perf_counter()
+        with trace.span("kv_spill_onload", blocks=k, codec=codec,
+                        ctx=LEDGER.ctx(rid) if rid is not None else None):
+            self._spill_scatter(blocks, payload, codec)
+            self.pool.register_prefix(sub_chain, blocks)
+            self.pool.release(blocks)  # the registry's pins keep them
         self.spill_onloads += 1
         self.pool.count(spill_onloads=1)
+        if rid is not None:
+            LEDGER.pause(rid, "spill_onload", time.perf_counter() - t_sp)
 
     def _spill_scatter(self, blocks: List[int], payload: bytes,
                        codec: str) -> None:
@@ -610,6 +632,9 @@ class PrefillEngine:
             chain = chain_digests(p.tolist(), self.block_size)
         self.queue.append((rid, p, num_new, time.perf_counter(),
                            list(chain)))
+        # a record for direct-submit topologies (a router minted one
+        # already; idempotent, and a no-op while tracing is off)
+        LEDGER.ensure(rid)
 
     def step(self) -> List[PrefillResult]:
         """One admission round: take as many queued prompts as the pool
@@ -619,6 +644,7 @@ class PrefillEngine:
         (shared, never copied) and only its suffix prefills, from the
         matched position.  The first tokens are the only host
         materialization -- tokens, never cache contents."""
+        tr = trace.tracing()
         taken: List[Tuple] = []
         while self.queue:
             rid, p, num_new, t0, chain = self.queue[0]
@@ -627,7 +653,8 @@ class PrefillEngine:
             if chain:
                 # leave >= 1 suffix token: admission needs its logits
                 max_blocks = (p.size - 1) // self.block_size
-                self._maybe_onload(chain, max_blocks)
+                self._maybe_onload(chain, max_blocks,
+                                   rid=rid if tr else None)
                 shared, k = self.pool.match_and_ref(chain, max_blocks)
                 shared_tok = k * self.block_size
             need = self._blocks_needed(p.size, num_new) - len(shared)
@@ -655,6 +682,15 @@ class PrefillEngine:
                           shared_tok))
         if not taken:
             return []
+        # router_queue ends and prefill_compute begins for every taken
+        # prompt
+        pf_spans: Dict[str, dict] = {}
+        if tr:
+            for item in taken:
+                LEDGER.mark(item[0], "prefill_start")
+                pf_spans[item[0]] = trace.start_span(
+                    "prefill", ctx=LEDGER.ctx(item[0]), rid=item[0],
+                    prompt_tokens=int(item[1].size))
         by_bucket: Dict[int, list] = {}
         for item in taken:
             by_bucket.setdefault(
@@ -683,6 +719,9 @@ class PrefillEngine:
                 handle = self.pool.detach(blocks, seq_len=int(p.size))
                 out.append(PrefillResult(rid, int(first), handle, num_new,
                                          t0, chain=tuple(chain)))
+                if tr:
+                    LEDGER.mark(rid, "prefill_done")
+                    trace.end_span(pf_spans.pop(rid, {}))
         self.prefills += len(out)
         return out
 
@@ -809,6 +848,9 @@ class DecodeEngine(PagedBatcher):
         self.queue.append(_PendingAdopt(
             rid, blocks, handle.seq_len, int(first_token), num_new, mode,
             src, submitted, chain=list(chain) if chain else None))
+        # in-process handoff: wire_transfer is zero-width (a wire stream
+        # marks this at its FIN instead)
+        LEDGER.mark(rid, "handoff_done")
         if admit:
             self._admit_pending()
 
@@ -1041,6 +1083,10 @@ class DecodeEngine(PagedBatcher):
                     except (KeyError, TypeError, ValueError):
                         self.out[rid] = [first]  # malformed: FIN decides
                     self.pool.count(spec_adoptions=1)
+                    # the speculative publish is the first token (the
+                    # loopback topologies share the sender's ledger; a
+                    # remote receiver has no record and this is a no-op)
+                    LEDGER.first_token(rid)
         return ctx
 
     def wire_credits(self, ctx) -> int:
@@ -1101,6 +1147,7 @@ class DecodeEngine(PagedBatcher):
 
     def wire_finish(self, ctx, meta: dict) -> None:
         ctx["closed"] = True
+        LEDGER.mark(ctx["rid"], "handoff_done")
         ctx["finished"] = time.perf_counter()
         sess = (meta or {}).get("session")
         try:
@@ -1223,6 +1270,7 @@ class DecodeEngine(PagedBatcher):
         # host bookkeeping: the first token is a known int (the prefill
         # harvested it as a token; cache contents never reach the host).
         # A migrated session resumes its whole transcript and EOS state.
+        tr = trace.tracing()
         for slot, pa, dst in group:
             tail = pa.tail if pa.tail is not None else [pa.first]
             self.rid[slot] = pa.rid
@@ -1238,6 +1286,13 @@ class DecodeEngine(PagedBatcher):
                 # enqueued above, so later readers see written blocks)
                 self.pool.register_prefix(pa.chain[:len(dst)], dst)
                 self._slot_chain[slot] = list(pa.chain)
+            if pa.submitted:
+                _QTFT_HIST.observe(time.perf_counter() - pa.submitted)
+            if tr:
+                # adoption ends here; without a speculative publish this
+                # is also the first token (first_token is idempotent)
+                LEDGER.mark(pa.rid, "adopted")
+                LEDGER.first_token(pa.rid)
             self._maybe_retire(slot)
 
     def _bind_rows(self, entries) -> None:

@@ -23,9 +23,15 @@ opaque quantized payloads, LRU and byte-capped).  The device halves of
 demotion and onload live in ``vtpu_torch/serving/disagg.py``; this
 module is host bookkeeping only.
 
-The JAX package's metrics are plain integers in :meth:`BlockPool.stats`
-here: the handoff, prefix and spill counters (``COUNTERS``) and the tier
-block counts (``prefix_blocks``, ``spilled_blocks``, ``disk_blocks``).
+Metrics: every count goes both into the pool's own integers
+(``COUNTERS``, in :meth:`BlockPool.stats`) and into the port's ``serving``
+registry under the JAX package's family names (``vtpu_kv_handoff_*``,
+``vtpu_kv_speculative_*``, ``vtpu_prefix_cache_*``, ``vtpu_kv_spill_*``,
+``_REGISTRY_OF``); the per-pool gauges ``vtpu_prefix_cache_blocks_total``
+and ``vtpu_kv_pool_blocks_total`` follow the same mutations as the JAX
+pool's, and :meth:`BlockPool.close` prunes them.
+``vtpu_kv_handoff_host_bytes_total`` is the tripwire: the in-process
+adoptions keep it at 0, and only a wire stream's chunks add to it.
 """
 
 from __future__ import annotations
@@ -36,10 +42,113 @@ import threading
 import uuid
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from vtpu_torch import obs
 from vtpu_torch.utils.envs import env_int
+
+_REG = obs.registry("serving")
 
 DEFAULT_PREFIX_CAP = env_int("VTPU_PREFIX_CACHE_CAP", 512)
 DEFAULT_SPILL_MAX_BYTES = env_int("VTPU_KV_SPILL_MAX_BYTES", 1 << 30)
+
+# K/V handoff instrumentation (docs/observability.md §Serving): adopt
+# outcomes by mode (shared = same-pool zero-copy rebind, copy = fused
+# cross-pool device scatter), blocks moved, and the two byte counters —
+# device bytes ride the fused program, host bytes MUST stay 0 (the
+# disagg bench asserts it; any increment means a handoff regressed into
+# a host-numpy round trip).
+HANDOFF_TOTAL = _REG.counter(
+    "vtpu_kv_handoff_total",
+    "K/V handle adoptions by mode (shared = zero-copy rebind, "
+    "copy = fused cross-pool device transfer)",
+)
+HANDOFF_BLOCKS = _REG.counter(
+    "vtpu_kv_handoff_blocks_total",
+    "Pool blocks moved (or rebound) by K/V handle adoptions",
+)
+HANDOFF_DEVICE_BYTES = _REG.counter(
+    "vtpu_kv_handoff_device_bytes_total",
+    "K/V bytes moved device-side by cross-pool handle adoptions",
+)
+HANDOFF_HOST_BYTES = _REG.counter(
+    "vtpu_kv_handoff_host_bytes_total",
+    "K/V cache bytes that crossed the host on a handoff path.  The "
+    "in-process adopt modes (shared rebind, fused cross-pool copy) "
+    "never materialize cache contents in host numpy, so they keep this "
+    "at 0 (the disagg bench still asserts that); the WIRE transport "
+    "(vtpu/serving/transport.py) deliberately stages bytes through the "
+    "host and accounts them here, matching "
+    "vtpu_kv_transport_bytes_total",
+)
+HANDOFF_STALE = _REG.counter(
+    "vtpu_kv_handoff_stale_total",
+    "Handle adoptions rejected because the generation stamp was stale",
+)
+
+# Speculative wire adoption (docs/serving.md §Wire transport): streams
+# whose slot/first-token bind began before FIN, and the rollbacks that
+# un-published them on abort/torn-stream exhaustion.
+SPEC_ADOPTIONS = _REG.counter(
+    "vtpu_kv_speculative_adoptions_total",
+    "Wire streams speculatively adopted (slot reserved and first token "
+    "published at OPEN, before FIN)",
+)
+SPEC_ROLLBACKS = _REG.counter(
+    "vtpu_kv_speculative_rollbacks_total",
+    "Speculative wire adoptions rolled back (stream aborted or torn "
+    "past its resume budget before FIN) — slot freed, first token "
+    "retracted, destination blocks released",
+)
+
+# Cluster-wide prefix cache (docs/serving.md §Prefix cache): pool-
+# registry outcomes plus a per-pool gauge of registry-pinned blocks.
+PREFIX_HITS = _REG.counter(
+    "vtpu_prefix_cache_hits_total",
+    "Prompt-prefix registry matches (prefill recompute skipped for the "
+    "matched block run)",
+)
+PREFIX_MISSES = _REG.counter(
+    "vtpu_prefix_cache_misses_total",
+    "Prompt-prefix registry lookups that matched nothing",
+)
+PREFIX_EVICTIONS = _REG.counter(
+    "vtpu_prefix_cache_evictions_total",
+    "Prefix runs evicted from a pool registry (LRU cap or lease "
+    "pressure)",
+)
+PREFIX_BLOCKS = _REG.gauge(
+    "vtpu_prefix_cache_blocks_total",
+    "Distinct pool blocks currently pinned by the prefix registry, "
+    "per pool",
+)
+
+# K/V memory hierarchy (docs/serving.md §Memory hierarchy): per-pool
+# block residency by tier, plus the demote/onload/rehydrate flow
+# counters.  device = the physical pool; host = blocks' worth of
+# demoted (quantized) prefix payloads held in host buffers; disk =
+# blocks' worth journaled by the persistence store
+# (vtpu/serving/kvpersist.py).  ``BlockPool.close()`` prunes a pool's
+# series so churned pools don't grow the registry without bound.
+POOL_TIER_BLOCKS = _REG.gauge(
+    "vtpu_kv_pool_blocks_total",
+    "Pool blocks resident per memory tier (device = physical pool, "
+    "host = demoted quantized prefix payloads, disk = journaled by the "
+    "persistence store), per pool",
+)
+SPILL_DEMOTIONS = _REG.counter(
+    "vtpu_kv_spill_demotions_total",
+    "Registered prefix runs demoted from device blocks to the host "
+    "spill tier (gathered and quantized at demotion)",
+)
+SPILL_ONLOADS = _REG.counter(
+    "vtpu_kv_spill_onloads_total",
+    "Spilled prefix runs onloaded back into device blocks on a prompt "
+    "match (dequantizing adoption scatter)",
+)
+SPILL_REHYDRATIONS = _REG.counter(
+    "vtpu_kv_spill_rehydrations_total",
+    "Prefix runs rehydrated into the host tier from the on-disk "
+    "persistence journal after a restart",
+)
 
 # the plain-integer counters of stats(): adoptions (mode = shared, copy
 # or wire), blocks adopted, bytes moved device-side by cross-pool copies,
@@ -53,6 +162,25 @@ COUNTERS = ("handoff_shared", "handoff_copy", "handoff_wire",
             "handoff_stale", "spec_adoptions", "spec_rollbacks",
             "prefix_hits", "prefix_misses", "prefix_evictions",
             "spill_demotions", "spill_onloads", "spill_rehydrations")
+
+# pool counter -> (registry family, labels): the JAX package's sites
+_REGISTRY_OF = {
+    "handoff_shared": (HANDOFF_TOTAL, {"mode": "shared"}),
+    "handoff_copy": (HANDOFF_TOTAL, {"mode": "copy"}),
+    "handoff_wire": (HANDOFF_TOTAL, {"mode": "wire"}),
+    "handoff_blocks": (HANDOFF_BLOCKS, {}),
+    "handoff_device_bytes": (HANDOFF_DEVICE_BYTES, {}),
+    "handoff_host_bytes": (HANDOFF_HOST_BYTES, {}),
+    "handoff_stale": (HANDOFF_STALE, {}),
+    "spec_adoptions": (SPEC_ADOPTIONS, {}),
+    "spec_rollbacks": (SPEC_ROLLBACKS, {}),
+    "prefix_hits": (PREFIX_HITS, {}),
+    "prefix_misses": (PREFIX_MISSES, {}),
+    "prefix_evictions": (PREFIX_EVICTIONS, {}),
+    "spill_demotions": (SPILL_DEMOTIONS, {}),
+    "spill_onloads": (SPILL_ONLOADS, {}),
+    "spill_rehydrations": (SPILL_REHYDRATIONS, {}),
+}
 
 
 class KVHandoffError(RuntimeError):
@@ -162,6 +290,7 @@ class BlockPool:
         self._disk_blocks = 0
         self.counters: "collections.Counter[str]" = collections.Counter(
             {k: 0 for k in COUNTERS})
+        self._tier_gauge()
 
     # -- leases ---------------------------------------------------------
     def leasable(self) -> int:
@@ -254,7 +383,7 @@ class BlockPool:
             if blocks is None or blocks != handle.blocks:
                 if blocks is not None:  # stamp reused with other blocks
                     self._detached[handle.stamp] = blocks
-                self.counters["handoff_stale"] += 1
+                self.count(handoff_stale=1)
                 raise StaleHandleError(
                     f"pool {self.pool_id}: handle stamp {handle.stamp} is "
                     f"stale (already adopted or released)")
@@ -281,6 +410,18 @@ class BlockPool:
     # block, so a run outlives the lease that wrote it; eviction drops
     # the pins, and the blocks free when their last sharer releases.
 
+    def _prefix_gauge(self) -> None:
+        PREFIX_BLOCKS.set(float(len(self._prefix_pins)), pool=self.pool_id)
+
+    def _tier_gauge(self) -> None:
+        POOL_TIER_BLOCKS.set(float(self.total_blocks),
+                             pool=self.pool_id, tier="device")
+        POOL_TIER_BLOCKS.set(
+            float(sum(len(e.chain) for e in self._spilled.values())),
+            pool=self.pool_id, tier="host")
+        POOL_TIER_BLOCKS.set(float(self._disk_blocks),
+                             pool=self.pool_id, tier="disk")
+
     def _drop_prefix_entry(self, digest: str) -> None:
         run = self._prefix_runs.pop(digest)
         for b in run:
@@ -291,7 +432,7 @@ class BlockPool:
 
     def _evict_prefix_entry(self) -> None:
         self._drop_prefix_entry(next(iter(self._prefix_runs)))
-        self.counters["prefix_evictions"] += 1
+        self.count(prefix_evictions=1)
 
     def register_prefix(self, chain: Sequence[str],
                         blocks: Sequence[int]) -> None:
@@ -321,6 +462,7 @@ class BlockPool:
                 self._prefix_runs[digest] = run
             while len(self._prefix_runs) > self.prefix_cap:
                 self._evict_prefix_entry()
+            self._prefix_gauge()
 
     def match_and_ref(self, chain: Sequence[str],
                       max_blocks: int) -> Tuple[List[int], int]:
@@ -387,9 +529,10 @@ class BlockPool:
                                if d in self._spilled_digests), None)
                 if backed is not None:
                     self._drop_prefix_entry(backed)
-                    self.counters["prefix_evictions"] += 1
+                    self.count(prefix_evictions=1)
                 else:
                     self._evict_prefix_entry()
+            self._prefix_gauge()
             return len(self.free) >= need
 
     # -- host spill tier -------------------------------------------------
@@ -440,7 +583,9 @@ class BlockPool:
                     self._drop_prefix_entry(d)
             self._insert_spilled(SpilledPrefix(chain, bytes(payload),
                                                str(codec)))
-            self.counters["spill_demotions"] += 1
+            self.count(spill_demotions=1)
+            self._prefix_gauge()
+            self._tier_gauge()
 
     def rehydrate_spilled(self, chain: Sequence[str], payload: bytes,
                           codec: str) -> bool:
@@ -453,7 +598,8 @@ class BlockPool:
         with self._lock:
             self._insert_spilled(SpilledPrefix(chain, bytes(payload),
                                                str(codec)))
-            self.counters["spill_rehydrations"] += 1
+            self.count(spill_rehydrations=1)
+            self._tier_gauge()
             return True
 
     def match_spilled(self, chain: Sequence[str], max_blocks: int,
@@ -484,19 +630,28 @@ class BlockPool:
         """The persistence journal's block count (``disk_blocks``)."""
         with self._lock:
             self._disk_blocks = int(n)
+            self._tier_gauge()
 
     def close(self) -> None:
-        """The JAX pool prunes its per-pool metric series here; the port
-        keeps its counts in ``stats()`` and has nothing to prune.  The
-        pool stays usable."""
+        """Prune this pool's per-pool gauge series, so that a process
+        churning pools does not grow the registry without bound.  The
+        pool stays usable (the series come back on its next mutation)."""
+        with self._lock:
+            PREFIX_BLOCKS.remove(pool=self.pool_id)
+            for tier in ("device", "host", "disk"):
+                POOL_TIER_BLOCKS.remove(pool=self.pool_id, tier=tier)
 
     def count(self, **deltas: int) -> None:
-        """Add to the handoff counters (names from ``COUNTERS``)."""
+        """Add to the pool's counters (names from ``COUNTERS``) and to
+        their registry families."""
         with self._lock:
             for k, v in deltas.items():
                 if k not in self.counters:
                     raise KeyError(f"unknown pool counter {k!r}")
                 self.counters[k] += v
+        for k, v in deltas.items():
+            fam, labels = _REGISTRY_OF[k]
+            fam.inc(v, **labels)
 
     def stats(self) -> dict:
         with self._lock:

@@ -1,8 +1,7 @@
 """Live session migration: moving a decoding session between replicas.
 
 The port's copy of ``vtpu/serving/migrate.py`` (the port imports nothing
-of vtpu; its metrics, request-ledger pauses and trace spans come with
-the observability slice):
+of vtpu):
 
 - the source engine **exports** a session
   (:meth:`~vtpu_torch.serving.disagg.DecodeEngine.export_session`): the
@@ -31,6 +30,13 @@ or a target.  The error classes join the transport's by-name table
 (``transport._ERROR_TYPES``): over HTTP they travel by name, as the
 wire's own do.  A mover runs on the target engine's driving thread (the
 wire sink's serialization contract).
+
+Observability, at the JAX mover's sites: one ``session_migrate`` span a
+move, under the request's trace context (its context crosses to the
+target in the OPEN meta), the move's wall time as the request's
+``migration_pause`` (success or not), and the
+``vtpu_session_migrations_total`` / ``vtpu_session_migrate_seconds`` /
+``vtpu_session_migrate_blocks_total`` families.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from vtpu_torch import obs
 from vtpu_torch.serving import transport
 from vtpu_torch.serving.kvpool import KVHandle, KVHandoffError
 from vtpu_torch.serving.transport import (
@@ -49,6 +56,8 @@ from vtpu_torch.serving.transport import (
     ReplicaSaturatedError,
     StreamSender,
 )
+from vtpu_torch.serving.reqtrace import LEDGER
+from vtpu_torch.utils import trace
 from vtpu_torch.utils.envs import env_int
 
 log = logging.getLogger(__name__)
@@ -62,6 +71,27 @@ __all__ = [
     "SessionGoneError",
     "SessionMover",
 ]
+
+_REG = obs.registry("serving")
+
+MIGRATIONS_TOTAL = _REG.counter(
+    "vtpu_session_migrations_total",
+    "Session moves by outcome: migrated (resumed on the target), "
+    "fallback (no target with credit — restored on the source to "
+    "finish in place), failed (typed mid-move failure — restored on "
+    "the source when it still lives), ambiguous (lost FIN ack with "
+    "resume probes exhausted — failed loudly, never restored)",
+)
+MIGRATE_HIST = _REG.histogram(
+    "vtpu_session_migrate_seconds",
+    "Wall time of one session move, export to resumed-on-target",
+)
+MIGRATE_BLOCKS = _REG.counter(
+    "vtpu_session_migrate_blocks_total",
+    "Session-migration pool blocks by kind: shipped (streamed over the "
+    "wire) vs skipped (suffix-only — the receiver's registry already "
+    "held the digest-matched prefix)",
+)
 
 DEFAULT_MAX_PUMPS = env_int("VTPU_MIGRATE_MAX_PUMPS", 1024)
 
@@ -214,7 +244,29 @@ class SessionMover:
         only where the target's registry matches the chain), resume on
         the target.  Raises the :class:`MigrationError` family; on every
         failure but the ambiguous FIN the session is restored on the
-        source first."""
+        source first.  The move is one ``session_migrate`` span, failed
+        on every error, and its wall time is the request's
+        ``migration_pause`` either way (the session did not decode while
+        it ran)."""
+        sp = trace.start_span("session_migrate", ctx=LEDGER.ctx(rid),
+                              rid=rid)
+        t0 = self._clock()
+        try:
+            report = self._move(rid, source, targets, trace.context_of(sp))
+        except BaseException as e:
+            trace.end_span(sp, ok=False, error=f"{type(e).__name__}: {e}")
+            LEDGER.pause(rid, "migration_pause", self._clock() - t0)
+            raise
+        if sp:
+            sp["target"] = report.target
+            sp["blocks_shipped"] = report.blocks_shipped
+            sp["blocks_skipped"] = report.blocks_skipped
+        trace.end_span(sp)
+        LEDGER.pause(rid, "migration_pause", report.duration_s)
+        return report
+
+    def _move(self, rid: str, source, targets: Sequence[Tuple[str, object]],
+              tctx: Optional[str]) -> MoveReport:
         src = self.engine_of(source)
         t0 = self._clock()
         try:
@@ -222,6 +274,7 @@ class SessionMover:
         except MigrationError:
             raise
         except Exception as e:  # noqa: BLE001 -- a dying source, typed
+            MIGRATIONS_TOTAL.inc(outcome="failed")
             raise MigrationError(
                 f"export of {rid} failed on the source: {e}",
                 phase="export") from e
@@ -230,6 +283,7 @@ class SessionMover:
             layout = src.wire_layout()
         except Exception as e:  # noqa: BLE001 -- nothing claimed yet
             restored = self._restore(src, export, None)
+            MIGRATIONS_TOTAL.inc(outcome="failed")
             raise MigrationError(f"source layout for {rid} failed: {e}",
                                  phase="export", restored=restored) from e
         for tid, rep in targets:
@@ -238,7 +292,8 @@ class SessionMover:
                 meta_extra={"first": int(export.tail[-1]),
                             "num_new": int(export.remaining) + 1,
                             "submitted": 0.0,
-                            "session": export.session_doc()},
+                            "session": export.session_doc(),
+                            **({"trace": tctx} if tctx else {})},
                 chunk_blocks=self.chunk_blocks, retries=self.retries,
                 codec=self.codec)
             try:
@@ -253,6 +308,7 @@ class SessionMover:
             break
         if sender is None:
             restored = self._restore(src, export, None)
+            MIGRATIONS_TOTAL.inc(outcome="fallback")
             raise NoMigrationTargetError(
                 f"no migration target with credit for {rid} "
                 f"({len(list(targets))} candidates)", restored=restored)
@@ -267,6 +323,7 @@ class SessionMover:
                 log.debug("mover: abort after a failed claim failed",
                           exc_info=True)
             restored = self._restore(src, export, None)
+            MIGRATIONS_TOTAL.inc(outcome="failed")
             raise MigrationError(f"claim for {rid} failed: {e}",
                                  phase="claim", restored=restored) from e
         skip = sender.skip
@@ -280,6 +337,7 @@ class SessionMover:
                 if pumps > self.max_pumps:
                     sender.abort()
                     restored = self._restore(src, export, blocks)
+                    MIGRATIONS_TOTAL.inc(outcome="failed")
                     raise MigrationError(
                         f"stream for {rid} stalled after {self.max_pumps} "
                         f"pumps (credits never freed)", phase="stream",
@@ -308,23 +366,30 @@ class SessionMover:
                     src.pool.release(blocks)
                 except KVHandoffError:
                     log.exception("mover: ambiguous-FIN release failed")
+                MIGRATIONS_TOTAL.inc(outcome="ambiguous")
                 raise MigrationAmbiguousError(
                     f"FIN for {rid} sent but unacknowledged and every "
                     f"resume probe failed; the target may hold the "
                     f"session, so it is not restored on the source",
                     tail=list(export.tail)) from e
             restored = self._restore(src, export, blocks)
+            MIGRATIONS_TOTAL.inc(outcome="failed")
             raise MigrationError(
                 f"stream for {rid} to {picked} failed: {e}",
                 phase="stream", restored=restored) from e
         # the target holds the session; the source's claim is spent
         src.pool.release(blocks)
+        dur = self._clock() - t0
+        MIGRATIONS_TOTAL.inc(outcome="migrated")
+        MIGRATE_HIST.observe(dur)
+        MIGRATE_BLOCKS.inc(len(shipped), kind="shipped")
+        if skip:
+            MIGRATE_BLOCKS.inc(skip, kind="skipped")
         per_block = int(getattr(sender.extract, "per_block", 0) or 0)
         return MoveReport(rid=rid, target=picked,
                           blocks_shipped=len(shipped), blocks_skipped=skip,
                           wire_bytes=len(shipped) * per_block,
-                          codec=sender.codec,
-                          duration_s=self._clock() - t0)
+                          codec=sender.codec, duration_s=dur)
 
     def _restore(self, src, export: SessionExport,
                  blocks: Optional[List[int]]) -> bool:

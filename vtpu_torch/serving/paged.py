@@ -20,6 +20,10 @@ is freed when every slot using it has retired and its registry entry has
 been evicted (FIFO beyond N entries, or idle entries evicted for a
 starved head of the queue).
 
+The ledger's ``prefill_start``/``prefill_done`` marks bracket each
+admission forward, as at the reference's; the rest of the hooks are the
+base class's.
+
 Weight-only int8 trees (``dequantize_tree``) come with a later slice.
 """
 
@@ -34,6 +38,8 @@ import torch
 from vtpu_torch.models.transformer import TransformerLM, bucket_length
 from vtpu_torch.serving.batcher import ContinuousBatcher, _Request
 from vtpu_torch.serving.kvpool import BlockPool
+from vtpu_torch.serving.reqtrace import LEDGER
+from vtpu_torch.utils import trace
 
 
 def pool_forward(model: TransformerLM, layers, tokens, pos, table):
@@ -216,12 +222,20 @@ class PagedBatcher(ContinuousBatcher):
             # order makes a later matching prefill read written blocks
             for slot, req, *_ in sub:
                 self._register_prefix(req.prompt, self._slot_blocks[slot])
+            tr = trace.tracing()
+            if tr:
+                for _slot, req, *_ in sub:
+                    LEDGER.mark(req.rid, "prefill_start")
             n = len(sub)
             firsts, table_t = pool_prefill(
                 self.model, self.cache["layers"],
                 [(req.prompt, shared_tok, row)
                  for _s, req, shared_tok, row in sub],
                 self._bucket_rows(n), blen)
+            if tr:
+                # the enqueue boundary (the forward runs on asynchronously)
+                for _slot, req, *_ in sub:
+                    LEDGER.mark(req.rid, "prefill_done")
             dev = self.device
             slots = torch.as_tensor([s for s, *_ in sub], device=dev).long()
             sizes = [r.prompt.size for _s, r, *_ in sub]

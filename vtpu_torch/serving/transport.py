@@ -27,10 +27,15 @@ Protocol:
   the receiver remembers consumed ``(pool, stamp)`` pairs, so a reused
   stamp is refused.
 
-Instead of the JAX package's metrics, :meth:`ReceiverHub.stats` and the
-sender's attributes count bytes, chunks, streams and resumes; request
-ledger and trace marks come with the observability slice.  The device
-work lives behind the engines' ``start_extract`` / ``wire_*`` surfaces
+Observability, at the JAX package's sites: the ``vtpu_kv_transport_*``
+and ``vtpu_kv_wire_codec_bytes_total`` families (besides the per-hub
+``ReceiverHub.stats`` and the sender's attributes), the ``kv_wire_stream``,
+``kv_wire_stream_pump`` and ``kv_wire_recv`` spans (the sender's trace
+context crosses in the OPEN meta), ``LEDGER.wire_bytes`` per chunk and the
+sender's ``handoff_done`` mark at FIN.  The cache bytes a stream stages
+through the host count in ``vtpu_kv_handoff_host_bytes_total`` at the
+sink (``DecodeEngine.wire_write``).  The device work lives behind the
+engines' ``start_extract`` / ``wire_*`` surfaces
 (``vtpu_torch/serving/disagg.py``).
 """
 
@@ -48,13 +53,17 @@ import uuid
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
+from vtpu_torch import obs
 from vtpu_torch.serving import wirecodec
 from vtpu_torch.serving.kvpool import (
+    HANDOFF_STALE,
     KVHandle,
     KVHandoffError,
     PoolMismatchError,
     StaleHandleError,
 )
+from vtpu_torch.serving.reqtrace import LEDGER
+from vtpu_torch.utils import trace
 from vtpu_torch.utils.envs import env_int
 
 log = logging.getLogger(__name__)
@@ -78,6 +87,46 @@ __all__ = [
     "decode_frame",
     "encode_frame",
 ]
+
+_REG = obs.registry("serving")
+
+# Wire-transport instrumentation (docs/observability.md §Serving).  The
+# byte counter is the companion of vtpu_kv_handoff_host_bytes_total:
+# cache bytes DO cross the host on the wire path — deliberately, and
+# accounted here — while the in-process adopt paths keep host_bytes
+# untouched (the original tripwire still holds for them).
+TRANSPORT_BYTES = _REG.counter(
+    "vtpu_kv_transport_bytes_total",
+    "K/V cache bytes shipped over the wire transport (payload bytes, "
+    "excluding frame headers)",
+)
+TRANSPORT_CHUNKS = _REG.counter(
+    "vtpu_kv_transport_chunks_total",
+    "Wire transport data chunks delivered",
+)
+TRANSPORT_CREDITS = _REG.gauge(
+    "vtpu_kv_transport_inflight_credits_total",
+    "Receiver-granted block credits not yet consumed by senders, "
+    "summed over live streams",
+)
+TRANSPORT_STREAM_HIST = _REG.histogram(
+    "vtpu_kv_transport_stream_seconds",
+    "Wall time of one K/V wire stream, open to final ack",
+)
+TRANSPORT_RESUMES = _REG.counter(
+    "vtpu_kv_transport_resumes_total",
+    "Streams resumed at a chunk offset after a torn connection",
+)
+TRANSPORT_STREAMS = _REG.counter(
+    "vtpu_kv_transport_streams_total",
+    "Wire streams by outcome (ok / aborted / saturated)",
+)
+CODEC_BYTES = _REG.counter(
+    "vtpu_kv_wire_codec_bytes_total",
+    "Wire data-chunk payload bytes applied at receivers, by negotiated "
+    "codec (fp32 = raw pool bytes; int8/fp8/int4 = blockwise-quantized "
+    "payload + per-block scales, int4 nibble-packed two per byte)",
+)
 
 MAGIC = b"VKVW"
 VERSION = 1
@@ -264,7 +313,7 @@ def decode_frame(data: bytes) -> Frame:
 class _RxStream:
     __slots__ = ("sid", "rid", "meta", "ctx", "nchunks", "next_seq",
                  "total_blocks", "received_blocks", "credits",
-                 "stamp_key", "codec", "skip")
+                 "stamp_key", "codec", "skip", "span")
 
     def __init__(self, sid, rid, meta, ctx, nchunks, total_blocks,
                  credits, stamp_key, codec, skip=0):
@@ -272,6 +321,9 @@ class _RxStream:
         self.rid = rid
         self.meta = meta
         self.ctx = ctx
+        # the kv_wire_recv span, under the sender's context from the
+        # OPEN meta; closed once (ok at FIN, failed by an abort)
+        self.span: dict = {}
         self.nchunks = nchunks
         self.next_seq = 1
         # blocks the sender actually SHIPS: the handle total minus the
@@ -342,6 +394,15 @@ class ReceiverHub:
                         max(0, s.credits - s.received_blocks)
                         for s in self._streams.values())}
 
+    def _set_credit_gauge(self) -> None:
+        TRANSPORT_CREDITS.set(float(sum(
+            max(0, s.credits - s.received_blocks)
+            for s in self._streams.values())))
+
+    def _count_stream(self, outcome: str) -> None:
+        self.counters[f"streams_{outcome}"] += 1
+        TRANSPORT_STREAMS.inc(outcome=outcome)
+
     def open_streams(self) -> int:
         with self._lock:
             return len(self._streams)
@@ -354,6 +415,8 @@ class ReceiverHub:
         except Exception:  # noqa: BLE001 — abort must not mask the cause
             log.exception("kv wire: sink abort failed for %s (%s)",
                           st.rid, error)
+        trace.end_span(st.span, ok=False, error=error)
+        self._set_credit_gauge()
 
     def abort_all(self) -> None:
         """Receiver-side teardown (replica shutdown): release every
@@ -361,7 +424,7 @@ class ReceiverHub:
         with self._lock:
             for st in list(self._streams.values()):
                 self._abort_stream(st, error="receiver shutdown")
-                self.counters["streams_aborted"] += 1
+                self._count_stream("aborted")
 
     # -- frame handling -------------------------------------------------
     def handle(self, data: bytes) -> dict:
@@ -377,7 +440,7 @@ class ReceiverHub:
                 st = self._streams.get(frame.sid)
                 if st is not None:
                     self._abort_stream(st, error="peer abort")
-                    self.counters["streams_aborted"] += 1
+                    self._count_stream("aborted")
                 return {"status": "ok"}
             if frame.kind == KIND_RESUME:
                 st = self._streams.get(frame.sid)
@@ -426,6 +489,7 @@ class ReceiverHub:
         stamp_key = (handle.pool_id, handle.stamp)
         if stamp_key in self._stamps:
             self.counters["stale"] += 1
+            HANDOFF_STALE.inc()
             raise StaleHandleError(
                 f"handle stamp {handle.stamp} from pool "
                 f"{handle.pool_id} was already streamed to this "
@@ -445,7 +509,7 @@ class ReceiverHub:
         ctx = self.sink.wire_open(rid, total, layout, chunk_blocks,
                                   codec=codec, meta=meta)
         if ctx is None:
-            self.counters["streams_saturated"] += 1
+            self._count_stream("saturated")
             return {"status": "saturated", "credits": 0}
         credits = int(self.sink.wire_credits(ctx))
         # suffix-only negotiation (session migration): the sink may
@@ -462,10 +526,16 @@ class ReceiverHub:
         st = _RxStream(frame.sid, rid, meta, ctx, nchunks, suffix,
                        credits, stamp_key, codec,
                        skip=skip)
+        # the sender's trace context crosses in the OPEN meta, so this
+        # span joins the request's tree across an HTTP link too
+        st.span = trace.start_span(
+            "kv_wire_recv", ctx=meta.get("trace"), rid=rid,
+            blocks=suffix, codec=codec, skip=skip)
         self._streams[frame.sid] = st
         self._stamps[stamp_key] = frame.sid
         while len(self._stamps) > self._stamp_cap:
             self._stamps.popitem(last=False)
+        self._set_credit_gauge()
         return {"status": "ok", "next": 1, "credits": credits,
                 **st.echo()}
 
@@ -522,6 +592,9 @@ class ReceiverHub:
             self.counters["chunks"] += 1
             self.counters["bytes"] += len(frame.payload)
             self.counters[f"bytes_{st.codec}"] += len(frame.payload)
+            TRANSPORT_CHUNKS.inc()
+            TRANSPORT_BYTES.inc(len(frame.payload))
+            CODEC_BYTES.inc(len(frame.payload), codec=st.codec)
             if frame.flags & FLAG_FIN:
                 if (frame.seq != st.nchunks
                         or st.received_blocks != st.total_blocks):
@@ -531,21 +604,26 @@ class ReceiverHub:
                     )
                 self._streams.pop(st.sid, None)
                 self.sink.wire_finish(st.ctx, st.meta)
+                if st.span:
+                    st.span["chunks"] = st.nchunks
+                trace.end_span(st.span)
                 self._fins[st.sid] = st.nchunks
                 while len(self._fins) > self._stamp_cap:
                     self._fins.popitem(last=False)
-                self.counters["streams_ok"] += 1
+                self._count_stream("ok")
+                self._set_credit_gauge()
                 return {"status": "ok", "next": st.next_seq,
                         "credits": st.credits, "fin": True}
             if st.credits < st.total_blocks:
                 st.credits = int(self.sink.wire_top_up(st.ctx))
+            self._set_credit_gauge()
             return {"status": "ok", "next": st.next_seq,
                     "credits": st.credits}
         except WireError as e:
             # protocol violations tear the stream down leak-free BEFORE
             # propagating — a half-adopted handle must never pin blocks
             self._abort_stream(st, error=f"{type(e).__name__}: {e}")
-            self.counters["streams_aborted"] += 1
+            self._count_stream("aborted")
             raise
 
     def top_up(self) -> None:
@@ -555,6 +633,7 @@ class ReceiverHub:
             for st in self._streams.values():
                 if st.credits < st.total_blocks:
                     st.credits = int(self.sink.wire_top_up(st.ctx))
+            self._set_credit_gauge()
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +812,8 @@ class StreamSender:
             **(meta_extra or {}),
         }
         self._next = 0            # 0 = OPEN not yet acked
+        self._t0 = 0.0            # perf_counter stamp of the OPEN
+        self._span: dict = {}     # kv_wire_stream, open to final ack
         self._credits = 0
         self._resumes = 0         # per-stream budget: retries total
         self.sent_bytes = 0       # payload bytes shipped
@@ -771,6 +852,7 @@ class StreamSender:
         # forever — after ``retries`` total resumes the stream aborts
         while self._resumes < self.retries:
             self._resumes += 1
+            TRANSPORT_RESUMES.inc()
             try:
                 rsp = self.link.send(
                     encode_frame(KIND_RESUME, self.sid), fresh=True
@@ -824,6 +906,10 @@ class StreamSender:
         """Send the OPEN frame; raises :class:`ReplicaSaturatedError`
         when the receiver cannot pre-lease a single block (the caller
         parks the handoff — nothing was claimed or leaked)."""
+        self._t0 = time.perf_counter()
+        self._span = trace.start_span(
+            "kv_wire_stream", ctx=self.meta.get("trace"), rid=self.rid,
+            blocks=len(self.handle.blocks))
         rsp = self._send(encode_frame(
             KIND_DATA, self.sid, seq=0, nchunks=self.nchunks,
             meta=self.meta,
@@ -874,53 +960,65 @@ class StreamSender:
         # credit grant all count SHIPPED blocks (handle total − skip);
         # with skip 0 this is the plain whole-handle plan
         total = len(self.handle.blocks) - self.skip
-        while self._next <= self.nchunks:
-            lo = (self._next - 1) * self.chunk_blocks
-            hi = min(lo + self.chunk_blocks, total)
-            if hi > self._credits:
-                # ask for a fresh grant (slots may have retired);
-                # still starved → backpressure, try next pump
-                rsp = self._send(encode_frame(KIND_RESUME, self.sid))
-                status = rsp.get("status")
-                if status == "gone":
-                    self.receiver_gone = True
-                    self.abort(notify=False)
-                    raise StreamAbortedError(
-                        f"stream for {self.rid} gone at the receiver"
-                    )
-                if status == "fin":  # lost-FIN-ack resync: done
-                    self._next = self.nchunks + 1
-                    self.fin_unacked = False
-                    break
-                self._credits = int(rsp.get("credits", self._credits))
+        with trace.span("kv_wire_stream_pump", rid=self.rid,
+                        ctx=trace.context_of(self._span)):
+            while self._next <= self.nchunks:
+                lo = (self._next - 1) * self.chunk_blocks
+                hi = min(lo + self.chunk_blocks, total)
                 if hi > self._credits:
-                    return False
-            if self.extract.ready_blocks() < hi:
-                return False  # D2H still in flight; ride next pump
-            payload = self.extract.payload(lo, hi)
-            fin = self._next == self.nchunks
-            kind = KIND_FOR_CODEC.get(self.codec, KIND_DATA)
-            if fin:
-                # from the send to the response, an abort is
-                # AMBIGUOUS: the receiver may have applied the FIN
-                # and lost only the ack (the caller must not assume
-                # the transfer failed — see fin_unacked)
-                self.fin_unacked = True
-            rsp = self._send(encode_frame(
-                kind, self.sid, seq=self._next,
-                nchunks=self.nchunks, block_off=lo, nblocks=hi - lo,
-                flags=FLAG_FIN if fin else 0, payload=payload,
-            ))
-            self.fin_unacked = False
-            self.sent_bytes += len(payload)
-            self._next = int(rsp.get("next", self._next + 1))
-            self._credits = int(rsp.get("credits", self._credits))
-        self._finish()
+                    # ask for a fresh grant (slots may have retired);
+                    # still starved → backpressure, try next pump
+                    rsp = self._send(encode_frame(KIND_RESUME, self.sid))
+                    status = rsp.get("status")
+                    if status == "gone":
+                        self.receiver_gone = True
+                        self.abort(notify=False)
+                        raise StreamAbortedError(
+                            f"stream for {self.rid} gone at the receiver"
+                        )
+                    if status == "fin":  # lost-FIN-ack resync: done
+                        self._next = self.nchunks + 1
+                        self.fin_unacked = False
+                        break
+                    self._credits = int(rsp.get("credits", self._credits))
+                    if hi > self._credits:
+                        return False
+                if self.extract.ready_blocks() < hi:
+                    return False  # D2H still in flight; ride next pump
+                payload = self.extract.payload(lo, hi)
+                fin = self._next == self.nchunks
+                kind = KIND_FOR_CODEC.get(self.codec, KIND_DATA)
+                if fin:
+                    # from the send to the response, an abort is
+                    # AMBIGUOUS: the receiver may have applied the FIN
+                    # and lost only the ack (the caller must not assume
+                    # the transfer failed — see fin_unacked)
+                    self.fin_unacked = True
+                rsp = self._send(encode_frame(
+                    kind, self.sid, seq=self._next,
+                    nchunks=self.nchunks, block_off=lo, nblocks=hi - lo,
+                    flags=FLAG_FIN if fin else 0, payload=payload,
+                ))
+                self.fin_unacked = False
+                self.sent_bytes += len(payload)
+                LEDGER.wire_bytes(self.rid, len(payload))
+                self._next = int(rsp.get("next", self._next + 1))
+                self._credits = int(rsp.get("credits", self._credits))
+            self._finish()
         return True
 
     def _finish(self) -> None:
         self.done = True
         self.finished_at = time.perf_counter()
+        TRANSPORT_STREAM_HIST.observe(self.finished_at - self._t0)
+        if self._span:
+            self._span["resumes"] = self._resumes
+            self._span["codec"] = self.codec
+        trace.end_span(self._span)
+        # the sender's handoff boundary: with a receiver in another
+        # process this ledger holds the only mark (first write wins, so
+        # a loopback sink's own wire_finish mark stands)
+        LEDGER.mark(self.rid, "handoff_done")
         if self.on_done is not None:
             self.on_done(True)
 
@@ -931,6 +1029,11 @@ class StreamSender:
             return
         self.aborted = True
         self.finished_at = time.perf_counter()
+        if self._span:
+            self._span["resumes"] = self._resumes
+        trace.end_span(
+            self._span, ok=False,
+            error="receiver_gone" if self.receiver_gone else "aborted")
         if notify:
             try:
                 self.link.send(encode_frame(KIND_ABORT, self.sid),
@@ -1004,6 +1107,11 @@ class WireReplica:
         meta_extra = {"first": int(first_token),
                       "num_new": int(num_new),
                       "submitted": float(submitted)}
+        # the request's trace context rides the OPEN meta, so the
+        # receiver's span joins its tree (omitted while tracing is off)
+        tctx = LEDGER.ctx(rid)
+        if tctx is not None:
+            meta_extra["trace"] = tctx
         if chain:
             # decode-side prefix adoption over the wire: the receiver
             # matches the chain against its pool registry at OPEN and

@@ -53,8 +53,14 @@ instruction, invalid argument or configuration
 =====================================================  =================  ======
 
 XLA's ABORTED has no CUDA counterpart: a context does not abort on its
-own.  Not ported yet: the ``obs`` histograms of pacing sleeps and quota
-checks, and the ``trace`` spans and span push (ROADMAP A7.5).
+own.
+
+Observability, at the reference's sites: the ``shim`` registry's
+``vtpu_shim_pace_sleep_seconds`` (every pacing sleep, ``dispatch`` and
+``throttled``) and ``vtpu_shim_quota_check_seconds`` (every region
+check-and-add, and every local quota check); the ``shim.init`` span,
+joined to the pod's trace through ``VTPU_TRACE_CONTEXT``, and the span
+push to ``VTPU_SPAN_SINK`` at start and at ``close``.
 """
 
 from __future__ import annotations
@@ -69,16 +75,28 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from vtpu_torch import obs
 from vtpu_torch.device import resolve_device
 from vtpu_torch.monitor.shared_region import (
     RegionFile,
     effective_core_limit,
     open_region,
 )
+from vtpu_torch.utils import trace
 from vtpu_torch.utils.envs import env_int, env_str
 from vtpu_torch.utils.offload import to_device, to_host_tier
 
 log = logging.getLogger(__name__)
+
+_SHIM_REG = obs.registry("shim")
+_PACE_HIST = _SHIM_REG.histogram(
+    "vtpu_shim_pace_sleep_seconds",
+    "Core-percentage pacing sleeps injected per dispatch",
+)
+_QUOTA_HIST = _SHIM_REG.histogram(
+    "vtpu_shim_quota_check_seconds",
+    "HBM-quota check-and-add latency (region flock + accounting)",
+)
 
 # message parts of the CUDA errors that are the device's, not the
 # tenant's (the table in the module docstring)
@@ -209,18 +227,30 @@ class ShimRuntime:
         path = region_path or os.environ.get(
             "TPU_DEVICE_MEMORY_SHARED_CACHE", "/tmp/vtpu/vtpu.cache"
         )
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self.region: Optional[RegionFile] = open_region(path, create=True)
-        if self.region is not None:
-            names = uuids or env_str("VTPU_VISIBLE_UUIDS", "tpu-0").split(",")
-            self.region.set_devices(
-                names,
-                (self.limits + [0] * len(names))[: len(names)],
-                [self.core_limit] * len(names),
-            )
-            # fresh: this runtime is starting up -- a dead predecessor's
-            # recycled pid must not hand it phantom usage
-            self.region.register_proc(self.pid, self.priority, fresh=True)
+        # the last leg of the pod-lifecycle trace: the plugin's Allocate
+        # forwards its span context through the env ABI
+        with trace.span("shim.init",
+                        ctx=env_str("VTPU_TRACE_CONTEXT") or None,
+                        tenant_pid=self.pid):
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self.region: Optional[RegionFile] = open_region(path,
+                                                            create=True)
+            if self.region is not None:
+                names = uuids or env_str("VTPU_VISIBLE_UUIDS",
+                                         "tpu-0").split(",")
+                self.region.set_devices(
+                    names,
+                    (self.limits + [0] * len(names))[: len(names)],
+                    [self.core_limit] * len(names),
+                )
+                # fresh: this runtime is starting up -- a dead
+                # predecessor's recycled pid must not hand it phantom usage
+                self.region.register_proc(self.pid, self.priority,
+                                          fresh=True)
+        # the span feed out of the container (VTPU_SPAN_SINK comes with the
+        # trace context from Allocate)
+        self._span_sink = env_str("VTPU_SPAN_SINK")
+        self._push_spans()
         # local (per-tenant) accounting mirrors the region
         self._local: Dict[int, int] = {}
         # bytes placed in the host tier past quota (oversubscribe)
@@ -263,11 +293,13 @@ class ShimRuntime:
         region's cross-process flock -- two tenants racing for the last
         bytes cannot both be admitted."""
         limit = self.limit_for(dev)
+        t0 = time.perf_counter()
         if self.region is not None:
             ok = self.region.try_add(
                 self.pid, dev, nbytes, kind, limit=limit,
                 oversubscribe=self.oversubscribe,
             )
+            _QUOTA_HIST.observe(time.perf_counter() - t0)
             if not ok:
                 raise _oom_reject(
                     self,
@@ -275,7 +307,9 @@ class ShimRuntime:
                     f"(in use {self.device_usage(dev)}, want {nbytes})",
                 )
         elif limit and not self.oversubscribe:
-            if self._local.get(dev, 0) + nbytes > limit:
+            over = self._local.get(dev, 0) + nbytes > limit
+            _QUOTA_HIST.observe(time.perf_counter() - t0)
+            if over:
                 raise _oom_reject(
                     self, f"vtpu: device {dev} quota {limit} B exceeded"
                 )
@@ -292,9 +326,11 @@ class ShimRuntime:
         bypass) -- atomic under the region flock."""
         limit = self.limit_for(dev)
         if self.region is not None:
+            t0 = time.perf_counter()
             ok = self.region.try_add(
                 self.pid, dev, nbytes, "buffer", limit=limit, oversubscribe=False
             )
+            _QUOTA_HIST.observe(time.perf_counter() - t0)
             if ok:
                 self._local[dev] = self._local.get(dev, 0) + nbytes
             return ok
@@ -454,6 +490,7 @@ class ShimRuntime:
                  - self._clock.monotonic())
         if pause > 0:
             self._clock.sleep(pause)
+            _PACE_HIST.observe(pause)
 
     def _effective_quota(self) -> tuple:
         """``(core quota %, suspended)`` for this dispatch from the core
@@ -555,7 +592,9 @@ class ShimRuntime:
                 self._note_launch(dt)
             q, suspended = self._effective_quota()
             if 0 < q < 100 and not suspended:
-                self._clock.sleep(dt * (100 - q) / q)
+                pause = dt * (100 - q) / q
+                self._clock.sleep(pause)
+                _PACE_HIST.observe(pause)
             return out
 
         return wrapper
@@ -568,7 +607,18 @@ class ShimRuntime:
             "bytes_host_swapped": self._swapped.get(dev, 0),
         }
 
+    def _push_spans(self) -> None:
+        """Best-effort ring push to the collector; a missing or down
+        collector never affects the tenant."""
+        if self._span_sink and trace.tracing():
+            try:
+                trace.push_spans(self._span_sink, timeout=2.0)
+            except Exception:  # noqa: BLE001 -- telemetry must not break tenants
+                log.debug("span push to %s failed", self._span_sink,
+                          exc_info=True)
+
     def close(self) -> None:
+        self._push_spans()
         if self.region is not None:
             self.region.close()
             self.region = None

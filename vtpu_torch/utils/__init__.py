@@ -1,2 +1,2 @@
 """Host-side helpers of the port: env parsing, a true completion
-barrier and the pinned host tier."""
+barrier, the pinned host tier and the trace spans (``trace``)."""
