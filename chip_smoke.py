@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paged and dense serving, its serving front
-door, generate and training paths, its ai-benchmark rows and its
-four-tenant share run on one NVIDIA GPU.
+door, generate and training paths, its ai-benchmark rows, its
+four-tenant share run and its multi-device layer (MoE, ring attention,
+the parallel dryrun over a world of one) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases, full width (one card)
 
@@ -199,7 +200,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
    TTFT p50, routes a replica, rejects, parks, handoff host bytes,
    blocks leaked (required 0), LN and paged launches at the serve
    bounds); then (e) at depth 2, f32, the copy and fp32-wire arms'
-   tokens equal the monolithic PagedBatcher's (``router_exactness``).
+   tokens equal the monolithic PagedBatcher's (``router_exactness``);
+14. (after phase 13) the multi-device layer: (a) at depth 2, f32, both
+   pools, the MoE LM (``mlp="moe"``, 8 experts, top-2, lossless
+   capacity) through PagedBatcher gives the kernels-off path's and eager
+   windows' tokens, and on the native pool each prompt's solo greedy
+   ``generate`` (``moe_exactness``; the int8 pool's share equal to solo
+   is printed); (b) the MoE LM at the serve widths (docs/workloads.md's
+   MoE row; depth 16, bf16, 18.1 B parameters) through
+   PagedBatcher(max_batch=8) on native and int8 pools with the serve
+   phase's 16 requests: the serve lines' metrics, 0 blocks leaked, LN
+   and paged-decode launches at the serve bounds, replayed windows
+   (``moe_serve``); the expert FFNs' share of a replayed step
+   (``moe_expert_share``) and a profiled window of 4 graphed steps;
+   (c) ring attention at b 1, 32 heads, s 4096, hd 128, causal, over 4
+   sequence shards run in turn on the card (contiguous and striped): in
+   bf16 every partial is the bf16 -> f32-out forward (16 launches a
+   ring), the output within four bf16 ulps of ``flash_attention``'s,
+   both beside their error against the f32 plain attention; in f32
+   within 2e-5 of the plain attention (``ring``); then the f32-out
+   forward timed at a shard's shape (``shape: "ring_shard"``);
+   (d) ``vtpu_torch.entry.dryrun_multichip(1, device="cuda")`` over an
+   NCCL world of one rank (every program of the parallel layer, the
+   checkpoint round trip) and, in another world of one, Ulysses equal to
+   ``flash_attention`` and the expert-parallel ``moe_ffn`` equal to
+   ``moe_ffn_local`` at the serve widths (``parallel``).
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -774,6 +799,7 @@ def zero_counts() -> None:
     fused_layernorm.launches = 0
     paged_attention_decode.launches = {"native": 0, "int8": 0}
     tat.flash_forward.launches = 0
+    tat.flash_forward.f32out_launches = 0
     tat.flash_bwd_dq.launches = 0
     tat.flash_bwd_dkv.launches = 0
 
@@ -787,6 +813,7 @@ def read_counts() -> dict:
             "paged_decode": paged_attention_decode.launches["native"],
             "paged_decode_q8": paged_attention_decode.launches["int8"],
             "flash_forward": tat.flash_forward.launches,
+            "flash_forward_f32out": tat.flash_forward.f32out_launches,
             "flash_bwd_dq": tat.flash_bwd_dq.launches,
             "flash_bwd_dkv": tat.flash_bwd_dkv.launches}
 
@@ -3198,6 +3225,299 @@ def router_phase(card: str, seed: int, serve_native: dict) -> dict:
     return launches
 
 
+# -- phase 14: the multi-device layer ---------------------------------------
+MOE = dict(FULL, depth=16, mlp="moe", n_experts=8, moe_top_k=2,
+           moe_capacity=0)      # docs/workloads.md's MoE LM at serve widths
+MOE_REDUCED = REDUCED + ["depth 32 -> 16: the 32-layer model's bf16 weights "
+                         "alone take 71 GB of the card's 80"]
+RING = dict(b=1, heads=32, s=4096, hd=128)
+RING_SHARDS = 4                 # sp ranks of the ring, run on one card
+
+
+def moe_exactness_phase(card: str, seed: int, reqs) -> None:
+    """Depth 2, f32, both pools: the MoE model's PagedBatcher tokens equal
+    the kernels-off path's (paged_kernel="off", ln_kernel="off") and
+    eager windows', and on the native pool each prompt's solo greedy
+    ``generate`` (lossless capacity: a row's routing does not depend on
+    its batch); on the int8 pool the share of tokens equal to solo is
+    reported."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM, generate
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    small = TransformerLM(**dict(MOE, depth=2), device="cuda",
+                          dtype=torch.float32, generator=gen)
+    for pool in ("native", "int8"):
+        kern = small.clone(kv_cache_dtype=pool)
+        graphed, _ = serve(kern, reqs, count=False)
+        plain, _ = serve(kern.clone(paged_kernel="off", ln_kernel="off"),
+                         reqs, count=False)
+        eager, _ = serve(kern, reqs, count=False, decode_graph="off")
+        solo_model = kern.clone(kv_pool_blocks=0)
+        solo = {rid: generate(solo_model, p[None], n)[0].tolist()
+                for rid, p, n in reqs}
+        same = {name: all(graphed[rid] == other[rid] for rid, *_ in reqs)
+                for name, other in (("generate", solo), ("plain", plain),
+                                    ("eager", eager))}
+        pairs = [(x, y) for rid, *_ in reqs
+                 for x, y in zip(graphed[rid], solo[rid])]
+        emit(phase="moe_exactness", depth=2, dtype="float32", pool=pool,
+             n_experts=MOE["n_experts"], top_k=MOE["moe_top_k"],
+             requests=len(reqs), batched_equals_solo=same["generate"],
+             solo_agree_share=sum(x == y for x, y in pairs) / len(pairs),
+             kernels_equal_plain=same["plain"],
+             graphed_equals_eager=same["eager"], card=card)
+        # an int8 pool turns the expert GEMMs' batch-shaped f32 rounding
+        # into whole quantization levels, so only the native pool holds
+        # batched = solo exactly (ROADMAP C)
+        for name, ok in same.items():
+            if name != "generate" or pool == "native":
+                check(ok, f"f32 MoE {pool}: batched tokens differ from "
+                          f"{name}")
+    del small, kern, solo_model
+    torch.cuda.empty_cache()
+
+
+def expert_ffn_ms(model, rows: int) -> float:
+    """Device ms of one decode step's expert FFNs (every layer's two
+    batched GEMMs and GELU at ``rows`` tokens, lossless capacity)."""
+    import torch
+
+    from vtpu_torch.parallel.moe import _ffn, gelu
+
+    moe = model.h[0].moe
+    cap = rows * moe.top_k
+    send = torch.randn((moe.n_experts, cap, model.d_model), device="cuda",
+                       dtype=model.dtype)
+    layers = [blk.moe for blk in model.h]
+    return time_ms(lambda: [_ffn(send, m.w_in, m.w_out, gelu)
+                            for m in layers], iters=10, warmup=2)
+
+
+def moe_serve_phase(card: str, seed: int) -> dict:
+    """The MoE LM at the serve widths, depth 16, bf16, through
+    PagedBatcher(max_batch=8) on native and int8 pools with the serve
+    phase's 16 requests; then the expert FFNs' share of a replayed
+    decode step and a profiled window of 4 graphed steps.  Returns the
+    launches."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+    from vtpu_torch.serving.paged import PagedBatcher
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = TransformerLM(**MOE, device="cuda", dtype=torch.bfloat16,
+                          generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    depth = model.depth
+    emit(phase="moe_setup", params=n_params, dtype="bfloat16",
+         weights_gb=n_params * 2 / 1e9, seconds=time.perf_counter() - t0,
+         config=MOE, reduced=MOE_REDUCED, card=card)
+    serve(model, make_requests(seed + 1, n=1, num_new=2), count=False)
+    reqs = make_requests(seed)
+    launches, steps = {}, {}
+    for pool in ("native", "int8"):
+        m = model if pool == "native" else model.clone(kv_cache_dtype="int8")
+        torch.cuda.reset_peak_memory_stats()
+        _out, met = serve(m, reqs, count=True)
+        met["blocks_leaked"] = met["pool_free_before"] - met["pool_free_after"]
+        emit(phase="moe_serve", pool=pool, reduced=MOE_REDUCED, card=card,
+             **met)
+        c = met["launches"]
+        check(met["finished"] == len(reqs), f"MoE {pool}: unfinished")
+        check(met["blocks_leaked"] == 0, f"MoE {pool}: leaked blocks")
+        check(c["fused_layernorm"] >= (2 * depth + 1) * met["forwards"] > 0,
+              f"MoE {pool}: layernorm launches {c['fused_layernorm']}")
+        paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
+        check(c[paged] >= depth * met["decode_steps"] > 0,
+              f"MoE {pool}: {paged} launches {c[paged]}")
+        check(met["replayed_windows"] > 0,
+              f"MoE {pool}: no decode window was a graph replay")
+        tally(launches, c)
+        steps[pool] = met["decode_step_ms_replayed_full"] or \
+            met["decode_step_ms_replayed"]
+    ffn_ms = expert_ffn_ms(model, 8)
+    emit(phase="moe_expert_share", rows=8, expert_ffn_ms=ffn_ms,
+         decode_step_ms_replayed=steps["native"],
+         share=ffn_ms / steps["native"] if steps["native"] else None,
+         note="the 16 layers' expert GEMMs and GELU at a full step's 8 "
+              "rows, timed alone, over the native pool's replayed step",
+         card=card)
+    eng = PagedBatcher(model, max_batch=8)
+    for rid, p, n in reqs[:8]:
+        eng.submit(rid, p, n)
+    for _ in range(2):
+        eng.step()
+    profile_window(card, "moe_decode_4_steps",
+                   lambda: [eng.step() for _ in range(4)],
+                   require=("paged_partial",))
+    del eng, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ring_phase(card: str, gen) -> dict:
+    """Ring attention's partials at b 1, 32 heads, s 4096, hd 128, causal,
+    over 4 sequence shards on one card (every rank's schedule in turn,
+    ``ring_attention_shards``), contiguous and striped: in bf16 each
+    partial is the bf16 -> f32-out forward, held against
+    ``flash_attention`` (the tensor-core kernel) at four bf16 ulps of the
+    output's scale, both beside their error against the f32 plain
+    attention; in f32 against the plain attention at 2e-5.  Then the
+    f32-out forward timed at a shard's shape.  Returns that kernel row."""
+    import torch
+
+    from vtpu_torch.ops import attention as tat
+    from vtpu_torch.parallel.ring import (ring_attention_shards,
+                                          stripe_sequence, unstripe_sequence)
+
+    b, h, s, hd = (RING[k] for k in ("b", "heads", "s", "hd"))
+    n = RING_SHARDS
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((b, h, s, hd), device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+        ref = tat.reference_attention(q.float(), k.float(), v.float(),
+                                      causal=True)
+        for layout in ("contiguous", "striped"):
+            zero_counts()
+            if layout == "striped":
+                out = unstripe_sequence(ring_attention_shards(
+                    *(stripe_sequence(t, n) for t in (q, k, v)), n,
+                    causal=True, layout="striped"), n)
+            else:
+                out = ring_attention_shards(q, k, v, n, causal=True)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            tally(launches, counts)
+            err = float((out.float() - ref).abs().max())
+            row = dict(phase="ring", layout=layout, shards=n,
+                       dtype=str(dtype).split(".")[-1], **RING,
+                       err_vs_f32_plain=err,
+                       flash_forward_launches=counts["flash_forward"],
+                       f32out_launches=counts["flash_forward_f32out"],
+                       card=card)
+            if dtype == torch.bfloat16:
+                flash = tat.flash_attention(q, k, v, causal=True)
+                tol = 2 * bf16_tol(flash)
+                row.update(
+                    flash_attention_err_vs_f32_plain=float(
+                        (flash.float() - ref).abs().max()),
+                    err_vs_flash_attention=float(
+                        (out.float() - flash.float()).abs().max()),
+                    tol=tol)
+                check(row["err_vs_flash_attention"] <= tol,
+                      f"ring {layout} bf16: {row['err_vs_flash_attention']}"
+                      f" from flash_attention, tol {tol}")
+                check(counts["flash_forward_f32out"] == n * n,
+                      f"ring {layout}: {counts['flash_forward_f32out']} "
+                      f"f32-out launches, want {n * n}")
+            else:
+                row["tol"] = TOL_F32
+                check(err <= TOL_F32, f"ring {layout} f32: err {err}")
+            emit(**row)
+    # the f32-out forward alone at a shard's shape: the diagonal hop
+    q, k, v = (torch.randn((b, h, s // n, hd), device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    cfg = (True, 0, 0)
+    f32 = torch.float32
+    o, _ = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
+    ro, _ = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
+    err = float((o - ro).abs().max())
+    pairs = flash_work(b, h, s // n, s // n, hd, *cfg)
+    nbytes = 3 * q.numel() * q.element_size() + o.numel() * 4 \
+        + b * h * (s // n) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * hd * pairs, "bfloat16")
+    row = dict(phase="kernel", kernel="flash_forward", shape="ring_shard",
+               b=b, heads=h, kv_heads=h, s=s // n, hd=hd, causal=True,
+               dtype="bfloat16", out_dtype="float32", max_abs_err=err,
+               tol=TOL_F32,
+               ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
+                                                    out_dtype=f32)),
+               plain_ms=time_ms(lambda: tat.flash_attention_reference(
+                   q, k, v, *cfg, out_dtype=f32), iters=10, warmup=2),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               kept_pairs=pairs, card=card)
+    emit(**row)
+    check(err <= TOL_F32, f"f32-out forward at the ring shard: err {err}")
+    return row, launches
+
+
+def card_world_rank(seed: int) -> dict:
+    """In a world of one rank on the card: Ulysses over an sp mesh
+    against ``flash_attention`` at the ring shape (bf16), and the
+    expert-parallel ``moe_ffn`` over an ep mesh against
+    ``moe_ffn_local`` at 1024 tokens of the serve widths."""
+    import torch
+
+    from vtpu_torch.ops.attention import flash_attention
+    from vtpu_torch.parallel.mesh import make_mesh
+    from vtpu_torch.parallel.moe import gelu, moe_ffn, moe_ffn_local
+    from vtpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((RING["b"], RING["heads"], RING["s"], RING["hd"]),
+                           device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    sp = make_mesh(("sp",), (1,))
+    u = ulysses_attention(q, k, v, sp, causal=True)
+    ulysses_err = float((u.float() - flash_attention(
+        q, k, v, causal=True).float()).abs().max())
+    t, d, e = 1024, FULL["d_model"], MOE["n_experts"]
+    x = torch.randn((t, d), device="cuda", generator=gen).bfloat16()
+    rw, wi, wo = (torch.randn(shape, device="cuda", generator=gen).bfloat16()
+                  * shape[-2] ** -0.5
+                  for shape in ((d, e), (e, d, 4 * d), (e, 4 * d, d)))
+    ep = make_mesh(("ep",), (1,))
+    cap = t * MOE["moe_top_k"]
+    got = moe_ffn(x, rw, wi, wo, ep, capacity=cap, top_k=MOE["moe_top_k"],
+                  act=gelu)
+    want = moe_ffn_local(x, rw, wi, wo, capacity=cap,
+                         top_k=MOE["moe_top_k"], act=gelu)
+    return dict(ulysses_err_vs_flash_attention=ulysses_err,
+                moe_ffn_equals_local=bool(torch.equal(got, want)))
+
+
+def parallel_phase(card: str, seed: int) -> None:
+    """``dryrun_multichip(1, device="cuda")`` (every program of the
+    parallel layer over an NCCL world of one rank, with the checkpoint
+    round trip), then :func:`card_world_rank` in another."""
+    from vtpu_torch.entry import dryrun_multichip
+    from vtpu_torch.parallel.distributed import spawn_world
+
+    t = time.perf_counter()
+    summary = dryrun_multichip(1, device="cuda")
+    dry_s = time.perf_counter() - t
+    (world,) = spawn_world(card_world_rank, 1, "cuda", args=(seed,),
+                           timeout_s=300)
+    emit(phase="parallel", world=1, backend="nccl", dryrun=summary,
+         dryrun_s=dry_s, **world, card=card)
+    check(world["ulysses_err_vs_flash_attention"] == 0.0,
+          "Ulysses over one rank differs from flash_attention")
+    check(world["moe_ffn_equals_local"], "moe_ffn differs from moe_ffn_local")
+
+
+def multi_device_phase(card: str, seed: int, gen) -> tuple:
+    """Phase 14; returns (its launches, the ring shard's kernel row)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    reqs = make_requests(seed)
+    moe_exactness_phase(card, seed, reqs)
+    launches = moe_serve_phase(card, seed)
+    ring_row, ring_launches = ring_phase(card, gen)
+    tally(launches, ring_launches)
+    torch.cuda.empty_cache()
+    parallel_phase(card, seed)
+    emit(phase="multi_device_phase", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches, ring_row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3257,6 +3577,9 @@ def main() -> int:
     node_phase(card, share_phase(card))
     tally(launches, disagg_phase(card, args.seed, results))
     tally(launches, router_phase(card, args.seed, serve_mets["native"]))
+    moe_launches, ring_row = multi_device_phase(card, args.seed, gen)
+    tally(launches, moe_launches)
+    rows["flash_forward_f32out"] = ring_row
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",
@@ -3267,6 +3590,8 @@ def main() -> int:
                             "vtpu/ops/paged_attention.py:87"),
         "flash_forward": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:48"),
+        "flash_forward_f32out": ("vtpu_torch/csrc/flash_attention.cu",
+                                 "vtpu/ops/attention.py:48"),
         "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                          "vtpu/ops/attention.py:91"),
         "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention_sm90.cu",

@@ -65,7 +65,8 @@ def test_no_source_imports_jax_flax_or_vtpu():
                                    "cnn_params_from_flax", "create_model",
                                    "entry", "ShimRuntime",
                                    "stream_to_device", "share_forward",
-                                   "ai_benchmark_step"])
+                                   "ai_benchmark_step", "dryrun_multichip",
+                                   "spawn_world"])
 def test_default_device_entry_points_refuse_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -77,7 +78,8 @@ def test_default_device_entry_points_refuse_without_cuda(entry):
               kv_block_size=8, kv_pool_blocks=5)
     cpu_model = TransformerLM(**kw, device="cpu")
     from vtpu_torch.bench import ai_benchmark, share
-    from vtpu_torch.entry import entry as graft_entry
+    from vtpu_torch.entry import dryrun_multichip, entry as graft_entry
+    from vtpu_torch.parallel.distributed import spawn_world
     from vtpu_torch.models.convert import cnn_params_from_flax
     from vtpu_torch.models.registry import create_model
     from vtpu_torch.shim import ShimRuntime, stream_to_device
@@ -97,6 +99,8 @@ def test_default_device_entry_points_refuse_without_cuda(entry):
         "PagedBatcher": lambda: PagedBatcher(cpu_model, max_batch=2),
         "generate": lambda: generate(cpu_model.clone(kv_pool_blocks=0),
                                      np.zeros((1, 2), np.int32), 2),
+        "dryrun_multichip": lambda: dryrun_multichip(1),
+        "spawn_world": lambda: spawn_world(print, 1),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -190,9 +190,16 @@ def test_generate_errors_match_jax():
 
 @pytest.mark.parametrize("what", ["moe"])
 def test_deferred_paths_raise_not_implemented(what):
+    """MoE was the last deferred path: it now builds (and converts from
+    flax) instead of raising; an unknown mlp still raises the
+    reference's ValueError."""
     kw = dict(KW)
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttf.TransformerLM(**kw, mlp=what, device="cpu")
+    m = ttf.TransformerLM(**kw, mlp=what, device="cpu")
+    assert all(hasattr(blk, what) for blk in m.h)
+    jm = jtf.TransformerLM(**kw, mlp=what)
+    port_of(jm, jax_params(jm))
+    with pytest.raises(ValueError, match="mlp must be"):
+        ttf.TransformerLM(**kw, mlp="sparse", device="cpu")
 
 
 def test_clone_shares_weights_and_validates():

@@ -13,6 +13,7 @@ from vtpu_torch.models.transformer import TransformerLM as TorchLM
 # the knobs both packages share, read off the flax module
 KNOBS = ("vocab", "d_model", "depth", "num_heads", "max_seq",
          "num_kv_heads", "pos_embedding", "attn_window", "mlp",
+         "n_experts", "moe_top_k", "moe_capacity",
          "kv_cache_dtype", "kv_cache_layout", "kv_block_size",
          "kv_pool_blocks", "paged_kernel")
 

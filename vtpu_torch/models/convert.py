@@ -7,7 +7,9 @@ The tree comes as nested dicts of numpy arrays (``jax.device_get`` of
 the flax params, or any arrays ``np.asarray`` accepts); nothing here
 imports JAX.  Module names map one to one: ``wte``, ``wpe``,
 ``h{i}/attn/{qkv | q, kv, out}``, ``h{i}/ln{1,2}/{scale,bias}``,
-``h{i}/mlp_in``, ``h{i}/mlp_out``, ``ln_f``, ``lm_head``.  A flax Dense
+``h{i}/mlp_in``, ``h{i}/mlp_out`` (or ``h{i}/moe/{router, w_in, w_out}``,
+taken as they are: the port's MoE block keeps the flax layout),
+``ln_f``, ``lm_head``.  A flax Dense
 ``kernel`` is ``[in, out]``; the port's ``nn.Linear.weight`` is
 ``[out, in]``, so every kernel is TRANSPOSED on the way in.  ``mlp_in``
 and ``mlp_out`` carry biases; ``qkv``/``q``/``kv``/``out``/``lm_head``
@@ -54,9 +56,6 @@ def params_from_flax(params, *, device="cuda",
     i = 0
     while f"h{i}" in params:
         blk, pre = params[f"h{i}"], f"h.{i}."
-        if "moe" in blk:
-            raise NotImplementedError(
-                "MoE blocks come with the parallel slice of the port")
         for proj in ("qkv", "q", "kv", "out"):
             if proj in blk["attn"]:
                 put(f"{pre}attn.{proj}.weight", blk["attn"][proj]["kernel"],
@@ -64,9 +63,13 @@ def params_from_flax(params, *, device="cuda",
         for ln in ("ln1", "ln2"):
             put(f"{pre}{ln}.scale", blk[ln]["scale"])
             put(f"{pre}{ln}.bias", blk[ln]["bias"])
-        for lin in ("mlp_in", "mlp_out"):
-            put(f"{pre}{lin}.weight", blk[lin]["kernel"], transpose=True)
-            put(f"{pre}{lin}.bias", blk[lin]["bias"])
+        if "moe" in blk:
+            for leaf in ("router", "w_in", "w_out"):
+                put(f"{pre}moe.{leaf}", blk["moe"][leaf])
+        else:
+            for lin in ("mlp_in", "mlp_out"):
+                put(f"{pre}{lin}.weight", blk[lin]["kernel"], transpose=True)
+                put(f"{pre}{lin}.bias", blk[lin]["bias"])
         i += 1
     put("ln_f.scale", params["ln_f"]["scale"])
     put("ln_f.bias", params["ln_f"]["bias"])

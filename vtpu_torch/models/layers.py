@@ -36,8 +36,11 @@ import math
 from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from vtpu_torch.parallel.comm import all_reduce_sum
 
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-5
@@ -131,6 +134,7 @@ class BatchNorm(nn.Module):
     def __init__(self, c: int, dtype=torch.bfloat16, device=None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.sync_group = None
         self.scale = nn.Parameter(torch.empty(c, device=device))
         self.bias = nn.Parameter(torch.empty(c, device=device))
         self.register_buffer("mean", torch.empty(c, device=device))
@@ -143,6 +147,8 @@ class BatchNorm(nn.Module):
         nn.init.ones_(self.var)
 
     def forward(self, x: torch.Tensor, stats: List) -> torch.Tensor:
+        if self.sync_group is not None:
+            return self._synced(x, stats)
         # statistics and the affine map in f32 (the accumulate type of
         # a bf16 input), one rounding to x's type at the end
         y, mean, invstd = torch.native_batch_norm(
@@ -150,6 +156,22 @@ class BatchNorm(nn.Module):
             BN_EPS)
         stats.append((self, mean, invstd))
         return y
+
+    def _synced(self, x: torch.Tensor, stats: List) -> torch.Tensor:
+        """The same arithmetic over the group's whole batch: two passes
+        of all-reduced per-channel sums (differentiable)."""
+        xf = x.to(self.dtype).float()
+        dims = [0] + list(range(2, xf.dim()))
+        view = [1, -1] + [1] * (xf.dim() - 2)
+        n = xf.numel() // xf.shape[1] * dist.get_world_size(self.sync_group)
+        mean = all_reduce_sum(xf.sum(dims), self.sync_group) / n
+        xc = xf - mean.view(view)
+        var = all_reduce_sum((xc * xc).sum(dims), self.sync_group) / n
+        invstd = torch.rsqrt(var + BN_EPS)
+        y = xc * invstd.view(view) * self.scale.view(view) \
+            + self.bias.view(view)
+        stats.append((self, mean, invstd))
+        return y.to(self.dtype)
 
 
 def reset_parameters(model: nn.Module, generator) -> None:

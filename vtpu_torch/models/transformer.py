@@ -10,8 +10,9 @@ through the flash-attention kernels, differentiable, with
 (``kv_cache_layout="dense"``, the reference's default) or over a K/V pool
 behind a block table (``"paged"``, with the paged decode kernel), each
 native or int8; greedy or sampled :func:`generate`,
-:func:`generate_beam` and :func:`generate_speculative`.  MoE blocks
-raise ``NotImplementedError`` naming the slice that brings them.
+:func:`generate_beam` and :func:`generate_speculative`; and MoE blocks
+(``mlp="moe"``: top-k routed expert FFNs, :class:`MoeMlp`), whose Switch
+load-balance losses a forward hands back through ``aux``.
 
 The cache is an explicit dict of tensors that every forward updates in
 place, the position counter included (the JAX model returns a new cache;
@@ -46,6 +47,7 @@ from vtpu_torch.ops.attention import (flash_attention, flash_attention_gqa,
 from vtpu_torch.ops.layernorm import _reference_ln, fused_layernorm
 from vtpu_torch.ops.paged_attention import paged_attention_decode
 from vtpu_torch.ops.quant import quantize_int8
+from vtpu_torch.parallel.moe import gelu, load_balance_loss, moe_ffn_local
 
 NEG_INF = -1e30
 
@@ -271,25 +273,62 @@ def _masked_attention(q, k_read, v_read, qpos, window: int):
     return o.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, nh * hd)
 
 
+class MoeMlp(nn.Module):
+    """Mixture-of-experts FFN block: top-k routed with static capacity,
+    ``vtpu_torch.parallel.moe.moe_ffn_local`` with tanh-GELU experts.
+    Parameters in the flax layout (no transpose on the way in): ``router``
+    ``[d, E]``, ``w_in`` ``[E, d, h]``, ``w_out`` ``[E, h, d]``.
+    ``capacity`` 0 is lossless (t * top_k slots an expert, so a row's
+    output does not depend on its batch)."""
+
+    def __init__(self, d: int, n_experts: int, top_k: int = 2,
+                 mlp_ratio: int = 4, capacity: int = 0, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.n_experts, self.top_k, self.capacity = n_experts, top_k, capacity
+        h = mlp_ratio * d
+        kw = dict(device=device, dtype=dtype)
+        self.router = nn.Parameter(torch.empty(d, n_experts, **kw))
+        self.w_in = nn.Parameter(torch.empty(n_experts, d, h, **kw))
+        self.w_out = nn.Parameter(torch.empty(n_experts, h, d, **kw))
+
+    def forward(self, x, aux: list | None = None):
+        b, s, d = x.shape
+        out, (logits, ef) = moe_ffn_local(
+            x.reshape(b * s, d), self.router, self.w_in, self.w_out,
+            capacity=self.capacity, top_k=self.top_k, act=gelu,
+            return_aux=True)
+        if aux is not None:  # what flax sows into "intermediates"
+            aux.append(load_balance_loss(logits, ef, self.n_experts))
+        return out.reshape(b, s, d)
+
+
 class Block(nn.Module):
     def __init__(self, d: int, num_heads: int, num_kv_heads: int,
-                 use_rope: bool, mlp_ratio: int = 4, *, device=None,
-                 dtype=None):
+                 use_rope: bool, mlp_ratio: int = 4, *, mlp: str = "dense",
+                 n_experts: int = 8, moe_top_k: int = 2,
+                 moe_capacity: int = 0, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(d, **kw)
         self.attn = Attention(d, num_heads, num_kv_heads, use_rope, **kw)
         self.ln2 = LayerNorm(d, **kw)
-        self.mlp_in = nn.Linear(d, mlp_ratio * d, **kw)
-        self.mlp_out = nn.Linear(mlp_ratio * d, d, **kw)
+        if mlp == "moe":
+            self.moe = MoeMlp(d, n_experts, moe_top_k, mlp_ratio,
+                              moe_capacity, **kw)
+        else:
+            self.mlp_in = nn.Linear(d, mlp_ratio * d, **kw)
+            self.mlp_out = nn.Linear(mlp_ratio * d, d, **kw)
 
     def forward(self, x, layer=None, pos0=None, table=None, *,
-                ln_kernel: bool, **attn_kw):
+                ln_kernel: bool, aux: list | None = None, **attn_kw):
         x = x + self.attn(self.ln1(x, ln_kernel), layer, pos0, table,
                           **attn_kw)
+        if hasattr(self, "moe"):
+            return x + self.moe(self.ln2(x, ln_kernel), aux)
         h = self.mlp_in(self.ln2(x, ln_kernel))
         # flax nn.gelu defaults to the tanh approximation
-        return x + self.mlp_out(F.gelu(h, approximate="tanh"))
+        return x + self.mlp_out(gelu(h))
 
 
 # knobs a clone may change: none of them shapes a weight
@@ -320,7 +359,8 @@ class TransformerLM(nn.Module):
                  depth: int = 8, num_heads: int = 8, max_seq: int = 2048,
                  num_kv_heads: int = 0, pos_embedding: str = "learned",
                  attn_window: int = 0, mlp: str = "dense",
-                 kv_cache_dtype: str = "native",
+                 n_experts: int = 8, moe_top_k: int = 2,
+                 moe_capacity: int = 0, kv_cache_dtype: str = "native",
                  kv_cache_layout: str = "paged", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, paged_kernel: str = "auto",
                  ln_kernel: str = "auto", flash_kernel: str = "auto", *,
@@ -332,6 +372,8 @@ class TransformerLM(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.pos_embedding, self.attn_window, self.mlp = (
             pos_embedding, attn_window, mlp)
+        self.n_experts, self.moe_top_k, self.moe_capacity = (
+            n_experts, moe_top_k, moe_capacity)
         self.kv_cache_dtype, self.kv_cache_layout = (
             kv_cache_dtype, kv_cache_layout)
         self.kv_block_size, self.kv_pool_blocks = kv_block_size, kv_pool_blocks
@@ -346,7 +388,9 @@ class TransformerLM(nn.Module):
             self.wpe = nn.Embedding(max_seq, d_model, **meta)
         use_rope = pos_embedding == "rope"
         self.h = nn.ModuleList(
-            Block(d_model, num_heads, num_kv_heads, use_rope, **meta)
+            Block(d_model, num_heads, num_kv_heads, use_rope, mlp=mlp,
+                  n_experts=n_experts, moe_top_k=moe_top_k,
+                  moe_capacity=moe_capacity, **meta)
             for _ in range(depth)
         )
         self.ln_f = LayerNorm(d_model, **meta)
@@ -357,8 +401,7 @@ class TransformerLM(nn.Module):
     # -- configuration --------------------------------------------------
     def _validate(self) -> None:
         """The reference's ValueErrors for bad knobs (checked at
-        construction here, at apply time there), then what the port does
-        not have yet."""
+        construction here, at apply time there)."""
         if self.pos_embedding not in ("learned", "rope"):
             raise ValueError(
                 f"pos_embedding must be 'learned' or 'rope', "
@@ -400,9 +443,6 @@ class TransformerLM(nn.Module):
                     f"kv_block_size {self.kv_block_size} must divide "
                     f"max_seq {self.max_seq}"
                 )
-        if self.mlp == "moe":
-            raise NotImplementedError(
-                "MoE blocks come with the parallel slice of the port")
 
     def clone(self, **updates) -> "TransformerLM":
         """A model that shares this one's weights with some cache or
@@ -433,7 +473,9 @@ class TransformerLM(nn.Module):
                 p.zero_()
             elif name in ("wte.weight", "wpe.weight"):
                 p.normal_(0.0, self.d_model ** -0.5, generator=gen)
-            else:  # nn.Linear weight [out, in]
+            elif name.endswith("moe.router"):  # [d, E], fan-in d
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+            else:  # nn.Linear [out, in]; the experts' [E, in, out]
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
 
     # -- cache ----------------------------------------------------------
@@ -482,16 +524,19 @@ class TransformerLM(nn.Module):
 
     # -- forward --------------------------------------------------------
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                decode: bool = True) -> torch.Tensor:
+                decode: bool = True, *, aux: list | None = None
+                ) -> torch.Tensor:
+        """``aux``: a list to which each MoE block appends its Switch
+        load-balance loss (flax sows it into ``intermediates``)."""
         if not decode:
-            return self._full(tokens)
+            return self._full(tokens, aux)
         if cache is None:
             raise ValueError("decode=True needs a cache (model.init_cache); "
                              "pass decode=False for a full forward")
         with torch.no_grad():
-            return self._decode(tokens, cache)
+            return self._decode(tokens, cache, aux)
 
-    def _full(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _full(self, tokens: torch.Tensor, aux=None) -> torch.Tensor:
         """Full causal forward over positions arange(s), with autograd."""
         b, s = tokens.shape
         if s > self.max_seq:
@@ -502,12 +547,13 @@ class TransformerLM(nn.Module):
         ln_kernel = self.ln_kernel == "auto"
         flash = self.flash_kernel == "auto"
         for blk in self.h:
-            x = blk(x, ln_kernel=ln_kernel, window=self.attn_window,
-                    flash=flash)
+            x = blk(x, ln_kernel=ln_kernel, aux=aux,
+                    window=self.attn_window, flash=flash)
         x = self.ln_f(x, ln_kernel)
         return self.lm_head(x).float()
 
-    def _decode(self, tokens: torch.Tensor, cache: dict) -> torch.Tensor:
+    def _decode(self, tokens: torch.Tensor, cache: dict,
+                aux=None) -> torch.Tensor:
         b, s = tokens.shape
         assert s <= self.max_seq, f"seq {s} > max_seq {self.max_seq}"
         pos0 = cache["pos"]  # the one position counter, advanced below
@@ -526,7 +572,7 @@ class TransformerLM(nn.Module):
                           and self.device.type == "cuda"))
         ln_kernel = self.ln_kernel == "auto"
         for blk, layer in zip(self.h, cache["layers"]):
-            x = blk(x, layer, pos0, table, ln_kernel=ln_kernel,
+            x = blk(x, layer, pos0, table, ln_kernel=ln_kernel, aux=aux,
                     window=self.attn_window, block_size=self.kv_block_size,
                     max_seq=self.max_seq, use_kernel=use_kernel)
         # in place, after every layer has read pos0 (stream order on the
@@ -542,6 +588,26 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long().to(logits.device)
     return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def tp_param_specs(axis: str = "tp"):
+    """Spec hints for tensor parallelism, by state-dict name: ``qkv``,
+    ``q``, ``kv`` and ``mlp_in`` split their output features, ``out`` and
+    ``mlp_out`` their input features (the Megatron column/row split of
+    the reference's ``tp_param_specs``).  In the port's ``[out, in]``
+    weights the output features are dim 0, so a column split is
+    ``(axis, None)`` and a row split ``(None, axis)``; the rest is
+    replicated."""
+
+    def match(name: str, _tensor=None):
+        if name.endswith(("qkv.weight", "q.weight", "kv.weight",
+                          "mlp_in.weight")):
+            return (axis, None)
+        if name.endswith("out.weight"):
+            return (None, axis)
+        return ()
+
+    return match
 
 
 def bucket_length(n: int, max_seq: int) -> int:

@@ -251,6 +251,8 @@ def flash_forward(q, k, v, causal: bool = False, shift: int = 0,
         _build.stream_ptr(qc))
     _build.check(err, "flash forward kernel")
     flash_forward.launches += 1
+    if suffix == "bf16_f32out":  # ring attention's partials
+        flash_forward.f32out_launches += 1
     return o, lse
 
 
@@ -299,6 +301,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
 
 
 flash_forward.launches = 0
+flash_forward.f32out_launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
