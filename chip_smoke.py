@@ -224,7 +224,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
    NCCL world of one rank (every program of the parallel layer, the
    checkpoint round trip) and, in another world of one, Ulysses equal to
    ``flash_attention`` and the expert-parallel ``moe_ffn`` equal to
-   ``moe_ffn_local`` at the serve widths (``parallel``).
+   ``moe_ffn_local`` at the serve widths (``parallel``);
+15. (after phase 14) weight-only int8 trees: (a) at depth 2, f32, both
+   pools, the serve widths with ``quantize_weights(16384)``:
+   PagedBatcher's tokens equal each prompt's solo ``generate``, the
+   kernels-off path's and eager windows' (``quant_exactness``); (b) the
+   serve configuration's bf16 weights quantized on the card: int8
+   weights, their parameters, ``tree_bytes`` against the bf16 weight
+   bytes, the weight-streaming bound (every int8 level and f32 scale
+   read once) and the one-pass dequantize bound (a level read, bf16
+   written and read again by the GEMM) (``quant_setup``); layer 0's
+   int8 weights and the head (every quantized shape) on the card equal
+   ``quantize_int8`` of the same weights on the CPU, and the one-pass
+   dequantize equals ``(q.float() * scale).to(torch.bfloat16)``, bit for
+   bit (``quant_codec``); (c) the serve phase's 16 requests through the
+   paged arm on native and int8 pools, the dense arm and the
+   disaggregated copy arm, each with bf16 and then int8 weights: the
+   serve lines' metrics, the bf16 arm's replayed step beside the int8
+   arm's, blocks leaked (required 0), LN and paged-decode launches at
+   the serve bounds, replayed windows, and the int8 arm's peak memory
+   over its base within 1 GB of the bf16 arm's (``quant_serve``); (d) a
+   profiled window of 4 graphed int8-weight paged steps; in 4 more, the
+   kernel with the most device ms beyond 4 bf16-weight steps' (the
+   dequantize; rope's mixed-dtype products launch the same kernel): its
+   extra launches (required: one a weight a step, less at most 1 % of
+   records that the profiler drops late in the script) and its share of the
+   device's busy ms, beside every int8 weight of a step dequantized
+   alone (``quant_dequant_share``).
 
 Ends with the ``kernels`` line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero with
@@ -3517,6 +3543,283 @@ def multi_device_phase(card: str, seed: int, gen) -> tuple:
          card=card)
     return launches, ring_row
 
+# -- phase 15: weight-only int8 trees -----------------------------------------
+QUANT_MIN_ELEMS = 16384            # quantize_tree's default size bar
+QUANT_ARMS = (("paged", "native"), ("paged", "int8"), ("dense", "native"),
+              ("disagg_copy", "native"))
+
+
+def quantized_linears(model) -> list:
+    """``(name, QuantLinear)`` of every int8 weight of ``model``."""
+    from vtpu_torch.models.transformer import QuantLinear
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, QuantLinear)]
+
+
+def quant_exactness_phase(card: str, seed: int, reqs) -> None:
+    """Depth 2, f32, both pools, the serve widths with int8 weights
+    (``quantize_weights(16384)``): PagedBatcher's tokens equal each
+    prompt's solo greedy ``generate``, the kernels-off path's and eager
+    windows'."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM, generate
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    small = TransformerLM(**dict(FULL, depth=2), device="cuda",
+                          dtype=torch.float32, generator=gen)
+    small = small.quantize_weights(QUANT_MIN_ELEMS)
+    for pool in ("native", "int8"):
+        kern = small.clone(kv_cache_dtype=pool)
+        graphed, _ = serve(kern, reqs, count=False)
+        plain, _ = serve(kern.clone(paged_kernel="off", ln_kernel="off"),
+                         reqs, count=False)
+        eager, _ = serve(kern, reqs, count=False, decode_graph="off")
+        solo_model = kern.clone(kv_pool_blocks=0)
+        solo = {rid: generate(solo_model, p[None], n)[0].tolist()
+                for rid, p, n in reqs}
+        same = {name: all(graphed[rid] == other[rid] for rid, *_ in reqs)
+                for name, other in (("generate", solo), ("plain", plain),
+                                    ("eager", eager))}
+        emit(phase="quant_exactness", depth=2, dtype="float32",
+             weights="int8", pool=pool, min_elems=QUANT_MIN_ELEMS,
+             quantized_weights=len(quantized_linears(small)),
+             requests=len(reqs), batched_equals_solo=same["generate"],
+             kernels_equal_plain=same["plain"],
+             graphed_equals_eager=same["eager"], card=card)
+        for name, ok in same.items():
+            check(ok, f"f32 int8-weight {pool}: batched tokens differ "
+                      f"from {name}")
+    del small, kern, solo_model
+    torch.cuda.empty_cache()
+
+
+def quant_codec_check(card: str, qmodel, model) -> None:
+    """Layer 0's int8 weights and the head (every quantized shape of the
+    serve configuration): the card's levels and scales against
+    ``quantize_int8`` of the same bf16 weight on the CPU, and the one-pass
+    dequantize against ``(q.float() * scale).to(torch.bfloat16)`` on the
+    card, bit for bit.  Returns the line's fields."""
+    import torch
+
+    from vtpu_torch.ops.quant import dequantize_weight, quantize_int8
+
+    floats = dict(model.named_modules())
+    shapes, cpu_equal, one_pass_equal = [], True, True
+    for name, lin in quantized_linears(qmodel):
+        if not (name.startswith("h.0.") or name == "lm_head"):
+            continue
+        cpu = quantize_int8(floats[name].weight.detach().cpu(), axis=1)
+        cpu_equal &= (torch.equal(lin.q.cpu(), cpu.q) and torch.equal(
+            lin.scale.cpu().view(torch.int32), cpu.scale.view(torch.int32)))
+        one = dequantize_weight(lin.q, lin.scale)
+        three = (lin.q.float() * lin.scale).to(torch.bfloat16)
+        one_pass_equal &= torch.equal(one.view(torch.int16),
+                                      three.view(torch.int16))
+        shapes.append([name, list(lin.q.shape)])
+        del one, three
+    torch.cuda.empty_cache()
+    emit(phase="quant_codec", shapes=shapes, card_levels_scales_equal_cpu=
+         cpu_equal, one_pass_equals_three_op=one_pass_equal, card=card)
+    check(cpu_equal, "int8 weights: the card's levels or scales differ "
+                     "from the CPU's")
+    check(one_pass_equal, "int8 weights: the one-pass dequantize differs "
+                          "from (q.float() * scale).to(bf16)")
+
+
+def quant_arm(model, reqs, arm: str, pool: str, mono=None):
+    """One serve arm of ``model``: ``paged`` (PagedBatcher), ``dense``
+    (ContinuousBatcher) or ``disagg_copy`` (PrefillEngine -> copy ->
+    DecodeEngine), on ``pool``.  Returns (outputs, metrics) with the
+    launches, the blocks leaked and the peak memory over what was
+    allocated before the arm."""
+    import torch
+
+    m = model.clone(kv_cache_dtype=pool)
+    if arm == "dense":
+        m = m.clone(kv_cache_layout="dense")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if arm == "disagg_copy":
+        out, met = release_arm(disagg_arm, m, reqs, mono, mode="copy",
+                               count=True)
+        met["blocks_leaked"] = (met["leaked_decode_pool"]
+                                + met["leaked_prefill_pool"])
+        met["forwards"] = met["prefill_forwards"] + met["decode_steps"]
+    else:
+        out, met = serve(m, reqs, count=True)
+        met["blocks_leaked"] = ((met["pool_free_before"]
+                                 - met["pool_free_after"])
+                                if arm == "paged" else 0)
+    met["peak_over_base_gb"] = met["peak_mem_gb"] - base / 1e9
+    return out, met
+
+
+def quant_serve_phase(card: str, seed: int) -> dict:
+    """The serve configuration's bf16 weights and the same weights
+    quantized (``quantize_weights(16384)``) through each arm of
+    ``QUANT_ARMS``, bf16 then int8 weights; the dequantize's share of a
+    replayed step and a profiled window of 4 graphed int8-weight steps.
+    Returns the launches."""
+    import torch
+
+    from vtpu_torch.models.transformer import TransformerLM
+    from vtpu_torch.ops.quant import dequantize_weight, tree_bytes
+    from vtpu_torch.serving.paged import PagedBatcher
+    from vtpu_torch.utils.devtrace import busy_ms, device_events
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerLM(**FULL, device="cuda", dtype=torch.bfloat16,
+                          generator=gen)  # the serve phase's weights
+    depth = model.depth
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = model.quantize_weights(QUANT_MIN_ELEMS)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    lins = quantized_linears(qmodel)
+    n_q = sum(lin.q.numel() for _n, lin in lins)
+    n_scale = sum(lin.scale.numel() for _n, lin in lins)
+    # a step streams every int8 level and f32 scale once; the one-pass
+    # dequantize reads a level (1 B) and writes bf16 (2 B), which the
+    # GEMM reads again (2 B)
+    stream_ms = (n_q + 4 * n_scale) / HBM_BYTES_PER_S * 1e3
+    dequant_bound_ms = (5 * n_q + 4 * n_scale) / HBM_BYTES_PER_S * 1e3
+    bytes_q, bytes_bf16 = (tree_bytes(dict(qmodel.state_dict())),
+                           tree_bytes(dict(model.state_dict())))
+    bounds = dict(weight_stream_bound_ms=stream_ms,
+                  one_pass_dequant_bound_ms=dequant_bound_ms)
+    emit(phase="quant_setup", min_elems=QUANT_MIN_ELEMS, depth=depth,
+         dtype="bfloat16", quantized_weights=len(lins),
+         quantized_params=n_q, tree_bytes=bytes_q,
+         bf16_weight_bytes=bytes_bf16, bytes_ratio=bytes_q / bytes_bf16,
+         quantize_s=quantize_s, config=FULL, reduced=REDUCED, card=card,
+         **bounds)
+    quant_codec_check(card, qmodel, model)
+    serve(qmodel, make_requests(seed + 1, n=1, num_new=2), count=False)
+    reqs = make_requests(seed)
+    launches, steps, mono, peaks = {}, {}, {}, {}
+    for arm, pool in QUANT_ARMS:
+        for weights, m in (("bf16", model), ("int8", qmodel)):
+            out, met = quant_arm(m, reqs, arm, pool,
+                                 mono=mono.get((weights, pool)))
+            if arm == "paged":
+                mono[weights, pool] = out
+            step = (met["decode_step_ms_replayed_full"]
+                    or met["decode_step_ms_replayed"])
+            steps[arm, pool, weights] = step
+            emit(phase="quant_serve", arm=arm, pool=pool, weights=weights,
+                 depth=depth, dtype="bfloat16",
+                 tree_bytes=bytes_q if weights == "int8" else bytes_bf16,
+                 bf16_weight_bytes=bytes_bf16,
+                 bf16_step_ms=steps.get((arm, pool, "bf16")),
+                 reduced=REDUCED, card=card, **bounds, **met)
+            what = f"{arm} {pool} {weights} weights"
+            c = met["launches"]
+            check(met["finished"] == len(reqs), f"{what}: unfinished")
+            check(met["blocks_leaked"] == 0, f"{what}: leaked blocks")
+            check(c["fused_layernorm"] >= (2 * depth + 1) * met["forwards"]
+                  > 0, f"{what}: layernorm launches {c['fused_layernorm']}")
+            paged = "paged_decode_q8" if pool == "int8" else "paged_decode"
+            if arm == "dense":
+                check(c["paged_decode"] == c["paged_decode_q8"] == 0,
+                      f"{what}: a dense engine launched the paged kernel")
+            else:
+                check(c[paged] >= depth * met["decode_steps"] > 0,
+                      f"{what}: {paged} launches {c[paged]}")
+            check(met["replayed_windows"] > 0,
+                  f"{what}: no decode window was a graph replay")
+            check(met["mem_left_after_release_gb"] < 0.5,
+                  f"{what}: the arm kept {met['mem_left_after_release_gb']}"
+                  f" GB")
+            tally(launches, c)
+            peaks[weights] = met["peak_over_base_gb"]
+        # the graph pool must not hold a bf16 copy of every layer (11.8
+        # GB): the int8 arm's peak over its base stays within 1 GB of
+        # the bf16 arm's
+        check(peaks["int8"] <= peaks["bf16"] + 1.0,
+              f"{arm} {pool}: int8 weights peak {peaks['int8']} GB over "
+              f"the base, bf16 {peaks['bf16']}")
+
+    def dequantize_all():  # each weight dropped as the next is made
+        for _n, lin in lins:
+            dequantize_weight(lin.q, lin.scale)
+
+    dequant_ms = time_ms(dequantize_all, iters=10, warmup=2)
+
+    def four_steps(m, profile: bool):
+        """Launches and device ms by kernel name over 4 graphed paged
+        steps of ``m``, and the window's busy ms."""
+        eng = PagedBatcher(m, max_batch=8)
+        for rid, p, n in reqs[:8]:
+            eng.submit(rid, p, n)
+        for _ in range(2):
+            eng.step()
+        if profile:
+            profile_window(card, "quant_decode_4_steps",
+                           lambda: [eng.step() for _ in range(4)],
+                           require=("paged_partial",))
+        _wall, kernels = device_events(lambda: [eng.step()
+                                                for _ in range(4)])
+        per = {}
+        for kname, a, b in kernels:
+            n, ms = per.get(kname, (0, 0.0))
+            per[kname] = (n + 1, ms + (b - a) / 1e3)
+        return per, busy_ms(kernels)
+
+    # the dequantize is the kernel that the int8-weight steps run most
+    # beyond the bf16-weight steps' (other ops, rope's mixed-dtype
+    # products, launch the same TensorIterator kernel)
+    per_q, busy = four_steps(qmodel, True)
+    per_b, busy_bf16 = four_steps(model, False)
+    base = {k: per_b.get(k, (0, 0.0)) for k in per_q}
+    extra = {k: (n - base[k][0], ms - base[k][1])
+             for k, (n, ms) in per_q.items()}
+    check(bool(extra), "quant profile: no kernel in the window")
+    name = max(extra, key=lambda k: extra[k][1])
+    deq_n, deq_ms = extra[name]
+    step = steps["paged", "native", "int8"]
+    emit(phase="quant_dequant_share", kernel=name[:200],
+         launches_4_steps=per_q[name][0],
+         launches_4_bf16_steps=base[name][0],
+         dequant_launches_4_steps=deq_n, expected_launches=4 * len(lins),
+         dequant_ms_4_steps=deq_ms, device_busy_ms_4_steps=busy,
+         device_busy_ms_4_bf16_steps=busy_bf16,
+         share_of_busy=deq_ms / busy if busy else None,
+         dequant_alone_ms_per_step=dequant_ms,
+         dequant_alone_gb_per_s=(3 * n_q + 4 * n_scale) / dequant_ms / 1e6,
+         decode_step_ms_replayed=step,
+         bf16_step_ms=steps["paged", "native", "bf16"], **bounds,
+         note="the kernel with the most device ms beyond 4 replayed "
+              "bf16-weight paged steps' in 4 int8-weight ones, its extra "
+              "launches and ms; and every int8 weight of a step "
+              "dequantized alone (its rate counts a level read and bf16 "
+              "written)", card=card)
+    # late in the whole script the profiler can drop a few of a window's
+    # ~8600 kernel records, so the count may fall short by up to 1 %
+    check(0.99 * 4 * len(lins) <= deq_n <= 4 * len(lins),
+          f"the dequantize kernel ran {deq_n} times in 4 steps, not "
+          f"{4 * len(lins)}")
+    del qmodel, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quant_phase(card: str, seed: int) -> dict:
+    """Phase 15; returns its launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    quant_exactness_phase(card, seed, make_requests(seed))
+    launches = quant_serve_phase(card, seed)
+    torch.cuda.empty_cache()
+    emit(phase="quant_phase", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3580,6 +3883,7 @@ def main() -> int:
     moe_launches, ring_row = multi_device_phase(card, args.seed, gen)
     tally(launches, moe_launches)
     rows["flash_forward_f32out"] = ring_row
+    tally(launches, quant_phase(card, args.seed))
 
     sources = {
         "fused_layernorm": ("vtpu_torch/csrc/layernorm.cu",

@@ -14,6 +14,14 @@ taken as they are: the port's MoE block keeps the flax layout),
 ``[out, in]``, so every kernel is TRANSPOSED on the way in.  ``mlp_in``
 and ``mlp_out`` carry biases; ``qkv``/``q``/``kv``/``out``/``lm_head``
 do not.
+
+A weight-only int8 tree (``vtpu.ops.quant.quantize_tree``) converts
+too: each quantized leaf (an object with ``q``, ``scale`` and ``axis``)
+becomes a ``vtpu_torch.ops.quant.QuantizedTensor`` in the torch layout,
+its int8 levels and f32 scales transposed with the kernel (``q`` ``[in,
+out]`` and ``scale`` ``[1, out]`` become ``[out, in]`` and ``[out,
+1]``, the reduced axis 0 becomes 1) and the MoE leaves' kept as they
+are.  ``TransformerLM.load_quantized`` takes such a state dict.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from vtpu_torch.device import resolve_device
+from vtpu_torch.ops.quant import QuantizedTensor
 
 
 def _tensor(arr, transpose: bool, device, dtype) -> torch.Tensor:
@@ -40,15 +49,30 @@ def _tensor(arr, transpose: bool, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _quantized(leaf, transpose: bool, device) -> QuantizedTensor:
+    """A flax quantized leaf in the torch layout: levels and scales
+    transposed for an ``nn.Linear`` weight, its reduced axis with them."""
+    axis = int(leaf.axis)
+    if transpose:
+        axis = 1 - axis
+    return QuantizedTensor(_tensor(leaf.q, transpose, device, None),
+                           _tensor(leaf.scale, transpose, device, None), axis)
+
+
 def params_from_flax(params, *, device="cuda",
                      dtype=None) -> Dict[str, torch.Tensor]:
-    """The port's state dict (``TransformerLM.load_state_dict``) for a
-    flax params tree; ``dtype`` casts every tensor when given."""
+    """The port's state dict (``TransformerLM.load_state_dict``, or
+    ``load_quantized`` when the tree holds quantized leaves) for a flax
+    params tree; ``dtype`` casts every float tensor when given (int8
+    levels and their f32 scales stay as they are)."""
     dev = resolve_device(device)
     sd: Dict[str, torch.Tensor] = {}
 
     def put(name, arr, transpose=False):
-        sd[name] = _tensor(arr, transpose, dev, dtype)
+        if hasattr(arr, "q") and hasattr(arr, "scale"):
+            sd[name] = _quantized(arr, transpose, dev)
+        else:
+            sd[name] = _tensor(arr, transpose, dev, dtype)
 
     put("wte.weight", params["wte"]["embedding"])
     if "wpe" in params:

@@ -4,7 +4,9 @@ cache layout.
 
 What is here: MHA or GQA, learned ``wpe`` or half-split ``rope``,
 sliding-window attention, the dense MLP with tanh-approximate GELU, the
-fused LayerNorm kernel; the full forward ``model(tokens, decode=False)``
+fused LayerNorm kernel; weight-only int8 storage
+(:meth:`TransformerLM.quantize_weights`, :meth:`TransformerLM.load_quantized`,
+:class:`QuantLinear`); the full forward ``model(tokens, decode=False)``
 through the flash-attention kernels, differentiable, with
 :func:`lm_loss`; the decode path over a dense cache
 (``kv_cache_layout="dense"``, the reference's default) or over a K/V pool
@@ -31,11 +33,21 @@ hd]``, in the model's dtype; with ``kv_cache_dtype="int8"`` they are
 int8, with f32 scales of the same shape but a last dim of 1.  Dense
 weights are ``nn.Linear`` (``weight`` is the flax kernel transposed, see
 ``vtpu_torch.models.convert``).
+
+Int8 weights (the reference's engines serve a ``quantize_tree`` tree and
+call ``dequantize_tree(params)``, bf16, inside each jitted program): the
+projections that ``vtpu_torch.ops.quant.quantize_tree`` selects hold
+int8 levels and f32 per-output-channel scales, and each forward
+dequantizes a weight where it is used, to bf16 in one pass, then casts
+it to the activations' dtype (an f32 model computes with bf16-rounded
+weights, as flax promotes them).  No f32 copy of a weight is built, and
+nothing syncs with the host, so a captured decode window holds it.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +58,8 @@ from vtpu_torch.ops.attention import (flash_attention, flash_attention_gqa,
                                       reference_attention)
 from vtpu_torch.ops.layernorm import _reference_ln, fused_layernorm
 from vtpu_torch.ops.paged_attention import paged_attention_decode
-from vtpu_torch.ops.quant import quantize_int8
+from vtpu_torch.ops.quant import (QuantizedTensor, dequantize_weight,
+                                  is_quantized, quantize_int8, quantize_tree)
 from vtpu_torch.parallel.moe import gelu, load_balance_loss, moe_ffn_local
 
 NEG_INF = -1e30
@@ -85,6 +98,27 @@ class LayerNorm(nn.Module):
         if kernel:
             return fused_layernorm(x, self.scale, self.bias, 1e-6)
         return _reference_ln(x, self.scale, self.bias, 1e-6)
+
+
+class QuantLinear(nn.Module):
+    """An ``nn.Linear`` whose weight rests as int8 levels ``q`` ``[out,
+    in]`` and f32 scales ``scale`` ``[out, 1]`` (buffers), dequantized at
+    each call by ``dequantize_weight`` to bf16 and then to the input's
+    dtype.  ``bias`` is the float bias, or None."""
+
+    def __init__(self, qt: QuantizedTensor, bias=None):
+        super().__init__()
+        if qt.q.dim() != 2 or qt.axis != 1:
+            raise ValueError(f"an nn.Linear weight reduces axis 1 of "
+                             f"[out, in]; got {tuple(qt.q.shape)}, axis "
+                             f"{qt.axis}")
+        self.register_buffer("q", qt.q)
+        self.register_buffer("scale", qt.scale)
+        self.bias = bias
+
+    def forward(self, x):
+        return F.linear(x, dequantize_weight(self.q, self.scale, x.dtype),
+                        self.bias)
 
 
 class Attention(nn.Module):
@@ -292,10 +326,20 @@ class MoeMlp(nn.Module):
         self.w_in = nn.Parameter(torch.empty(n_experts, d, h, **kw))
         self.w_out = nn.Parameter(torch.empty(n_experts, h, d, **kw))
 
+    def weight(self, name: str, dtype) -> torch.Tensor:
+        """``router``, ``w_in`` or ``w_out``: the parameter, or its int8
+        levels (buffers ``<name>_q``, ``<name>_scale``) dequantized to
+        ``dtype`` through bf16."""
+        q = self._buffers.get(name + "_q")
+        if q is None:
+            return getattr(self, name)
+        return dequantize_weight(q, self._buffers[name + "_scale"], dtype)
+
     def forward(self, x, aux: list | None = None):
         b, s, d = x.shape
         out, (logits, ef) = moe_ffn_local(
-            x.reshape(b * s, d), self.router, self.w_in, self.w_out,
+            x.reshape(b * s, d), self.weight("router", x.dtype),
+            self.weight("w_in", x.dtype), self.weight("w_out", x.dtype),
             capacity=self.capacity, top_k=self.top_k, act=gelu,
             return_aux=True)
         if aux is not None:  # what flax sows into "intermediates"
@@ -460,6 +504,65 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.wte.weight.device
+
+    # -- int8 weights ---------------------------------------------------
+    def quantize_weights(self, min_elems: int = 16384) -> "TransformerLM":
+        """A model with this one's knobs whose projections that
+        ``quantize_tree(state dict, min_elems)`` selects hold int8 levels
+        (quantized where the weights are); it shares every other tensor
+        with this one, which is left as it is."""
+        keep = {id(t): t for t in itertools.chain(self.parameters(),
+                                                   self.buffers())}
+        new = copy.deepcopy(self, keep)  # a new module tree, same tensors
+        with torch.no_grad():
+            qtree = quantize_tree(dict(self.named_parameters()), min_elems)
+        for name, qt in qtree.items():
+            if is_quantized(qt):
+                new._install_quantized(name, qt)
+        return new
+
+    def load_quantized(self, state_dict) -> "TransformerLM":
+        """Load a state dict in which some entries are ``QuantizedTensor``
+        (``params_from_flax`` of a quantized flax tree, or
+        ``quantize_tree`` of a state dict): each becomes the int8 storage
+        of its weight, and the rest load as ``load_state_dict`` loads
+        them, strictly.  In place; returns the model."""
+        plain, installed = {}, set()
+        for name, v in state_dict.items():
+            if not is_quantized(v):
+                plain[name] = v
+                continue
+            installed |= self._install_quantized(name, QuantizedTensor(
+                v.q.to(self.device), v.scale.to(self.device), v.axis))
+        missing, unexpected = self.load_state_dict(plain, strict=False)
+        if unexpected or set(missing) - installed:
+            raise RuntimeError(
+                f"load_quantized: missing {sorted(set(missing) - installed)}"
+                f", unexpected {sorted(unexpected)}")
+        return self
+
+    def _install_quantized(self, name: str, qt: QuantizedTensor) -> set:
+        """Swap the weight ``name`` (an ``nn.Linear`` weight or an MoE
+        leaf) for int8 levels ``qt`` of its shape; returns the names of
+        the new state-dict entries."""
+        path, leaf = name.rsplit(".", 1)
+        mod = self.get_submodule(path)
+        want = getattr(mod, leaf, None)
+        if want is None or tuple(want.shape) != tuple(qt.q.shape):
+            raise ValueError(f"{name}: no weight of shape "
+                             f"{tuple(qt.q.shape)} to quantize")
+        if isinstance(mod, nn.Linear) and leaf == "weight":
+            parent, attr = path.rsplit(".", 1) if "." in path else ("", path)
+            setattr(self.get_submodule(parent), attr,
+                    QuantLinear(qt, mod.bias))
+            return {f"{path}.q", f"{path}.scale"}
+        if isinstance(mod, MoeMlp) and qt.axis == qt.q.dim() - 2:
+            delattr(mod, leaf)
+            mod.register_buffer(leaf + "_q", qt.q)
+            mod.register_buffer(leaf + "_scale", qt.scale)
+            return {f"{name}_q", f"{name}_scale"}
+        raise ValueError(f"{name} cannot hold int8 levels reduced over "
+                         f"axis {qt.axis}")
 
     @torch.no_grad()
     def reset_parameters(self, generator=None) -> None:

@@ -1,5 +1,5 @@
-"""Symmetric quantization: the codec of the int8 paged K/V pool and the
-device halves of the K/V wire codecs.
+"""Symmetric quantization: the codec of the int8 paged K/V pool, the
+device halves of the K/V wire codecs, and weight-only int8 trees.
 
 - ``quantize_int8`` (absmax/127 per vector, reconstruction-nearest
   rounding) and ``dequantize``: the int8 K/V cache of both layouts.
@@ -20,14 +20,26 @@ device halves of the K/V wire codecs.
   division by a Python scalar into a multiply by its reciprocal, so the
   divisor is a tensor.  The int4 and fp8 scales multiply by an explicit
   f32 reciprocal, as their twins do.
+- weight-only int8 over a state dict (``vtpu/ops/quant.py``'s
+  ``quantize_tree``, ``dequantize_tree``, ``tree_bytes``,
+  ``is_quantized``): the same leaves are quantized, with the same levels
+  and scales.  A ``weight`` leaf is an ``nn.Linear`` weight ``[out, in]``
+  (the flax kernel transposed) and is reduced over its last axis; every
+  other leaf keeps the flax layout (``kernel`` ``[in, out]``, the MoE
+  ``router`` ``[d, E]``, ``w_in`` ``[E, d, h]``, ``w_out`` ``[E, h, d]``)
+  and is reduced over ``ndim - 2``: one scale per output channel either
+  way.  :func:`dequantize_weight` is what a quantized model's forward
+  runs at each use of a weight: one elementwise pass that reads the int8
+  levels and writes bf16, with no f32 copy of the weight.
 
 These are plain PyTorch: the JAX package runs them as XLA inside its
-jitted gathers and scatters, with no Pallas kernel.
+jitted gathers, scatters and matmuls, with no Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +52,14 @@ class QuantizedTensor:
     q: torch.Tensor
     scale: torch.Tensor
     axis: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() + 4 * self.scale.numel()
+
+
+def is_quantized(x) -> bool:
+    return isinstance(x, QuantizedTensor)
 
 
 def _nearest_int(xf: torch.Tensor, scale: torch.Tensor,
@@ -69,6 +89,74 @@ def quantize_int8(w: torch.Tensor, axis: int = 0) -> QuantizedTensor:
 
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (qt.q.float() * qt.scale).to(dtype)
+
+
+# -- weight-only int8 trees -------------------------------------------------
+
+def _is_embedding(name: str) -> bool:
+    """The reference's rule, on a dotted name: the leaf is ``embedding``
+    or ``embeddings``, any component is ``wte`` or ``wpe``, or a
+    ``weight``/``w`` leaf sits under a module whose name holds
+    ``embedding`` or has ``embed`` as a ``_``-separated word."""
+    parts = name.lower().split(".")
+    leaf = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    return (leaf in ("embedding", "embeddings")
+            or any(p in ("wte", "wpe") for p in parts)
+            or (leaf in ("weight", "w")
+                and ("embedding" in parent or "embed" in parent.split("_"))))
+
+
+def _weight_axis(name: str, ndim: int) -> int:
+    """The reduced (input) axis of a weight: the last one of an
+    ``nn.Linear`` ``weight`` ``[out, in]``, ``ndim - 2`` of a leaf in the
+    flax layout."""
+    return ndim - 1 if name.rsplit(".", 1)[-1] == "weight" else ndim - 2
+
+
+def quantize_tree(params: Mapping[str, torch.Tensor],
+                  min_elems: int = 16384) -> Dict[str, object]:
+    """Every float leaf with ndim >= 2 and at least ``min_elems`` elements
+    as a :class:`QuantizedTensor` (one scale per output channel, see
+    :func:`_weight_axis`); embedding tables, norms, biases and small
+    leaves as they are.  ``params`` maps dotted names to tensors (a state
+    dict); the result has the same keys."""
+    out: Dict[str, object] = {}
+    for name, leaf in params.items():
+        if (not _is_embedding(name) and leaf.dim() >= 2
+                and leaf.numel() >= min_elems and leaf.is_floating_point()):
+            axis = _weight_axis(name, leaf.dim())
+            out[name] = quantize_int8(leaf, axis=axis)
+        else:
+            out[name] = leaf
+    return out
+
+
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """``q * scale`` rounded to bf16 in one elementwise pass (the product
+    is taken in f32 and rounded as it is stored, which is
+    ``(q.float() * scale).to(torch.bfloat16)`` bit for bit, without its
+    f32 copy of the weight); then cast to ``dtype`` if that is not bf16.
+    Allocates its output and syncs nothing with the host, so a captured
+    CUDA graph can hold it."""
+    w = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    torch.mul(q, scale, out=w)
+    return w if dtype == torch.bfloat16 else w.to(dtype)
+
+
+def dequantize_tree(params: Mapping[str, object],
+                    dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`quantize_tree` (bf16 by default, as the
+    reference's engines call it); the other leaves as they are."""
+    return {name: dequantize(x, dtype) if is_quantized(x) else x
+            for name, x in params.items()}
+
+
+def tree_bytes(params: Mapping[str, object]) -> int:
+    """At-rest bytes: a level is one byte and a scale four."""
+    return sum(x.nbytes if is_quantized(x) else x.numel() * x.element_size()
+               for x in params.values())
 
 
 # -- the wire codecs' device halves ----------------------------------------

@@ -51,9 +51,14 @@ hook sits inside a captured window: host code in a captured region runs
 once, at capture.  With tracing off the ledger and spans cost one flag
 check; the histograms, gauges and counters always count.
 
+A model with int8 weights (``TransformerLM.quantize_weights`` or
+``load_quantized``) serves unchanged: its forward dequantizes each weight
+where it is used, with no host sync, so the captured window holds the
+dequantize as the reference's jitted ``_step_k`` holds ``dequantize_tree``.
+
 Greedy decoding; every request's tokens are identical to the JAX
 engine's on the same weights and schedule (tests/test_torch_dense.py,
-tests/test_torch_paged.py).
+tests/test_torch_paged.py, tests/test_torch_quant_tree.py).
 """
 
 from __future__ import annotations

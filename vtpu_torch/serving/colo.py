@@ -146,9 +146,10 @@ def boot_role_engine(pod_annos: Dict[str, str], model, *,
     alone: ``prefill`` -> ``PrefillEngine(model)``, ``decode`` ->
     ``DecodeEngine(model, max_batch)`` with the placement's replica id.
     The port's engines take the model, which holds its weights (the
-    reference also takes a params tree).  Returns ``(placement,
-    engine)``; ValueError on a missing placement or a role with no
-    engine."""
+    reference also takes a params tree): a model with int8 weights
+    (``TransformerLM.quantize_weights``) goes to the engine as it is.
+    Returns ``(placement, engine)``; ValueError on a missing placement or
+    a role with no engine."""
     placement = parse_placement(pod_annos)
     if placement is None:
         raise ValueError(

@@ -35,6 +35,14 @@ The bind, position and first-token writes are ``index_copy_`` into the
 very tensors the captured decode windows read, so adoption never breaks
 a graph.
 
+Both engines serve a model with int8 weights
+(``TransformerLM.quantize_weights`` or ``load_quantized``; the
+reference's engines take a ``quantize_tree`` tree and call
+``dequantize_tree`` in each program): the model dequantizes its weights
+where they are used.  The K/V wire is the same: weights never travel
+over it, and a JAX prefill on the same int8 tree hands its K/V to a
+torch decode engine token for token (tests/test_torch_quant_tree.py).
+
 Wire order of the pool leaves is the JAX package's flatten order: layer
 names sorted as strings (``h0, h1, h10, h11, h2, ...``) and, within a
 layer, ``k_pool, k_pool_scale, v_pool, v_pool_scale``.  Every leaf of a

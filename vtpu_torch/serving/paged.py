@@ -24,7 +24,10 @@ The ledger's ``prefill_start``/``prefill_done`` marks bracket each
 admission forward, as at the reference's; the rest of the hooks are the
 base class's.
 
-Weight-only int8 trees (``dequantize_tree``) come with a later slice.
+A model with int8 weights (``TransformerLM.quantize_weights`` or
+``load_quantized``) serves as it is: each forward dequantizes its
+weights where they are used, inside the captured decode windows too,
+where the reference's programs call ``dequantize_tree``.
 """
 
 from __future__ import annotations
