@@ -15,7 +15,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    all from one ``cuobjdump -res-usage -sass`` of the library, so a
    reused build reports the same; the tensor-core and paged kernels must
    spill nothing, and the tensor-core kernels must hold such
-   instructions;
+   instructions; the forward's f32-out instances
+   (``flash_fwd_tc<64,f32>``, ``flash_fwd_tc<128,f32>``) must be there;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (the paged kernels at the kernel
    phase's lengths and at the serve phase's): max abs error against the stated
@@ -48,7 +49,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    correctness rows at s 1024 (window 256, shift -1 with f32 o, ragged
    s 1000); ``err_to_tol`` is the worst output's error over its own
    tolerance (dk and dv each against their own scale); and the bf16 ->
-   f32-out forward timed at the training path's shape; then one small
+   f32-out forward (tensor cores, p split into two bf16 halves) timed at
+   the training path's shape, o within 2e-5 and lse within 2e-5
+   relative, beside the CUDA-core time it replaced (``earlier_ms``); then
+   one small
    row per head dim or group that only the chunked and head-grouped
    kernels take (``shape: "wide_heads"``: paged at g 8 / hd 256, g 4 /
    hd 512, g 1 / hd 512, g 32 / hd 128; flash at hd 192, 256, 512);
@@ -218,8 +222,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bf16 every partial is the bf16 -> f32-out forward (16 launches a
    ring), the output within four bf16 ulps of ``flash_attention``'s,
    both beside their error against the f32 plain attention; in f32
-   within 2e-5 of the plain attention (``ring``); then the f32-out
-   forward timed at a shard's shape (``shape: "ring_shard"``);
+   within 2e-5 of the plain attention (``ring``), each layout's ring
+   timed by CUDA events (``ring_ms``); then the f32-out forward timed at
+   a shard's shape (``shape: "ring_shard"``, with ``earlier_ms``);
    (d) ``vtpu_torch.entry.dryrun_multichip(1, device="cuda")`` over an
    NCCL world of one rank (every program of the parallel layer, the
    checkpoint round trip) and, in another world of one, Ulysses equal to
@@ -342,6 +347,8 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 # -- phase 0: what the build made ------------------------------------------
 TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc")
+# the f32-out forward's instances (hd <= 64 and <= 128)
+F32OUT_INSTANCES = ("flash_fwd_tc<64,f32>", "flash_fwd_tc<128,f32>")
 PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
@@ -408,8 +415,10 @@ def kernel_build_report(so_path: str, nvcc_dir: str) -> dict:
 def build_failures(report: dict) -> list:
     """Each tensor-core kernel and each paged kernel must be in the
     library and spill nothing (no stack frame, no LDL / STL); the
-    tensor-core kernels must hold tensor-core instructions."""
-    bad = []
+    tensor-core kernels must hold tensor-core instructions, and the
+    forward's f32-out instances must be among them."""
+    bad = [f"{name}: not in the library" for name in F32OUT_INSTANCES
+           if name not in report]
     for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
         if not rows:
@@ -653,7 +662,7 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
            "flash_bwd_dq": [tat.flash_bwd_dq(q, k, v, do, lse, delta, *cfg)],
            "flash_bwd_dkv": list(tat.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                    *cfg))}
-    lse_err = float(((lse - rlse).abs() / rlse.abs().clamp_min(1)).max())
+    lse_err = lse_rel_err(lse, rlse)
     del rlse
     want = {"flash_forward": [ro],
             "flash_bwd_dq": [tat.flash_bwd_dq_reference(
@@ -741,11 +750,21 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
     return rows
 
 
+# the f32-out forward's times on the CUDA cores (flash_fwd), before it
+# moved to the tensor cores (PERF.md kernel table, row 4)
+F32OUT_EARLIER_MS = {"main": 10.7727, "ring_shard": 0.4840}
+
+
+def lse_rel_err(lse, rlse) -> float:
+    return float(((lse - rlse).abs() / rlse.abs().clamp_min(1)).max())
+
+
 def flash_f32out_row(gen, card: str) -> None:
     """The bf16 -> f32-out forward (ring attention's inner op) at the
-    training path's shape: o against the plain version at 2e-5, its
-    time, the plain version's and the bound (no library call returns an
-    f32 o from bf16 inputs)."""
+    training path's shape: o against the plain version at 2e-5 and lse
+    at 2e-5 relative, its time beside the CUDA-core time it replaced,
+    the plain version's and the bound (no library call returns an f32 o
+    from bf16 inputs)."""
     import torch
 
     from vtpu_torch.ops import attention as tat
@@ -753,10 +772,12 @@ def flash_f32out_row(gen, card: str) -> None:
     q, k, v, _do = flash_inputs(gen, torch.bfloat16, **FLASH)
     cfg = (True, 0, 0)
     f32 = torch.float32
-    o, _lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
-    ro, _rlse = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
+    o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
+    ro, rlse = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
     torch.cuda.synchronize()
     err = float((o - ro).abs().max())
+    lse_err = lse_rel_err(lse, rlse)
+    del lse, rlse
     b, h, s, hd = q.shape
     pairs = flash_work(b, h, s, k.shape[2], hd, *cfg)
     nbytes = (q.numel() + 2 * k.numel()) * q.element_size() \
@@ -765,16 +786,19 @@ def flash_f32out_row(gen, card: str) -> None:
     row = dict(phase="kernel", kernel="flash_forward", b=b, heads=h,
                kv_heads=k.shape[1], s=s, hd=hd, causal=True, shift=0,
                window=0, dtype="bfloat16", out_dtype="float32",
-               max_abs_err=err, tol=TOL_F32,
+               max_abs_err=err, tol=TOL_F32, lse_rel_err=lse_err,
                ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
                                                     out_dtype=f32),
                           iters=5, warmup=1),
+               earlier_ms=F32OUT_EARLIER_MS["main"],
                plain_ms=time_ms(lambda: tat.flash_attention_reference(
                    q, k, v, *cfg, out_dtype=f32), iters=3, warmup=1),
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                kept_pairs=pairs, card=card)
     emit(**row)
     check(err <= TOL_F32, f"flash_forward bf16 -> f32: err {err}")
+    check(lse_err <= TOL_F32,
+          f"flash_forward bf16 -> f32: lse rel err {lse_err}")
     del q, k, v, _do, o, ro
     torch.cuda.empty_cache()
 
@@ -3393,8 +3417,11 @@ def ring_phase(card: str, gen) -> dict:
     partial is the bf16 -> f32-out forward, held against
     ``flash_attention`` (the tensor-core kernel) at four bf16 ulps of the
     output's scale, both beside their error against the f32 plain
-    attention; in f32 against the plain attention at 2e-5.  Then the
-    f32-out forward timed at a shard's shape.  Returns that kernel row."""
+    attention; in f32 against the plain attention at 2e-5.  Each
+    layout's ring is timed (``ring_ms``, CUDA events) after its counts
+    are read.  Then the f32-out forward at a shard's shape: o at 2e-5,
+    lse at 2e-5 relative, its time beside the CUDA-core time it replaced.
+    Returns that kernel row."""
     import torch
 
     from vtpu_torch.ops import attention as tat
@@ -3410,13 +3437,17 @@ def ring_phase(card: str, gen) -> dict:
         ref = tat.reference_attention(q.float(), k.float(), v.float(),
                                       causal=True)
         for layout in ("contiguous", "striped"):
+            qkv = ((q, k, v) if layout == "contiguous" else
+                   tuple(stripe_sequence(t, n) for t in (q, k, v)))
+
+            def ring(qkv=qkv, layout=layout):
+                return ring_attention_shards(*qkv, n, causal=True,
+                                             layout=layout)
+
             zero_counts()
+            out = ring()
             if layout == "striped":
-                out = unstripe_sequence(ring_attention_shards(
-                    *(stripe_sequence(t, n) for t in (q, k, v)), n,
-                    causal=True, layout="striped"), n)
-            else:
-                out = ring_attention_shards(q, k, v, n, causal=True)
+                out = unstripe_sequence(out, n)
             torch.cuda.synchronize()
             counts = read_counts()
             tally(launches, counts)
@@ -3426,6 +3457,7 @@ def ring_phase(card: str, gen) -> dict:
                        err_vs_f32_plain=err,
                        flash_forward_launches=counts["flash_forward"],
                        f32out_launches=counts["flash_forward_f32out"],
+                       ring_ms=time_ms(ring, iters=5, warmup=1),
                        card=card)
             if dtype == torch.bfloat16:
                 flash = tat.flash_attention(q, k, v, causal=True)
@@ -3451,9 +3483,10 @@ def ring_phase(card: str, gen) -> dict:
                .to(torch.bfloat16) for _ in range(3))
     cfg = (True, 0, 0)
     f32 = torch.float32
-    o, _ = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
-    ro, _ = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
+    o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
+    ro, rlse = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
     err = float((o - ro).abs().max())
+    lse_err = lse_rel_err(lse, rlse)
     pairs = flash_work(b, h, s // n, s // n, hd, *cfg)
     nbytes = 3 * q.numel() * q.element_size() + o.numel() * 4 \
         + b * h * (s // n) * 4
@@ -3461,15 +3494,18 @@ def ring_phase(card: str, gen) -> dict:
     row = dict(phase="kernel", kernel="flash_forward", shape="ring_shard",
                b=b, heads=h, kv_heads=h, s=s // n, hd=hd, causal=True,
                dtype="bfloat16", out_dtype="float32", max_abs_err=err,
-               tol=TOL_F32,
+               tol=TOL_F32, lse_rel_err=lse_err,
                ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
                                                     out_dtype=f32)),
+               earlier_ms=F32OUT_EARLIER_MS["ring_shard"],
                plain_ms=time_ms(lambda: tat.flash_attention_reference(
                    q, k, v, *cfg, out_dtype=f32), iters=10, warmup=2),
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                kept_pairs=pairs, card=card)
     emit(**row)
     check(err <= TOL_F32, f"f32-out forward at the ring shard: err {err}")
+    check(lse_err <= TOL_F32,
+          f"f32-out forward at the ring shard: lse rel err {lse_err}")
     return row, launches
 
 
@@ -3894,7 +3930,7 @@ def main() -> int:
                             "vtpu/ops/paged_attention.py:87"),
         "flash_forward": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:48"),
-        "flash_forward_f32out": ("vtpu_torch/csrc/flash_attention.cu",
+        "flash_forward_f32out": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                                  "vtpu/ops/attention.py:48"),
         "flash_bwd_dq": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                          "vtpu/ops/attention.py:91"),

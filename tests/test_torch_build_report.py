@@ -23,6 +23,11 @@ _NS_TC = "_ZN56_GLOBAL__N__32543659_23_flash_attention_sm90_cu_7f0596a5"
 _NS_CC = "_ZN51_GLOBAL__N__2949fed5_18_flash_attention_cu_393d3e2b"
 FWD_TC = (_NS_TC + "12flash_fwd_tcILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pf"
           "N4vtpu5flash7ProblemEib")
+# the forward templated on its output: bf16, and f32 (the f32-out entry)
+FWD_TC_BF16 = (_NS_TC + "12flash_fwd_tcILi128E13__nv_bfloat16EEvPKS1_S3_S3_"
+               "PT0_PfN4vtpu5flash7ProblemEib")
+FWD_TC_F32 = {hd: (_NS_TC + f"12flash_fwd_tcILi{hd}EfEEvPK13__nv_bfloat16S3_"
+                   "S3_PT0_PfN4vtpu5flash7ProblemEib") for hd in (64, 128)}
 DKV_TC = (_NS_TC + "12flash_dkv_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKf"
           "S5_PS1_S6_N4vtpu5flash7ProblemEib")
 DQ_TC = (_NS_TC + "11flash_dq_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_"
@@ -42,9 +47,10 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
-          paged_spills=False) -> str:
-    """cuobjdump -res-usage -sass output for five flash kernels, three
-    paged kernels and one other kernel."""
+          paged_spills=False, f32out_stack=0, f32out_spills=False) -> str:
+    """cuobjdump -res-usage -sass output for seven flash kernels (the
+    f32-out forward at hd 64 and 128 among them), three paged kernels
+    and one other kernel."""
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
     sass = []
@@ -56,6 +62,11 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
              + (["STL.64 [R1+0x8], R4 ;", "LDL.LU R5, [R1+0x8] ;"]
                 if dkv_spills else [])),
             (DQ_TC, 244, 0, ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 4),
+            (FWD_TC_F32[64], 168, 0,
+             ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 5),
+            (FWD_TC_F32[128], 232, f32out_stack,
+             ["HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * 6
+             + (["STL [R1+0x10], R7 ;"] if f32out_spills else [])),
             (DQ_F32, 168, 0, ["FFMA R1, R2, R3, R1 ;"]),
             (FWD_F32OUT, 128, 0, ["LDS.128 R4, [R2] ;"]),
             (PARTIAL_BF16, 96, 0, ["SHFL.BFLY PT, R4, R5, 0x10, 0x1f ;"]),
@@ -82,6 +93,9 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (FWD_TC, "flash_fwd_tc<128>"),
     (DKV_TC, "flash_dkv_tc<128>"),
     (DQ_TC, "flash_dq_tc<128>"),
+    (FWD_TC_BF16, "flash_fwd_tc<128,bf16>"),
+    (FWD_TC_F32[64], "flash_fwd_tc<64,f32>"),
+    (FWD_TC_F32[128], "flash_fwd_tc<128,f32>"),
     (DQ_F32, "flash_bwd_dq<f32,128>"),
     (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
@@ -102,6 +116,10 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
                                   tensor_core_ops=2),
         "flash_dq_tc<128>": dict(registers=244, stack_bytes=0, local_ops=0,
                                  tensor_core_ops=4),
+        "flash_fwd_tc<64,f32>": dict(registers=168, stack_bytes=0,
+                                     local_ops=0, tensor_core_ops=5),
+        "flash_fwd_tc<128,f32>": dict(registers=232, stack_bytes=0,
+                                      local_ops=0, tensor_core_ops=6),
         "flash_bwd_dq<f32,128>": dict(registers=168, stack_bytes=0,
                                       local_ops=0, tensor_core_ops=0),
         "flash_fwd<bf16,f32,64>": dict(registers=128, stack_bytes=0,
@@ -140,6 +158,30 @@ def test_a_library_without_the_tensor_core_dq_fails():
     del report["flash_dq_tc<128>"]
     assert chip_smoke.build_failures(report) == [
         "flash_dq_tc: not in the library"]
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_tc<64,f32>",
+                                  "flash_fwd_tc<128,f32>"])
+def test_a_library_without_the_f32out_forward_fails(name):
+    """The bf16 -> f32-out entry runs flash_fwd_tc with f32 o at hd 64
+    and 128: a library that lacks either instance (one built from
+    sources that still send that entry to the CUDA cores, whose
+    flash_fwd<bf16,f32,...> does not count) fails."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert "flash_fwd<bf16,f32,64>" in report
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+
+
+def test_a_spilling_f32out_forward_fails_the_build_check():
+    """The split P V adds a second A fragment a k-step: a build where
+    that spills fails, like any tensor-core kernel."""
+    report = chip_smoke.parse_cuobjdump(_dump(f32out_stack=8,
+                                              f32out_spills=True))
+    assert chip_smoke.build_failures(report) == [
+        "flash_fwd_tc<128,f32>: spills (stack 8 bytes, 1 local "
+        "loads/stores)"]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

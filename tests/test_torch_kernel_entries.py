@@ -79,11 +79,12 @@ def test_the_scanner_sees_both_forms_and_skips_comments(tmp_path,
 
 
 def test_the_flash_entries_are_split_by_route():
-    """bf16 -> bf16 forward, dq and dk/dv on the tensor cores; the f32
-    and the f32-out entries on the CUDA cores."""
+    """bf16 -> bf16 forward, dq and dk/dv and the bf16 -> f32-out
+    forward on the tensor cores; the f32 and the wide entries on the
+    CUDA cores."""
     where = {name: path.rsplit("/", 1)[-1] for name, path in _definitions()}
     tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dq_bf16",
-              "vtpu_flash_bwd_dkv_bf16"}
+              "vtpu_flash_bwd_dkv_bf16", "vtpu_flash_fwd_bf16_f32out"}
     for name in _build.SIGNATURES:
         if not name.startswith("vtpu_flash_"):
             continue

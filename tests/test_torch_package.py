@@ -289,8 +289,8 @@ def _bf16_ulps(got, want):
 
 def _flash_bf16_kernels_match_plain(dev, gen):
     """The bf16 kernels (the tensor-core forward, dq and dk/dv) on the
-    shapes above, less the f32-o row, which stays on the
-    CUDA-core forward, plus s 1000 at hd 128, head dims that take the
+    shapes above, less the f32-o row (the bf16 -> f32-out forward has its
+    own card test, tests/test_torch_flash_f32out_card.py), plus s 1000 at hd 128, head dims that take the
     plain-load staging (36, and 33 under shift -1), a window under
     shift -1 with GQA, fewer queries than keys, and a q that is not
     16-byte aligned: o, dq, dk and dv within two bf16 ulps at the

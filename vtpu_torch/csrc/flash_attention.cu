@@ -2,7 +2,7 @@
 // per-row logsumexp) and the two backward kernels (dq; dk and dv), f32
 // arithmetic throughout.  The entries this source serves:
 //
-//   vtpu_flash_fwd_f32, vtpu_flash_fwd_bf16_f32out      (flash_fwd)
+//   vtpu_flash_fwd_f32                                  (flash_fwd)
 //   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
 //   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
@@ -13,12 +13,12 @@
 //   vtpu_flash_bwd_dq_wide_{f32,bf16}                   (flash_bwd_dq_wide)
 //   vtpu_flash_bwd_dkv_wide_{f32,bf16}                  (flash_bwd_dkv_wide)
 //
-// The bf16 -> bf16 entries, the training path's dtype, run on the tensor
-// cores in flash_attention_sm90.cu: the forward, dq and dk/dv.  The f32
-// entries stay here because the f32 exactness checks rely on f32
-// products (TF32 tensor cores would not meet them); the f32-out forward
-// stays because its f32 o is held at 2e-5, which a kernel that rounds p
-// to bf16 cannot meet.
+// The bf16 entries at hd <= 128 run on the tensor cores in
+// flash_attention_sm90.cu: the forward, dq and dk/dv, and the bf16 ->
+// f32-out forward of ring attention's partials, which splits p into two
+// bf16 halves to keep its f32 o within 2e-5.  The f32 entries stay here
+// because the f32 exactness checks rely on f32 products (TF32 tensor
+// cores would not meet them).
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
 //   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
@@ -324,10 +324,10 @@ __device__ __forceinline__ void probs_tile(const float (&s)[4][4],
   }
 }
 
-template <typename T, typename O, int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, O* __restrict__ o,
+              const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, Problem P, bool vec) {
   constexpr int S = HD + 4;
   constexpr int NU = HD / 64;
@@ -374,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tx == 0 && row < P.seq_q)
       lse[static_cast<size_t>(n) * P.seq_q + row] = m[i] + logf(ls);
   }
-  store_tile<O, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, P.hd, ty, tx);
+  store_tile<T, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, P.hd, ty, tx);
 }
 
 template <typename T, int HD>
@@ -724,22 +724,22 @@ bool can_vec(int hd, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-template <typename T, typename O, int HD>
+template <typename T, int HD>
 int fwd_hd(const void* q, const void* k, const void* v, void* o, void* lse,
            int n_q, const Problem& P, bool vec, cudaStream_t st) {
-  auto kernel = flash_fwd<T, O, HD>;
+  auto kernel = flash_fwd<T, HD>;
   const size_t smem = smem_fwd<HD>();
   cudaError_t e = vtpu::allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((P.seq_q + kTile - 1) / kTile, n_q);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<O*>(o),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), P, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O>
+template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
                int causal, int shift, int window, float sm_scale,
@@ -750,8 +750,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = can_vec<T>(hd, {q, k, v});
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 64 ? fwd_hd<T, O, 64>(q, k, v, o, lse, n_q, P, vec, st)
-                  : fwd_hd<T, O, 128>(q, k, v, o, lse, n_q, P, vec, st);
+  return hd <= 64 ? fwd_hd<T, 64>(q, k, v, o, lse, n_q, P, vec, st)
+                  : fwd_hd<T, 128>(q, k, v, o, lse, n_q, P, vec, st);
 }
 
 template <typename T, int HD>
@@ -928,8 +928,7 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
   }
 
 using bf16 = __nv_bfloat16;
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, (launch_fwd<float, float>))
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_bf16_f32out, (launch_fwd<bf16, float>))
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, launch_fwd<float>)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, launch_dq<float>)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, launch_dkv<float>)
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, (launch_fwd_wide<float, float>))

@@ -1,22 +1,41 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16 inputs and
-// bf16 outputs with f32 accumulation: the forward (o and the per-row
-// logsumexp) and both backward kernels (dq; dk and dv), the training
-// path's three attention kernels.  The entries and the Pallas TPU
-// kernels of vtpu/ops/attention.py they replace:
+// Flash attention on Hopper's tensor cores (sm_90a), bf16 inputs with
+// f32 accumulation: the forward (o and the per-row logsumexp) and both
+// backward kernels (dq; dk and dv), the training path's three attention
+// kernels, and the forward with f32 o that ring attention's partials
+// take.  The entries and the Pallas TPU kernels of vtpu/ops/attention.py
+// they replace:
 //
-//   vtpu_flash_fwd_bf16      flash_fwd_tc <- _attn_kernel (_flash_2d)
-//   vtpu_flash_bwd_dq_bf16   flash_dq_tc  <- _attn_bwd_dq_kernel
-//                                            (_flash_bwd_2d)
-//   vtpu_flash_bwd_dkv_bf16  flash_dkv_tc <- _attn_bwd_dkv_kernel
-//                                            (_flash_bwd_2d)
+//   vtpu_flash_fwd_bf16          flash_fwd_tc<HD, bf16>  <- _attn_kernel
+//                                                           (_flash_2d)
+//   vtpu_flash_fwd_bf16_f32out   flash_fwd_tc<HD, float> <- _attn_kernel
+//                                (pallas_call at :409, reached from
+//                                flash_attention_with_lse)
+//   vtpu_flash_bwd_dq_bf16       flash_dq_tc  <- _attn_bwd_dq_kernel
+//                                                (_flash_bwd_2d)
+//   vtpu_flash_bwd_dkv_bf16      flash_dkv_tc <- _attn_bwd_dkv_kernel
+//                                                (_flash_bwd_2d)
 //
-// The f32 entries (forward, dq, dk/dv) and the bf16 -> f32-out forward
-// stay on the CUDA-core kernels of flash_attention.cu.  Layouts, masks and
-// numerics are that file's: q, o, do [N, seq_q, hd]; k, v, dk, dv
-// [N / g, seq_k, hd]; lse, delta [N, seq_q] f32; query head n reads kv
-// head n / g; m starts at -1e30, a masked p is forced to 0, l is clamped
-// at 1e-30, lse = m + log(l) in natural log.  Every sequence length,
-// window, shift 0 / -1, non-causal and hd <= 128 runs these kernels.
+// The f32 entries (forward, dq, dk/dv) stay on the CUDA-core kernels of
+// flash_attention.cu.  Layouts, masks and numerics are that file's: q,
+// o, do [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd]; lse, delta
+// [N, seq_q] f32; query head n reads kv head n / g; m starts at -1e30, a
+// masked p is forced to 0, l is clamped at 1e-30, lse = m + log(l) in
+// natural log.  Every sequence length, window, shift 0 / -1, non-causal
+// and hd <= 128 runs these kernels.
+//
+// The f32-out forward keeps its o within 2e-5 of the plain f32 version,
+// so it cannot round p to bf16 before P V as the bf16 forward does (that
+// costs up to 2^-8 of the largest |v|).  It splits p instead:
+// p_hi = bf16(p), p_lo = bf16(p - p_hi) (the f32 subtraction is exact),
+// and issues two mma.sync per k-step into the same f32 sums.  p_hi +
+// p_lo misses p by at most 2^-17 p (|p - p_hi| < 2^(e-8) for p in
+// [2^e, 2^(e+1)), and p_lo rounds that at 8 bits), so o misses by at
+// most 2^-17 max|v|; the errors carry random signs, and on randn inputs
+// at b 2, H 32, s 4096, hd 128 they stay under 1e-5.  Q K^T of bf16
+// inputs is exact per product with f32 sums, and l sums the f32 p, as in
+// the bf16 forward.  The split doubles P V, half the products, so the
+// forward issues half again as many mma.sync (192 against 128 a tile at
+// hd 128).
 //
 // What bounds them on an H100: operations.  The forward does 4 * hd
 // flops per kept (query, key) pair (Q K^T and P V), dq 6 * hd (Q K^T,
@@ -24,7 +43,11 @@
 // b 2, H 32, s 4096, hd 128 that is 537,001,984 kept pairs: 2.7e11 flops
 // for the forward, 0.28 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // 0.42 ms for dq and 0.56 ms for dk/dv; their bytes (q, k, v, o, do,
-// lse, delta once each) take ~0.06 ms at 3.35 TB/s.
+// lse, delta once each) take ~0.06 ms at 3.35 TB/s.  The f32-out
+// forward does the forward's flops (0.28 ms there; its split's extra
+// products are the kernel's, not the function's), but at a ring shard
+// (b 1, H 32, s 1024, hd 128, causal) bytes bound it: q, k, v in bf16,
+// o and lse in f32 are 42 MB, 0.0126 ms, against 8.6e9 flops, 0.0087 ms.
 // What the design does about it:
 //
 //  - Products on the tensor cores: mma.sync m16n8k16 bf16 with f32
@@ -36,7 +59,9 @@
 //  - P and dS never touch shared memory: the m16n8 accumulator layout is
 //    the A-operand layout of m16n8k16, so they are rounded to bf16 pairs
 //    in registers and fed to the next product (FlashAttention-2's
-//    register reuse).
+//    register reuse).  The f32-out forward packs each k-step's p_hi and
+//    p_lo fragments just before that k-step's products, not all of P
+//    first, so the split adds 8 live registers, not a second P array.
 //  - Online softmax on the fragments: each thread holds two rows of its
 //    warp's 16-row slab, so a row max is two quad shuffles; the row sum
 //    stays per thread until the end.  Scores are scaled by
@@ -79,6 +104,7 @@
 
 #include <climits>
 #include <initializer_list>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -141,6 +167,16 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (a, b) as two bf16 pairs whose sum is (a, b) to 2^-17 of each: hi
+// rounds (a, b), lo rounds what hi missed (exact in f32)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
 // -- staging ---------------------------------------------------------------
@@ -206,11 +242,27 @@ __device__ __forceinline__ void store_pair(bf16* __restrict__ dst, int row,
   }
 }
 
+// the same for an f32 matrix
+__device__ __forceinline__ void store_pair(float* __restrict__ dst, int row,
+                                           int col, float a, float b,
+                                           int rows, int hd) {
+  if (row >= rows || col >= hd) return;
+  float* p = dst + static_cast<size_t>(row) * hd + col;
+  if (hd % 2 == 0) {  // col is even, so col + 1 < hd and p is 8-aligned
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (col + 1 < hd) p[1] = b;
+  }
+}
+
 // -- forward ---------------------------------------------------------------
-template <int HD>
+// O = bf16: p rounded to bf16 for P V.  O = float: p split into p_hi +
+// p_lo, two products a k-step, o written in f32.
+template <int HD, typename O>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const bf16* __restrict__ v, O* __restrict__ o,
                  float* __restrict__ lse, Problem P, int n_q, bool vec) {
   constexpr int S = HD + 8;   // staged row stride, elements
   constexpr int RB = 2 * S;   // and bytes
@@ -352,24 +404,46 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       acc[j][3] *= alpha[1];
     }
 
-    // P as A fragments of P V, straight from the accumulators
-    uint32_t pa[JT / 2][4];
+    if constexpr (std::is_same<O, float>::value) {
+      // P V from p_hi + p_lo, each k-step's two fragments built just
+      // before its products
 #pragma unroll
-    for (int kk = 0; kk < JT / 2; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+      for (int kk = 0; kk < JT / 2; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
 #pragma unroll
-    for (int kk = 0; kk < JT / 2; ++kk)
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t b[4];
-        ldsm_x4_t(b, vs + st * kStage + kk * 16 * RB + j * 32);
-        mma(acc[2 * j], pa[kk], b[0], b[1]);
-        mma(acc[2 * j + 1], pa[kk], b[2], b[3]);
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vs + st * kStage + kk * 16 * RB + j * 32);
+          mma(acc[2 * j], hi, b[0], b[1]);
+          mma(acc[2 * j + 1], hi, b[2], b[3]);
+          mma(acc[2 * j], lo, b[0], b[1]);
+          mma(acc[2 * j + 1], lo, b[2], b[3]);
+        }
       }
+    } else {
+      // P as A fragments of P V, straight from the accumulators
+      uint32_t pa[JT / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < JT / 2; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < JT / 2; ++kk)
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vs + st * kStage + kk * 16 * RB + j * 32);
+          mma(acc[2 * j], pa[kk], b[0], b[1]);
+          mma(acc[2 * j + 1], pa[kk], b[2], b[3]);
+        }
+    }
   }
 
   float inv[2];
@@ -384,7 +458,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       lse[static_cast<size_t>(n) * P.seq_q + row] =
           (m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2) + logf(ls);
   }
-  bf16* ob = o + q_off;
+  O* ob = o + q_off;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     store_pair(ob, r0, 8 * j + c2, acc[j][0] * inv[0], acc[j][1] * inv[0],
@@ -729,10 +803,10 @@ bool tc_vec(int hd, std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-template <int HD>
+template <int HD, typename O>
 int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
            int n_q, const Problem& P, bool vec, cudaStream_t st) {
-  auto kernel = flash_fwd_tc<HD>;
+  auto kernel = flash_fwd_tc<HD, O>;
   const size_t smem =
       sizeof(bf16) * (HD + 8) * (kFwdM + 2 * kStages * kFwdN);
   cudaError_t e = vtpu::allow_smem(kernel, smem);
@@ -742,7 +816,7 @@ int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), kFwdThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const bf16*>(v), static_cast<O*>(o),
       static_cast<float*>(lse), P, n_q, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -788,6 +862,21 @@ int dq_tc(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename O>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
+                  int causal, int shift, int window, float sm_scale,
+                  void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tc_vec(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64 ? fwd_tc<64, O>(q, k, v, o, lse, n_q, P, vec, st)
+                  : fwd_tc<128, O>(q, k, v, o, lse, n_q, P, vec, st);
+}
+
 }  // namespace
 
 extern "C" int vtpu_flash_fwd_bf16(const void* q, const void* k,
@@ -796,14 +885,19 @@ extern "C" int vtpu_flash_fwd_bf16(const void* q, const void* k,
                                    int hd, int causal, int shift,
                                    int window, float sm_scale,
                                    void* stream) {
-  Problem P;
-  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
-                    sm_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = tc_vec(hd, {q, k, v});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 64 ? fwd_tc<64>(q, k, v, o, lse, n_q, P, vec, st)
-                  : fwd_tc<128>(q, k, v, o, lse, n_q, P, vec, st);
+  return launch_fwd_tc<bf16>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,
+                             causal, shift, window, sm_scale, stream);
+}
+
+// o in f32 (ring attention's partials): p split into two bf16 halves
+extern "C" int vtpu_flash_fwd_bf16_f32out(const void* q, const void* k,
+                                          const void* v, void* o, void* lse,
+                                          int n_q, int g, int seq_q,
+                                          int seq_k, int hd, int causal,
+                                          int shift, int window,
+                                          float sm_scale, void* stream) {
+  return launch_fwd_tc<float>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,
+                              causal, shift, window, sm_scale, stream);
 }
 
 extern "C" int vtpu_flash_bwd_dkv_bf16(const void* q, const void* k,
