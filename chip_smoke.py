@@ -16,7 +16,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    reused build reports the same; the tensor-core and paged kernels must
    spill nothing, and the tensor-core kernels must hold such
    instructions; the forward's f32-out instances
-   (``flash_fwd_tc<64,f32>``, ``flash_fwd_tc<128,f32>``) must be there;
+   (``flash_fwd_tc<64,f32>``, ``flash_fwd_tc<128,f32>``) and the bf16
+   wide backward's (``flash_dq_split_tc<256>``, ``flash_dkv_split_tc<256>``
+   up to hd 256, ``flash_dq_wide_tc<512>``, ``flash_dkv_wide_tc<512>``
+   above) must be there;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (the paged kernels at the kernel
    phase's lengths and at the serve phase's): max abs error against the stated
@@ -51,17 +54,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
    tolerance (dk and dv each against their own scale); and the bf16 ->
    f32-out forward (tensor cores, p split into two bf16 halves) timed at
    the training path's shape, o within 2e-5 and lse within 2e-5
-   relative, beside the CUDA-core time it replaced (``earlier_ms``); then
-   one small
-   row per head dim or group that only the chunked and head-grouped
+   relative, beside the CUDA-core time it replaced (``earlier_ms``); the
+   bf16 flash kernels at a full-width hd 256 shape (b 2, 16 heads, 4 kv
+   heads, s 4096, causal; ``shape: "wide_full"``), timed beside SDPA and
+   beside the CUDA-core wide kernels' times (``earlier_ms``); then one
+   small row per head dim or group that only the chunked and head-grouped
    kernels take (``shape: "wide_heads"``: paged at g 8 / hd 256, g 4 /
    hd 512, g 1 / hd 512, g 32 / hd 128; flash at hd 192, 256, 512);
 6. the training path at full width (the same widths, attn_window 4096,
    depth 16, bf16, b 2 x s 4096): TransformerLM(tokens, decode=False),
    lm_loss, backward and torch.optim.Adam(lr=1e-4), 4 steps on one
    seeded batch -- loss, step ms, tokens/s, peak memory and the launch
-   counts of every step -- then torch.profiler over one more step;
-7. training exactness: depth 2, b 1 x s 1024, the kernel path against
+   counts of every step -- then torch.profiler over one more step; and
+   an hd 256 arm (``arm: "wide_heads"``: the same widths as 16 heads of
+   256 over 4 kv heads, depth 2, 2 steps), whose dq and dk/dv go through
+   the bf16 wide tensor-core kernels once a layer a step;
+7. training exactness: depth 2, b 1 x s 1024, at hd 128 and at hd 256
+   (16 heads, 4 kv heads), the kernel path against
    clone(flash_kernel="off", ln_kernel="off"); in f32 the loss within
    1e-5 relative and every grad within 1e-4 of its max |grad|; in bf16
    (where the tensor-core kernels round p and dS to bf16) the loss within
@@ -346,9 +355,14 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 # -- phase 0: what the build made ------------------------------------------
-TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc")
-# the f32-out forward's instances (hd <= 64 and <= 128)
+TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc",
+                       "flash_dq_split_tc", "flash_dkv_split_tc",
+                       "flash_dq_wide_tc", "flash_dkv_wide_tc")
+# the f32-out forward's instances (hd <= 64 and <= 128), and the bf16 wide
+# backward's (split over warps up to hd 256, chunked over blocks above)
 F32OUT_INSTANCES = ("flash_fwd_tc<64,f32>", "flash_fwd_tc<128,f32>")
+WIDE_BWD_INSTANCES = ("flash_dq_split_tc<256>", "flash_dq_wide_tc<512>",
+                      "flash_dkv_split_tc<256>", "flash_dkv_wide_tc<512>")
 PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
@@ -416,8 +430,10 @@ def build_failures(report: dict) -> list:
     """Each tensor-core kernel and each paged kernel must be in the
     library and spill nothing (no stack frame, no LDL / STL); the
     tensor-core kernels must hold tensor-core instructions, and the
-    forward's f32-out instances must be among them."""
-    bad = [f"{name}: not in the library" for name in F32OUT_INSTANCES
+    forward's f32-out instances and every instance of the bf16 wide
+    backward must be among them."""
+    bad = [f"{name}: not in the library"
+           for name in F32OUT_INSTANCES + WIDE_BWD_INSTANCES
            if name not in report]
     for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
@@ -642,10 +658,12 @@ def flash_inputs(gen, dtype, b, heads, kv_heads, s, hd):
 
 
 def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
-                out_dtype=None, time_it=False, card="", shape_tag=None):
+                out_dtype=None, time_it=False, card="", shape_tag=None,
+                earlier=None):
     """Forward, dq and dk/dv kernels against their plain versions on the
     same inputs (the backward from the kernel's own o and lse).  Returns
-    one row per kernel."""
+    one row per kernel; ``earlier`` (kernel name -> ms) is written beside
+    each row's time as ``earlier_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -739,6 +757,8 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
                        plain_ms=time_ms(plain, iters=3, warmup=1),
                        library_ms=library[name], bound_ms=b_ms,
                        bound_by=b_by, kept_pairs=pairs)
+            if earlier:
+                row["earlier_ms"] = earlier[name]
         emit(**row)
         check(all(e <= t for e, t in zip(errs, tols)),
               f"{name} {dt} {cfg}: err {errs} > {tols}")
@@ -803,6 +823,27 @@ def flash_f32out_row(gen, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# a user who trains with heads of 256: the training widths (d 4096) as 16
+# heads of 256 over 4 kv heads, at the training batch
+WIDE_FULL = dict(b=2, heads=16, kv_heads=4, s=4096, hd=256)
+# the bf16 kernels' times at WIDE_FULL on the CUDA cores (flash_fwd_wide,
+# flash_bwd_dq_wide<bf16>, flash_bwd_dkv_wide<bf16>), before the backward
+# moved to the tensor cores (PERF.md kernel table, rows 4-6)
+WIDE_FULL_EARLIER_MS = {"flash_forward": 16.7662, "flash_bwd_dq": 27.8840,
+                        "flash_bwd_dkv": 35.1973}
+
+
+def flash_wide_full_row(gen, card: str) -> dict:
+    """The bf16 forward, dq and dk/dv at WIDE_FULL, causal: errors against
+    the plain versions (two bf16 ulps), times beside SDPA's, the bound and
+    the CUDA-core times they replaced."""
+    import torch
+
+    return flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True,
+                       card=card, shape_tag="wide_full",
+                       earlier=WIDE_FULL_EARLIER_MS)
+
+
 def flash_phase(card: str, gen) -> dict:
     import torch
 
@@ -812,6 +853,7 @@ def flash_phase(card: str, gen) -> dict:
         if dtype == torch.bfloat16:
             summary = rows
     flash_f32out_row(gen, card)
+    flash_wide_full_row(gen, card)
     small = dict(FLASH, b=1, s=1024)
     for dtype in (torch.float32, torch.bfloat16):
         flash_check(gen, dtype, small, window=256, card=card)
@@ -1334,30 +1376,41 @@ TRAIN_REDUCED = [
     "logits and their log-softmax",
     "max_seq 131072 -> 4096"]
 TRAIN_BATCH, TRAIN_STEPS = (2, 4096), 4
+# the hd 256 arm: the training widths as 16 heads of 256 over 4 kv heads
+TRAIN_WIDE = dict(TRAIN, num_heads=16, num_kv_heads=4, depth=2)
+TRAIN_WIDE_STEPS = 2
+TRAIN_WIDE_REDUCED = TRAIN_REDUCED[1:] + [
+    "depth 32 -> 2: the arm measures the hd 256 attention kernels a layer "
+    "a step, not the model"]
 
 
-def train_phase(card: str, seed: int) -> dict:
+def train_phase(card: str, seed: int, cfg=None, steps: int = TRAIN_STEPS,
+                arm=None) -> dict:
     """Adam steps on one seeded batch; every step's launch counts are
     zeroed just before it and read just after.  Returns the summed
-    launch counts of the counted steps."""
+    launch counts of the counted steps.  ``arm`` (the hd 256 arm) runs
+    ``cfg`` for ``steps`` steps and checks the launches and finite
+    losses only (no profile, no falling loss)."""
     import torch
 
     from vtpu_torch.models.transformer import TransformerLM, lm_loss
 
+    cfg = cfg or TRAIN
+    tag = {"arm": arm} if arm else {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
-    model = TransformerLM(**TRAIN, device="cuda", dtype=torch.bfloat16,
+    model = TransformerLM(**cfg, device="cuda", dtype=torch.bfloat16,
                           generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = torch.randint(0, TRAIN["vocab"], TRAIN_BATCH, device="cuda",
+    tokens = torch.randint(0, cfg["vocab"], TRAIN_BATCH, device="cuda",
                            generator=gen, dtype=torch.int32)
     opt = torch.optim.Adam(model.parameters(), lr=1e-4)
     torch.cuda.synchronize()
-    depth = TRAIN["depth"]
-    emit(phase="train_setup", params=n_params, dtype="bfloat16",
+    depth = cfg["depth"]
+    emit(phase="train_setup", **tag, params=n_params, dtype="bfloat16",
          batch=list(TRAIN_BATCH), optimizer="Adam(lr=1e-4)",
-         seconds=time.perf_counter() - t0, config=TRAIN,
-         reduced=TRAIN_REDUCED, card=card)
+         seconds=time.perf_counter() - t0, config=cfg,
+         reduced=TRAIN_WIDE_REDUCED if arm else TRAIN_REDUCED, card=card)
 
     def step():
         loss = lm_loss(model(tokens, decode=False), tokens)
@@ -1367,7 +1420,7 @@ def train_phase(card: str, seed: int) -> dict:
         return loss.detach()
 
     losses, total = [], {}
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         zero_counts()
@@ -1381,7 +1434,7 @@ def train_phase(card: str, seed: int) -> dict:
         c = read_counts()
         ms = s.elapsed_time(e)
         losses.append(float(loss))
-        emit(phase="train", step=i, loss=losses[-1], step_ms=ms,
+        emit(phase="train", **tag, step=i, loss=losses[-1], step_ms=ms,
              wall_s=wall, tokens_per_s=tokens.numel() / (ms / 1e3),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              launches=c, card=card)
@@ -1396,25 +1449,32 @@ def train_phase(card: str, seed: int) -> dict:
     import math
 
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
-    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    profile_window(card, "train_step", step)
+    if not arm:
+        check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+        profile_window(card, "train_step", step)
     del model, opt, tokens
     torch.cuda.empty_cache()
     return total
 
 
 # -- phase 7: training exactness ------------------------------------------
-def _kernel_and_plain_grads(seed: int, dtype):
-    """Depth 2, b 1 x s 1024: the loss on the kernel path and on
-    clone(flash_kernel="off", ln_kernel="off"), and each parameter's
-    gradient on both, as (loss_k, loss_p, {name: (grad_k, grad_p)})."""
+# (query heads, kv heads) of the exactness checks: hd 128 and hd 256
+EXACT_HEADS = ((32, 8), (16, 4))
+
+
+def _kernel_and_plain_grads(seed: int, dtype, heads=EXACT_HEADS[0]):
+    """Depth 2, b 1 x s 1024, ``heads`` = (query heads, kv heads): the
+    loss on the kernel path and on clone(flash_kernel="off",
+    ln_kernel="off"), and each parameter's gradient on both, as (loss_k,
+    loss_p, {name: (grad_k, grad_p)})."""
     import torch
 
     from vtpu_torch.models.transformer import TransformerLM, lm_loss
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = TransformerLM(**dict(TRAIN, depth=2), device="cuda",
-                          dtype=dtype, generator=gen)
+    model = TransformerLM(**dict(TRAIN, depth=2, num_heads=heads[0],
+                                 num_kv_heads=heads[1]),
+                          device="cuda", dtype=dtype, generator=gen)
     tokens = torch.randint(0, TRAIN["vocab"], (1, 1024), device="cuda",
                            generator=gen, dtype=torch.int32)
     loss_k = lm_loss(model(tokens, decode=False), tokens)
@@ -1428,10 +1488,12 @@ def _kernel_and_plain_grads(seed: int, dtype):
     return loss_k.item(), loss_p.item(), pairs
 
 
-def train_exactness_phase(card: str, seed: int) -> None:
+def train_exactness_phase(card: str, seed: int,
+                          heads=EXACT_HEADS[0]) -> None:
     import torch
 
-    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.float32)
+    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.float32,
+                                                    heads)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = ("", 0.0)
     for n, (got, ref) in pairs.items():
@@ -1440,6 +1502,7 @@ def train_exactness_phase(card: str, seed: int) -> None:
         if rel >= worst[1]:
             worst = (n, rel)
     emit(phase="train_exactness", depth=2, dtype="float32", batch=[1, 1024],
+         heads=list(heads), hd=TRAIN["d_model"] // heads[0],
          loss_kernel=loss_k, loss_plain=loss_p,
          loss_rel_err=loss_rel, worst_grad=worst[0],
          worst_grad_rel_err=worst[1], card=card)
@@ -1450,14 +1513,16 @@ def train_exactness_phase(card: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def train_exactness_bf16_phase(card: str, seed: int) -> None:
+def train_exactness_bf16_phase(card: str, seed: int,
+                               heads=EXACT_HEADS[0]) -> None:
     """The same comparison in bf16, where the tensor-core kernels round p
     and dS to bf16: the loss within 1e-2 relative and each gradient's
     cosine similarity with the plain path's at least 0.99 (parameters
     whose plain gradient is all zero are skipped and listed)."""
     import torch
 
-    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.bfloat16)
+    loss_k, loss_p, pairs = _kernel_and_plain_grads(seed, torch.bfloat16,
+                                                    heads)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     cosine, skipped = {}, []
     for n, (got, ref) in pairs.items():
@@ -1469,7 +1534,9 @@ def train_exactness_bf16_phase(card: str, seed: int) -> None:
                           / (got.norm() * ref.norm()).clamp_min(1e-300))
     worst = min(cosine, key=cosine.get)
     emit(phase="train_exactness", depth=2, dtype="bfloat16",
-         batch=[1, 1024], loss_kernel=loss_k, loss_plain=loss_p,
+         batch=[1, 1024], heads=list(heads),
+         hd=TRAIN["d_model"] // heads[0], loss_kernel=loss_k,
+         loss_plain=loss_p,
          loss_rel_err=loss_rel, grad_cosine=cosine, worst_grad=worst,
          worst_grad_cosine=cosine[worst], skipped_zero_grads=skipped,
          card=card)
@@ -3908,8 +3975,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tally(launches, train_phase(card, args.seed))
-    train_exactness_phase(card, args.seed)
-    train_exactness_bf16_phase(card, args.seed)
+    tally(launches, train_phase(card, args.seed, TRAIN_WIDE,
+                                TRAIN_WIDE_STEPS, arm="wide_heads"))
+    for heads in EXACT_HEADS:
+        train_exactness_phase(card, args.seed, heads)
+        train_exactness_bf16_phase(card, args.seed, heads)
     ai_kernel_rows(card, gen)
     tally(launches, ai_benchmark_phase(card, args.seed))
     resnet_f32_phase(card, args.seed)

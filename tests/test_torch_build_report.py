@@ -34,6 +34,16 @@ DQ_TC = (_NS_TC + "11flash_dq_tcILi128EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_"
          "PS1_N4vtpu5flash7ProblemEib")
 DQ_F32 = (_NS_CC + "12flash_bwd_dqIfLi128EEEvPKT_S2_S2_S2_PKfS4_PS0_"
           "N4vtpu5flash7ProblemEb")
+# the bf16 wide backward (128 < hd <= 512): split over warps up to hd
+# 256, chunked over blocks above
+DQ_WIDE = {256: (_NS_TC + "17flash_dq_split_tcILi256EEEvPK13__nv_bfloat16"
+                 "S3_S3_S3_PKfS5_PS1_N4vtpu5flash7ProblemEib"),
+           512: (_NS_TC + "16flash_dq_wide_tcILi512EEEvPK13__nv_bfloat16"
+                 "S3_S3_S3_PKfS5_PS1_N4vtpu5flash7ProblemEiib")}
+DKV_WIDE = {256: (_NS_TC + "18flash_dkv_split_tcILi256EEEvPK13__nv_bfloat16"
+                  "S3_S3_S3_PKfS5_PS1_S6_N4vtpu5flash7ProblemEiib"),
+            512: (_NS_TC + "17flash_dkv_wide_tcILi512EEEvPK13__nv_bfloat16"
+                  "S3_S3_S3_PKfS5_PS1_S6_N4vtpu5flash7ProblemEiiib")}
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 _NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
@@ -47,10 +57,21 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
-          paged_spills=False, f32out_stack=0, f32out_spills=False) -> str:
-    """cuobjdump -res-usage -sass output for seven flash kernels (the
-    f32-out forward at hd 64 and 128 among them), three paged kernels
-    and one other kernel."""
+          paged_spills=False, f32out_stack=0, f32out_spills=False,
+          wide_spills=None, wide_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for eleven flash kernels (the
+    f32-out forward at hd 64 and 128, and the wide backward's four
+    instances among them), three paged kernels and one other kernel.
+    ``wide_spills`` names a wide instance that spills; without
+    ``wide_mma`` the wide instances hold no tensor-core instruction."""
+    hmma = "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
+    wide = []
+    for sym, reg in ((DQ_WIDE[256], 236), (DQ_WIDE[512], 238),
+                     (DKV_WIDE[256], 250), (DKV_WIDE[512], 248)):
+        spills = chip_smoke._short(sym) == wide_spills
+        wide.append((sym, reg, 24 if spills else 0,
+                     ([hmma] * 2 if wide_mma else ["FFMA R1, R2, R3, R1 ;"])
+                     + (["STL [R1+0x18], R9 ;"] if spills else [])))
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
     sass = []
@@ -73,7 +94,7 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
             (PARTIAL_Q8, 118, paged_stack,
              ["PRMT R4, R5, 0x7440, R6 ;"]
              + (["STL [R1+0x4], R4 ;"] if paged_spills else [])),
-            (COMBINE_BF16, 30, 0, ["MUFU.EX2 R4, R5 ;"])):
+            (COMBINE_BF16, 30, 0, ["MUFU.EX2 R4, R5 ;"]), *wide):
         usage += [" Function {}:".format(sym),
                   "  REG:{} STACK:{} SHARED:0 LOCAL:0 CONSTANT[0]:612 "
                   "TEXTURE:0 SURFACE:0 SAMPLER:0".format(reg, stack)]
@@ -98,6 +119,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (FWD_TC_F32[128], "flash_fwd_tc<128,f32>"),
     (DQ_F32, "flash_bwd_dq<f32,128>"),
     (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
+    (DQ_WIDE[256], "flash_dq_split_tc<256>"),
+    (DKV_WIDE[512], "flash_dkv_wide_tc<512>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
     (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
     (COMBINE_BF16, "paged_combine<bf16>"),
@@ -130,6 +153,14 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
             registers=118, stack_bytes=0, local_ops=0, tensor_core_ops=0),
         "paged_combine<bf16>": dict(registers=30, stack_bytes=0,
                                     local_ops=0, tensor_core_ops=0),
+        "flash_dq_split_tc<256>": dict(registers=236, stack_bytes=0,
+                                       local_ops=0, tensor_core_ops=2),
+        "flash_dq_wide_tc<512>": dict(registers=238, stack_bytes=0,
+                                      local_ops=0, tensor_core_ops=2),
+        "flash_dkv_split_tc<256>": dict(registers=250, stack_bytes=0,
+                                        local_ops=0, tensor_core_ops=2),
+        "flash_dkv_wide_tc<512>": dict(registers=248, stack_bytes=0,
+                                       local_ops=0, tensor_core_ops=2),
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -182,6 +213,41 @@ def test_a_spilling_f32out_forward_fails_the_build_check():
     assert chip_smoke.build_failures(report) == [
         "flash_fwd_tc<128,f32>: spills (stack 8 bytes, 1 local "
         "loads/stores)"]
+
+
+@pytest.mark.parametrize("name", ["flash_dq_split_tc<256>",
+                                  "flash_dq_wide_tc<512>",
+                                  "flash_dkv_split_tc<256>",
+                                  "flash_dkv_wide_tc<512>"])
+def test_a_library_without_a_wide_backward_instance_fails(name):
+    """The bf16 wide entries run flash_dq_split_tc and flash_dkv_split_tc
+    up to hd 256, flash_dq_wide_tc and flash_dkv_wide_tc above: a library
+    that lacks any of them (one built from sources that still send them
+    to the CUDA cores, whose flash_bwd_dq_wide does not count) fails."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library",
+        f"{name.split('<')[0]}: not in the library"]
+
+
+@pytest.mark.parametrize("name", ["flash_dq_wide_tc<512>",
+                                  "flash_dkv_split_tc<256>"])
+def test_a_spilling_wide_backward_fails_the_build_check(name):
+    """The wide backward holds 128 columns of dq (or of dk and dv) a warp
+    beside S and dP: a build where that spills fails."""
+    report = chip_smoke.parse_cuobjdump(_dump(wide_spills=name))
+    assert report[name]["stack_bytes"] == 24
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: spills (stack 24 bytes, 1 local loads/stores)"]
+
+
+def test_a_wide_backward_without_tensor_core_ops_fails():
+    report = chip_smoke.parse_cuobjdump(_dump(wide_mma=False))
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: no tensor-core instructions in its SASS"
+        for name in ("flash_dq_split_tc<256>", "flash_dkv_split_tc<256>",
+                     "flash_dq_wide_tc<512>", "flash_dkv_wide_tc<512>")]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

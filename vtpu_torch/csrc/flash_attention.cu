@@ -6,19 +6,22 @@
 //   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
 //   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
-// and, for every dtype at 128 < hd <= 512, where the tensor-core kernels
-// and the register tiles above stop, the head dim in 128-column chunks:
+// and, at 128 < hd <= 512, where the tensor-core kernels and the register
+// tiles above stop, the head dim in 128-column chunks: every forward and
+// the f32 backward
 //
 //   vtpu_flash_fwd_wide_{f32,bf16,bf16_f32out}          (flash_fwd_wide)
-//   vtpu_flash_bwd_dq_wide_{f32,bf16}                   (flash_bwd_dq_wide)
-//   vtpu_flash_bwd_dkv_wide_{f32,bf16}                  (flash_bwd_dkv_wide)
+//   vtpu_flash_bwd_dq_wide_f32                          (flash_bwd_dq_wide)
+//   vtpu_flash_bwd_dkv_wide_f32                         (flash_bwd_dkv_wide)
 //
 // The bf16 entries at hd <= 128 run on the tensor cores in
 // flash_attention_sm90.cu: the forward, dq and dk/dv, and the bf16 ->
 // f32-out forward of ring attention's partials, which splits p into two
-// bf16 halves to keep its f32 o within 2e-5.  The f32 entries stay here
-// because the f32 exactness checks rely on f32 products (TF32 tensor
-// cores would not meet them).
+// bf16 halves to keep its f32 o within 2e-5; so does the bf16 backward
+// at 128 < hd <= 512 (vtpu_flash_bwd_dq_wide_bf16,
+// vtpu_flash_bwd_dkv_wide_bf16).  The f32 entries stay here because the
+// f32 exactness checks rely on f32 products (TF32 tensor cores would not
+// meet them).
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
 //   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
@@ -936,6 +939,4 @@ VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16, (launch_fwd_wide<bf16, bf16>))
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16_f32out,
                      (launch_fwd_wide<bf16, float>))
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_f32, launch_dq_wide<float>)
-VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_bf16, launch_dq_wide<bf16>)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_f32, launch_dkv_wide<float>)
-VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_bf16, launch_dkv_wide<bf16>)
