@@ -357,12 +357,18 @@ def bound(nbytes: float, ops: float, dtype: str):
 # -- phase 0: what the build made ------------------------------------------
 TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc",
                        "flash_dq_split_tc", "flash_dkv_split_tc",
-                       "flash_dq_wide_tc", "flash_dkv_wide_tc")
-# the f32-out forward's instances (hd <= 64 and <= 128), and the bf16 wide
-# backward's (split over warps up to hd 256, chunked over blocks above)
+                       "flash_dq_wide_tc", "flash_dkv_wide_tc",
+                       "flash_fwd_split_tc", "flash_fwd_wide_tc")
+# the f32-out forward's instances (hd <= 64 and <= 128), the bf16 wide
+# backward's and the bf16 and f32-out wide forward's (split over warps up
+# to hd 256, chunked over blocks above)
 F32OUT_INSTANCES = ("flash_fwd_tc<64,f32>", "flash_fwd_tc<128,f32>")
 WIDE_BWD_INSTANCES = ("flash_dq_split_tc<256>", "flash_dq_wide_tc<512>",
                       "flash_dkv_split_tc<256>", "flash_dkv_wide_tc<512>")
+WIDE_FWD_INSTANCES = ("flash_fwd_split_tc<256,bf16>",
+                      "flash_fwd_split_tc<256,f32>",
+                      "flash_fwd_wide_tc<512,bf16>",
+                      "flash_fwd_wide_tc<512,f32>")
 PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
@@ -431,10 +437,10 @@ def build_failures(report: dict) -> list:
     library and spill nothing (no stack frame, no LDL / STL); the
     tensor-core kernels must hold tensor-core instructions, and the
     forward's f32-out instances and every instance of the bf16 wide
-    backward must be among them."""
+    backward and of the wide forward must be among them."""
     bad = [f"{name}: not in the library"
            for name in F32OUT_INSTANCES + WIDE_BWD_INSTANCES
-           if name not in report]
+           + WIDE_FWD_INSTANCES if name not in report]
     for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
         if not rows:
@@ -770,26 +776,29 @@ def flash_check(gen, dtype, shape, causal=True, shift=0, window=0,
     return rows
 
 
-# the f32-out forward's times on the CUDA cores (flash_fwd), before it
-# moved to the tensor cores (PERF.md kernel table, row 4)
-F32OUT_EARLIER_MS = {"main": 10.7727, "ring_shard": 0.4840}
+# the f32-out forward's times on the CUDA cores (flash_fwd at hd <= 128,
+# flash_fwd_wide at WIDE_FULL), before it moved to the tensor cores
+# (PERF.md kernel table, row 4)
+F32OUT_EARLIER_MS = {"main": 10.7727, "ring_shard": 0.4840,
+                     "wide_full": 16.6518, "ring_shard_wide": 0.7180}
 
 
 def lse_rel_err(lse, rlse) -> float:
     return float(((lse - rlse).abs() / rlse.abs().clamp_min(1)).max())
 
 
-def flash_f32out_row(gen, card: str) -> None:
-    """The bf16 -> f32-out forward (ring attention's inner op) at the
-    training path's shape: o against the plain version at 2e-5 and lse
-    at 2e-5 relative, its time beside the CUDA-core time it replaced,
-    the plain version's and the bound (no library call returns an f32 o
-    from bf16 inputs)."""
+def flash_f32out_row(gen, card: str, shape=FLASH, tag: str = "main") -> None:
+    """The bf16 -> f32-out forward (ring attention's inner op) at
+    ``shape``, causal (the training path's by default): o against the plain
+    version at 2e-5 and lse at 2e-5 relative, its time beside the
+    CUDA-core time it replaced (``F32OUT_EARLIER_MS[tag]``), the plain
+    version's and the bound (no library call returns an f32 o from bf16
+    inputs)."""
     import torch
 
     from vtpu_torch.ops import attention as tat
 
-    q, k, v, _do = flash_inputs(gen, torch.bfloat16, **FLASH)
+    q, k, v, _do = flash_inputs(gen, torch.bfloat16, **shape)
     cfg = (True, 0, 0)
     f32 = torch.float32
     o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
@@ -810,15 +819,17 @@ def flash_f32out_row(gen, card: str) -> None:
                ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
                                                     out_dtype=f32),
                           iters=5, warmup=1),
-               earlier_ms=F32OUT_EARLIER_MS["main"],
+               earlier_ms=F32OUT_EARLIER_MS[tag],
                plain_ms=time_ms(lambda: tat.flash_attention_reference(
                    q, k, v, *cfg, out_dtype=f32), iters=3, warmup=1),
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                kept_pairs=pairs, card=card)
+    if tag != "main":
+        row["shape"] = tag
     emit(**row)
-    check(err <= TOL_F32, f"flash_forward bf16 -> f32: err {err}")
+    check(err <= TOL_F32, f"flash_forward bf16 -> f32 {tag}: err {err}")
     check(lse_err <= TOL_F32,
-          f"flash_forward bf16 -> f32: lse rel err {lse_err}")
+          f"flash_forward bf16 -> f32 {tag}: lse rel err {lse_err}")
     del q, k, v, _do, o, ro
     torch.cuda.empty_cache()
 
@@ -827,21 +838,24 @@ def flash_f32out_row(gen, card: str) -> None:
 # heads of 256 over 4 kv heads, at the training batch
 WIDE_FULL = dict(b=2, heads=16, kv_heads=4, s=4096, hd=256)
 # the bf16 kernels' times at WIDE_FULL on the CUDA cores (flash_fwd_wide,
-# flash_bwd_dq_wide<bf16>, flash_bwd_dkv_wide<bf16>), before the backward
-# moved to the tensor cores (PERF.md kernel table, rows 4-6)
-WIDE_FULL_EARLIER_MS = {"flash_forward": 16.7662, "flash_bwd_dq": 27.8840,
+# flash_bwd_dq_wide<bf16>, flash_bwd_dkv_wide<bf16>), before each moved
+# to the tensor cores (PERF.md kernel table, rows 4-6)
+WIDE_FULL_EARLIER_MS = {"flash_forward": 16.6446, "flash_bwd_dq": 27.8840,
                         "flash_bwd_dkv": 35.1973}
 
 
 def flash_wide_full_row(gen, card: str) -> dict:
     """The bf16 forward, dq and dk/dv at WIDE_FULL, causal: errors against
     the plain versions (two bf16 ulps), times beside SDPA's, the bound and
-    the CUDA-core times they replaced."""
+    the CUDA-core times they replaced; then the bf16 -> f32-out forward
+    there (2e-5)."""
     import torch
 
-    return flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True,
+    rows = flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True,
                        card=card, shape_tag="wide_full",
                        earlier=WIDE_FULL_EARLIER_MS)
+    flash_f32out_row(gen, card, WIDE_FULL, "wide_full")
+    return rows
 
 
 def flash_phase(card: str, gen) -> dict:
@@ -3348,6 +3362,9 @@ MOE = dict(FULL, depth=16, mlp="moe", n_experts=8, moe_top_k=2,
 MOE_REDUCED = REDUCED + ["depth 32 -> 16: the 32-layer model's bf16 weights "
                          "alone take 71 GB of the card's 80"]
 RING = dict(b=1, heads=32, s=4096, hd=128)
+# the training widths as 16 heads of 256 (WIDE_FULL's): ring's partials on
+# the wide f32-out forward
+RING_WIDE = dict(b=1, heads=16, s=4096, hd=256)
 RING_SHARDS = 4                 # sp ranks of the ring, run on one card
 
 
@@ -3480,30 +3497,35 @@ def moe_serve_phase(card: str, seed: int) -> dict:
 def ring_phase(card: str, gen) -> dict:
     """Ring attention's partials at b 1, 32 heads, s 4096, hd 128, causal,
     over 4 sequence shards on one card (every rank's schedule in turn,
-    ``ring_attention_shards``), contiguous and striped: in bf16 each
+    ``ring_attention_shards``), contiguous and striped, and in bf16 at
+    16 heads of 256 (contiguous, the wide f32-out forward): in bf16 each
     partial is the bf16 -> f32-out forward, held against
     ``flash_attention`` (the tensor-core kernel) at four bf16 ulps of the
     output's scale, both beside their error against the f32 plain
     attention; in f32 against the plain attention at 2e-5.  Each
     layout's ring is timed (``ring_ms``, CUDA events) after its counts
-    are read.  Then the f32-out forward at a shard's shape: o at 2e-5,
-    lse at 2e-5 relative, its time beside the CUDA-core time it replaced.
-    Returns that kernel row."""
+    are read.  Then the f32-out forward at a shard's shape, hd 128 and
+    256: o at 2e-5, lse at 2e-5 relative, its time beside the CUDA-core
+    time it replaced.  Returns the hd-128 kernel row and the launches."""
     import torch
 
     from vtpu_torch.ops import attention as tat
     from vtpu_torch.parallel.ring import (ring_attention_shards,
                                           stripe_sequence, unstripe_sequence)
 
-    b, h, s, hd = (RING[k] for k in ("b", "heads", "s", "hd"))
     n = RING_SHARDS
     launches = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    both = ("contiguous", "striped")
+    for shape, dtype, layouts in ((RING, torch.bfloat16, both),
+                                  (RING, torch.float32, both),
+                                  (RING_WIDE, torch.bfloat16,
+                                   ("contiguous",))):
+        b, h, s, hd = (shape[k] for k in ("b", "heads", "s", "hd"))
         q, k, v = (torch.randn((b, h, s, hd), device="cuda", generator=gen)
                    .to(dtype) for _ in range(3))
         ref = tat.reference_attention(q.float(), k.float(), v.float(),
                                       causal=True)
-        for layout in ("contiguous", "striped"):
+        for layout in layouts:
             qkv = ((q, k, v) if layout == "contiguous" else
                    tuple(stripe_sequence(t, n) for t in (q, k, v)))
 
@@ -3520,7 +3542,7 @@ def ring_phase(card: str, gen) -> dict:
             tally(launches, counts)
             err = float((out.float() - ref).abs().max())
             row = dict(phase="ring", layout=layout, shards=n,
-                       dtype=str(dtype).split(".")[-1], **RING,
+                       dtype=str(dtype).split(".")[-1], **shape,
                        err_vs_f32_plain=err,
                        flash_forward_launches=counts["flash_forward"],
                        f32out_launches=counts["flash_forward_f32out"],
@@ -3545,35 +3567,42 @@ def ring_phase(card: str, gen) -> dict:
                 row["tol"] = TOL_F32
                 check(err <= TOL_F32, f"ring {layout} f32: err {err}")
             emit(**row)
+        del q, k, v, ref
     # the f32-out forward alone at a shard's shape: the diagonal hop
-    q, k, v = (torch.randn((b, h, s // n, hd), device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(3))
-    cfg = (True, 0, 0)
-    f32 = torch.float32
-    o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
-    ro, rlse = tat.flash_attention_reference(q, k, v, *cfg, out_dtype=f32)
-    err = float((o - ro).abs().max())
-    lse_err = lse_rel_err(lse, rlse)
-    pairs = flash_work(b, h, s // n, s // n, hd, *cfg)
-    nbytes = 3 * q.numel() * q.element_size() + o.numel() * 4 \
-        + b * h * (s // n) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * hd * pairs, "bfloat16")
-    row = dict(phase="kernel", kernel="flash_forward", shape="ring_shard",
-               b=b, heads=h, kv_heads=h, s=s // n, hd=hd, causal=True,
-               dtype="bfloat16", out_dtype="float32", max_abs_err=err,
-               tol=TOL_F32, lse_rel_err=lse_err,
-               ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
-                                                    out_dtype=f32)),
-               earlier_ms=F32OUT_EARLIER_MS["ring_shard"],
-               plain_ms=time_ms(lambda: tat.flash_attention_reference(
-                   q, k, v, *cfg, out_dtype=f32), iters=10, warmup=2),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               kept_pairs=pairs, card=card)
-    emit(**row)
-    check(err <= TOL_F32, f"f32-out forward at the ring shard: err {err}")
-    check(lse_err <= TOL_F32,
-          f"f32-out forward at the ring shard: lse rel err {lse_err}")
-    return row, launches
+    rows = {}
+    for tag, shape in (("ring_shard", RING), ("ring_shard_wide", RING_WIDE)):
+        b, h, s, hd = (shape[k] for k in ("b", "heads", "s", "hd"))
+        q, k, v = (torch.randn((b, h, s // n, hd), device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        cfg = (True, 0, 0)
+        f32 = torch.float32
+        o, lse = tat.flash_forward(q, k, v, *cfg, out_dtype=f32)
+        ro, rlse = tat.flash_attention_reference(q, k, v, *cfg,
+                                                 out_dtype=f32)
+        err = float((o - ro).abs().max())
+        lse_err = lse_rel_err(lse, rlse)
+        pairs = flash_work(b, h, s // n, s // n, hd, *cfg)
+        nbytes = 3 * q.numel() * q.element_size() + o.numel() * 4 \
+            + b * h * (s // n) * 4
+        b_ms, b_by = bound(nbytes, 4.0 * hd * pairs, "bfloat16")
+        rows[tag] = dict(
+            phase="kernel", kernel="flash_forward", shape=tag, b=b,
+            heads=h, kv_heads=h, s=s // n, hd=hd, causal=True,
+            dtype="bfloat16", out_dtype="float32", max_abs_err=err,
+            tol=TOL_F32, lse_rel_err=lse_err,
+            ms=time_ms(lambda: tat.flash_forward(q, k, v, *cfg,
+                                                 out_dtype=f32)),
+            earlier_ms=F32OUT_EARLIER_MS[tag],
+            plain_ms=time_ms(lambda: tat.flash_attention_reference(
+                q, k, v, *cfg, out_dtype=f32), iters=10, warmup=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            kept_pairs=pairs, card=card)
+        emit(**rows[tag])
+        check(err <= TOL_F32, f"f32-out forward at {tag}: err {err}")
+        check(lse_err <= TOL_F32,
+              f"f32-out forward at {tag}: lse rel err {lse_err}")
+    return rows["ring_shard"], launches
 
 
 def card_world_rank(seed: int) -> dict:

@@ -44,6 +44,18 @@ DKV_WIDE = {256: (_NS_TC + "18flash_dkv_split_tcILi256EEEvPK13__nv_bfloat16"
                   "S3_S3_S3_PKfS5_PS1_S6_N4vtpu5flash7ProblemEiib"),
             512: (_NS_TC + "17flash_dkv_wide_tcILi512EEEvPK13__nv_bfloat16"
                   "S3_S3_S3_PKfS5_PS1_S6_N4vtpu5flash7ProblemEiiib")}
+# the wide forward (128 < hd <= 512), bf16 and f32 o: split over warps up
+# to hd 256, chunked over blocks above
+FWD_WIDE = {(256, "bf16"): (_NS_TC + "18flash_fwd_split_tcILi256E13__nv_"
+                            "bfloat16EEvPKS1_S3_S3_PT0_PfN4vtpu5flash7"
+                            "ProblemEib"),
+            (256, "f32"): (_NS_TC + "18flash_fwd_split_tcILi256EfEEvPK13__"
+                           "nv_bfloat16S3_S3_PT0_PfN4vtpu5flash7ProblemEib"),
+            (512, "bf16"): (_NS_TC + "17flash_fwd_wide_tcILi512E13__nv_"
+                            "bfloat16EEvPKS1_S3_S3_PT0_PfN4vtpu5flash7"
+                            "ProblemEiib"),
+            (512, "f32"): (_NS_TC + "17flash_fwd_wide_tcILi512EfEEvPK13__"
+                           "nv_bfloat16S3_S3_PT0_PfN4vtpu5flash7ProblemEiib")}
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 _NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
@@ -58,19 +70,25 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
           paged_spills=False, f32out_stack=0, f32out_spills=False,
-          wide_spills=None, wide_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for eleven flash kernels (the
-    f32-out forward at hd 64 and 128, and the wide backward's four
-    instances among them), three paged kernels and one other kernel.
-    ``wide_spills`` names a wide instance that spills; without
-    ``wide_mma`` the wide instances hold no tensor-core instruction."""
+          wide_spills=None, wide_mma=True, wide_fwd_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for fifteen flash kernels (the
+    f32-out forward at hd 64 and 128, the wide backward's four instances
+    and the wide forward's four among them), three paged kernels and one
+    other kernel.  ``wide_spills`` names a wide instance that spills;
+    without ``wide_mma`` the wide backward's instances, without
+    ``wide_fwd_mma`` the wide forward's, hold no tensor-core
+    instruction."""
     hmma = "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
     wide = []
-    for sym, reg in ((DQ_WIDE[256], 236), (DQ_WIDE[512], 238),
-                     (DKV_WIDE[256], 250), (DKV_WIDE[512], 248)):
+    for sym, reg, mma in ((DQ_WIDE[256], 236, wide_mma),
+                          (DQ_WIDE[512], 238, wide_mma),
+                          (DKV_WIDE[256], 250, wide_mma),
+                          (DKV_WIDE[512], 248, wide_mma),
+                          *((FWD_WIDE[key], 200 + i, wide_fwd_mma)
+                            for i, key in enumerate(FWD_WIDE))):
         spills = chip_smoke._short(sym) == wide_spills
         wide.append((sym, reg, 24 if spills else 0,
-                     ([hmma] * 2 if wide_mma else ["FFMA R1, R2, R3, R1 ;"])
+                     ([hmma] * 2 if mma else ["FFMA R1, R2, R3, R1 ;"])
                      + (["STL [R1+0x18], R9 ;"] if spills else [])))
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
@@ -121,6 +139,10 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (FWD_F32OUT, "flash_fwd<bf16,f32,64>"),
     (DQ_WIDE[256], "flash_dq_split_tc<256>"),
     (DKV_WIDE[512], "flash_dkv_wide_tc<512>"),
+    (FWD_WIDE[256, "bf16"], "flash_fwd_split_tc<256,bf16>"),
+    (FWD_WIDE[256, "f32"], "flash_fwd_split_tc<256,f32>"),
+    (FWD_WIDE[512, "bf16"], "flash_fwd_wide_tc<512,bf16>"),
+    (FWD_WIDE[512, "f32"], "flash_fwd_wide_tc<512,f32>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
     (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
     (COMBINE_BF16, "paged_combine<bf16>"),
@@ -161,6 +183,9 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
                                         local_ops=0, tensor_core_ops=2),
         "flash_dkv_wide_tc<512>": dict(registers=248, stack_bytes=0,
                                        local_ops=0, tensor_core_ops=2),
+        **{name: dict(registers=200 + i, stack_bytes=0, local_ops=0,
+                      tensor_core_ops=2)
+           for i, name in enumerate(chip_smoke.WIDE_FWD_INSTANCES)},
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -248,6 +273,44 @@ def test_a_wide_backward_without_tensor_core_ops_fails():
         f"{name}: no tensor-core instructions in its SASS"
         for name in ("flash_dq_split_tc<256>", "flash_dkv_split_tc<256>",
                      "flash_dq_wide_tc<512>", "flash_dkv_wide_tc<512>")]
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_split_tc<256,bf16>",
+                                  "flash_fwd_split_tc<256,f32>",
+                                  "flash_fwd_wide_tc<512,bf16>",
+                                  "flash_fwd_wide_tc<512,f32>"])
+def test_a_library_without_a_wide_forward_instance_fails(name):
+    """The bf16 and f32-out wide entries run flash_fwd_split_tc up to hd
+    256 and flash_fwd_wide_tc above: a library that lacks any instance
+    (one built from sources that still send them to the CUDA cores, whose
+    flash_fwd_wide does not count) fails."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+    for other in chip_smoke.WIDE_FWD_INSTANCES:
+        if other.split("<")[0] == name.split("<")[0]:
+            report.pop(other, None)
+    assert f"{name.split('<')[0]}: not in the library" in \
+        chip_smoke.build_failures(report)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_split_tc<256,f32>",
+                                  "flash_fwd_wide_tc<512,bf16>"])
+def test_a_spilling_wide_forward_fails_the_build_check(name):
+    """The wide forward holds 128 columns of o a warp beside S (and Q's
+    fragments up to hd 256): a build where that spills fails."""
+    report = chip_smoke.parse_cuobjdump(_dump(wide_spills=name))
+    assert report[name]["stack_bytes"] == 24
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: spills (stack 24 bytes, 1 local loads/stores)"]
+
+
+def test_a_wide_forward_without_tensor_core_ops_fails():
+    report = chip_smoke.parse_cuobjdump(_dump(wide_fwd_mma=False))
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: no tensor-core instructions in its SASS"
+        for name in chip_smoke.WIDE_FWD_INSTANCES]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

@@ -36,19 +36,35 @@ def test_f32out_entry_by_head_dim(hd, entry):
 
 def test_f32out_entry_runs_the_tensor_core_forward():
     """``vtpu_flash_fwd_bf16_f32out`` is defined in the tensor-core
-    source and launches ``flash_fwd_tc`` with f32 o; the CUDA-core
-    source keeps only the wide f32-out entry."""
+    source and launches ``flash_fwd_tc`` with f32 o; so is the wide
+    f32-out entry, which launches ``flash_fwd_split_tc`` (hd <= 256) and
+    ``flash_fwd_wide_tc`` (above) with f32 o.  The CUDA-core source
+    defines neither bf16 wide forward."""
     code = {p.rsplit("/", 1)[-1]: _code(p) for p in _build._sources()
             if p.endswith(".cu")}
-    body = re.search(r'extern\s+"C"\s+int\s+vtpu_flash_fwd_bf16_f32out\s*'
-                     r'\([^)]*\)\s*\{(.*?)\n\}', code[
-                         "flash_attention_sm90.cu"], flags=re.S)
-    assert body and "launch_fwd_tc<float>" in body.group(1)
-    assert re.search(r"fwd_tc<64,\s*O>.*fwd_tc<128,\s*O>",
-                     code["flash_attention_sm90.cu"], flags=re.S)
+    tc = code["flash_attention_sm90.cu"]
+
+    def body(entry):
+        m = re.search(r'extern\s+"C"\s+int\s+' + entry +
+                      r'\s*\([^)]*\)\s*\{(.*?)\n\}', tc, flags=re.S)
+        assert m, entry
+        return m.group(1)
+
+    assert "launch_fwd_tc<float>" in body("vtpu_flash_fwd_bf16_f32out")
+    assert re.search(r"fwd_tc<64,\s*O>.*fwd_tc<128,\s*O>", tc, flags=re.S)
+    assert "launch_fwd_wide_tc<float>" in body(
+        "vtpu_flash_fwd_wide_bf16_f32out")
+    assert "launch_fwd_wide_tc<bf16>" in body("vtpu_flash_fwd_wide_bf16")
+    launch = re.search(r"int\s+launch_fwd_wide_tc\s*\([^)]*\)\s*\{(.*?)"
+                       r"\n\}", tc, flags=re.S)
+    assert launch and re.search(r"fwd_split_tc<O>.*fwd_wide_tc<512,\s*O>",
+                                launch.group(1), flags=re.S)
+    for kernel in ("fwd_split_tc", "fwd_wide_tc"):
+        assert re.search(r"flash_" + kernel + r"<\w+,\s*O>", tc), kernel
     cc = code["flash_attention.cu"]
-    assert not re.search(r"\bvtpu_flash_fwd_bf16_f32out\b", cc)
-    assert re.search(r"\bvtpu_flash_fwd_wide_bf16_f32out\b", cc)
+    for entry in ("vtpu_flash_fwd_bf16_f32out", "vtpu_flash_fwd_wide_bf16",
+                  "vtpu_flash_fwd_wide_bf16_f32out"):
+        assert not re.search(r"\b" + entry + r"\b", cc), entry
 
 
 @pytest.fixture

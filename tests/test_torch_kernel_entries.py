@@ -79,13 +79,14 @@ def test_the_scanner_sees_both_forms_and_skips_comments(tmp_path,
 
 
 def test_the_flash_entries_are_split_by_route():
-    """bf16 -> bf16 forward, dq and dk/dv, the bf16 -> f32-out forward
-    and the bf16 wide backward (dq and dk/dv at 128 < hd <= 512) on the
-    tensor cores; the f32 entries and the wide forwards on the CUDA
-    cores."""
+    """bf16 -> bf16 forward, dq and dk/dv, the bf16 -> f32-out forward,
+    and at 128 < hd <= 512 the bf16 forward, its f32-out twin and the
+    bf16 backward (dq and dk/dv) on the tensor cores; only the f32
+    entries stay on the CUDA cores."""
     where = {name: path.rsplit("/", 1)[-1] for name, path in _definitions()}
     tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dq_bf16",
               "vtpu_flash_bwd_dkv_bf16", "vtpu_flash_fwd_bf16_f32out",
+              "vtpu_flash_fwd_wide_bf16", "vtpu_flash_fwd_wide_bf16_f32out",
               "vtpu_flash_bwd_dq_wide_bf16", "vtpu_flash_bwd_dkv_wide_bf16"}
     for name in _build.SIGNATURES:
         if not name.startswith("vtpu_flash_"):

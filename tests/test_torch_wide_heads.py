@@ -170,21 +170,25 @@ def _within(got, want, dtype, tol_f32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [192, 256, 512, 129, 201])
+@pytest.mark.parametrize("hd", [192, 256, 512, 129, 201, 320, 300])
 def test_wide_flash_kernels_match_plain_on_the_card(cuda_card, hd, dtype):
-    """Forward, dq and dk/dv at hd 192, 256 and 512, and at hd 129 and 201
-    (hd % 8 != 0: the plain-load staging) against their plain versions:
+    """Forward, dq and dk/dv at hd 192, 256 and 512, at hd 320 (three
+    128-column chunks, the last one half full), and at hd 129, 201 and
+    300 (hd % 8 != 0: the plain-load staging) against their plain versions:
     f32 o at 2e-5, dq / dk / dv at 1e-4 of their largest value, bf16 at 2
     ulps; causal with GQA (g 2, 4 and 8), a window, shift -1 with an f32
-    o, and a ragged length; two backward calls give the same bits (no
-    atomics: the sums do not depend on the order blocks run in)."""
+    o, non-causal with an f32 o, and a ragged length; two forward and two
+    backward calls give the same bits (no atomics: the sums do not depend
+    on the order blocks run in)."""
     gen = torch.Generator(device=cuda_card).manual_seed(hd)
     cases = [((1, 4, 256, hd), 2, (True, 0, 0), None),
              ((1, 2, 200, hd), 2, (True, 0, 70), None),
              ((1, 2, 130, hd), 1, (True, -1, 0), torch.float32),
              ((2, 2, 77, hd), 2, (False, 0, 0), None),
              ((1, 8, 300, hd), 2, (True, 0, 0), None),
-             ((1, 8, 300, hd), 1, (True, 0, 0), None)]
+             ((1, 8, 300, hd), 1, (True, 0, 0), None),
+             ((1, 8, 260, hd), 2, (True, -1, 0), None),
+             ((2, 4, 190, hd), 2, (False, 0, 0), torch.float32)]
     for q_shape, n_kv, cfg, out in cases:
         kv_shape = (q_shape[0], n_kv, *q_shape[2:])
         q, do = (torch.randn(q_shape, device=cuda_card,
@@ -197,6 +201,8 @@ def test_wide_flash_kernels_match_plain_on_the_card(cuda_card, hd, dtype):
                                                  out_dtype=out)
         assert _within(o, ro, o.dtype, 2e-5), what
         assert ((lse - rlse).abs() / rlse.abs().clamp_min(1)).max() <= 2e-5
+        o2, lse2 = tat.flash_forward(q, k, v, *cfg, out_dtype=out)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), what
         delta = (do.float() * ro.float()).sum(-1, keepdim=True)
         dq = tat.flash_bwd_dq(q, k, v, do, rlse, delta, *cfg)
         rdq = tat.flash_bwd_dq_reference(q, k, v, do, rlse, delta, *cfg)

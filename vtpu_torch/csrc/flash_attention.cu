@@ -6,22 +6,22 @@
 //   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
 //   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
-// and, at 128 < hd <= 512, where the tensor-core kernels and the register
-// tiles above stop, the head dim in 128-column chunks: every forward and
-// the f32 backward
+// and, at 128 < hd <= 512, where the register tiles above stop, the f32
+// entries with the head dim in 128-column chunks
 //
-//   vtpu_flash_fwd_wide_{f32,bf16,bf16_f32out}          (flash_fwd_wide)
+//   vtpu_flash_fwd_wide_f32                             (flash_fwd_wide)
 //   vtpu_flash_bwd_dq_wide_f32                          (flash_bwd_dq_wide)
 //   vtpu_flash_bwd_dkv_wide_f32                         (flash_bwd_dkv_wide)
 //
-// The bf16 entries at hd <= 128 run on the tensor cores in
-// flash_attention_sm90.cu: the forward, dq and dk/dv, and the bf16 ->
-// f32-out forward of ring attention's partials, which splits p into two
-// bf16 halves to keep its f32 o within 2e-5; so does the bf16 backward
-// at 128 < hd <= 512 (vtpu_flash_bwd_dq_wide_bf16,
-// vtpu_flash_bwd_dkv_wide_bf16).  The f32 entries stay here because the
-// f32 exactness checks rely on f32 products (TF32 tensor cores would not
-// meet them).
+// Every bf16 entry runs on the tensor cores in flash_attention_sm90.cu:
+// at hd <= 128 the forward, dq and dk/dv, and the bf16 -> f32-out
+// forward of ring attention's partials, which splits p into two bf16
+// halves to keep its f32 o within 2e-5; at 128 < hd <= 512 the forward
+// and its f32-out twin (vtpu_flash_fwd_wide_bf16,
+// vtpu_flash_fwd_wide_bf16_f32out) and the backward
+// (vtpu_flash_bwd_dq_wide_bf16, vtpu_flash_bwd_dkv_wide_bf16).  The f32
+// entries stay here because the f32 exactness checks rely on f32 products
+// (TF32 tensor cores would not meet them).
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
 //   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
@@ -97,13 +97,6 @@ constexpr int kPS = kTile + 4; // row stride of the staged P / dS tiles
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // Stage rows [row0, row0 + kTile) of a [rows, ld] matrix, columns
@@ -504,10 +497,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // of computing the scores once per output chunk (ceil(hd / 128) times).
 constexpr int kChunk = 128;
 
-template <typename T, typename O>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, O* __restrict__ o,
+                   const T* __restrict__ v, T* __restrict__ o,
                    float* __restrict__ lse, Problem P, bool vec) {
   constexpr int S = kChunk + 4;
   constexpr int NU = kChunk / 64;
@@ -560,7 +553,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (blockIdx.z == 0 && tx == 0 && row < P.seq_q)
       lse[static_cast<size_t>(n) * P.seq_q + row] = m[i] + logf(ls);
   }
-  store_tile<O, kChunk>(o + static_cast<size_t>(n) * P.seq_q * P.hd + c_out,
+  store_tile<T, kChunk>(o + static_cast<size_t>(n) * P.seq_q * P.hd + c_out,
                         acc, inv, q0, P.seq_q, P.hd,
                         min(kChunk, P.hd - c_out), ty, tx);
 }
@@ -828,7 +821,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
 
 // The chunked kernels, for 128 < hd <= kMaxWideHd: one launch each, grid
 // (tiles, heads, output chunks), the hd 128 kernels' shared memory.
-template <typename T, typename O>
+template <typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
                     void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
                     int causal, int shift, int window, float sm_scale,
@@ -837,7 +830,7 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
   if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
                     sm_scale, vtpu::flash::kMaxWideHd))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_wide<T, O>;
+  auto kernel = flash_fwd_wide<T>;
   const size_t smem = smem_fwd<kChunk>();
   cudaError_t e = vtpu::allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -845,7 +838,7 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
                   (hd + kChunk - 1) / kChunk);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<O*>(o),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), P, can_vec<T>(hd, {q, k, v}));
   return static_cast<int>(cudaGetLastError());
 }
@@ -930,13 +923,9 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
                   hd, causal, shift, window, sm_scale, stream);              \
   }
 
-using bf16 = __nv_bfloat16;
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, launch_fwd<float>)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, launch_dq<float>)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, launch_dkv<float>)
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, (launch_fwd_wide<float, float>))
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16, (launch_fwd_wide<bf16, bf16>))
-VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_bf16_f32out,
-                     (launch_fwd_wide<bf16, float>))
+VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, launch_fwd_wide<float>)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_f32, launch_dq_wide<float>)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_f32, launch_dkv_wide<float>)

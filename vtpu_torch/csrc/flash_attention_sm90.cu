@@ -14,6 +14,14 @@
 //                                                (_flash_bwd_2d)
 //   vtpu_flash_bwd_dkv_bf16      flash_dkv_tc <- _attn_bwd_dkv_kernel
 //                                                (_flash_bwd_2d)
+//   vtpu_flash_fwd_wide_bf16     flash_fwd_split_tc<256, bf16>,
+//                                flash_fwd_wide_tc<512, bf16>
+//   vtpu_flash_fwd_wide_bf16_f32out
+//                                flash_fwd_split_tc<256, float>,
+//                                flash_fwd_wide_tc<512, float>
+//                                <- _attn_kernel (pallas_call at :409,
+//                                reached from _flash_2d and
+//                                flash_attention_with_lse)
 //   vtpu_flash_bwd_dq_wide_bf16  flash_dq_split_tc, flash_dq_wide_tc
 //                                <- _attn_bwd_dq_kernel (pallas_call at
 //                                :441, reached from _flash_bwd_2d)
@@ -23,7 +31,7 @@
 //
 // The _wide entries take 128 < hd <= 512: the split kernels up to hd 256,
 // the chunked (_wide_tc) ones above.  The f32 entries (forward, dq,
-// dk/dv) and the wide forwards stay on the CUDA-core kernels of
+// dk/dv, at every hd) stay on the CUDA-core kernels of
 // flash_attention.cu.  Layouts, masks and numerics are that file's: q,
 // o, do [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd]; lse, delta
 // [N, seq_q] f32; query head n reads kv head n / g; m starts at -1e30, a
@@ -110,19 +118,34 @@
 //    the first blocks launched, across heads, so the grid's tail is the
 //    light tiles.
 //
-// The wide backward (128 < hd <= 512).  Its bound is the same: causal at
-// b 2, 16 heads of 256 over 4 kv heads, s 4096 (the training widths as
-// heads of 256) there are 268,500,992 kept pairs, so dq's 6 * hd flops a
-// pair take 0.417 ms and dk/dv's 8 * hd 0.556 ms at 989 TFLOP/s.  What
+// The wide forward and backward (128 < hd <= 512).  Their bound is the
+// same: causal at b 2, 16 heads of 256 over 4 kv heads, s 4096 (the
+// training widths as heads of 256) there are 268,500,992 kept pairs, so
+// the forward's 4 * hd flops a pair take 0.278 ms (its bytes 0.05 ms),
+// dq's 6 * hd 0.417 ms and dk/dv's 8 * hd 0.556 ms at 989 TFLOP/s.  What
 // does not carry over from the kernels above is one warp holding every
-// column of its rows' output: dq's accumulator would be hd / 2 f32 a
-// thread and dk + dv's hd (128 and 256 at hd 256), beside S and dP; and
-// the resident tiles with their rings would pass an SM's 232,448 bytes
-// of shared memory (dq's Q, dO and three K/V stages: 337,920 at hd 256).
-// So a warp holds kWideC = 128 columns of dq, or of dk and dv (64 and
-// 128 f32 a thread, as at hd 128), and the columns are split one of two
-// ways; both were built and timed at that shape, in turns on one card
-// (PERF.md, the wide backward's findings):
+// column of its rows' output: the forward's o would be hd / 2 f32 a
+// thread beside Q's fragments (128 and 64 at hd 256), dq's accumulator
+// hd / 2 and dk + dv's hd, beside S and dP; and the resident tiles with
+// their rings would pass an SM's 232,448 bytes of shared memory (the
+// forward's 128-row Q tile and three K/V stages: 270,336 at hd 256; dq's
+// Q, dO and three K/V stages: 337,920).  So a warp holds kWideC = 128
+// columns of o, of dq, or of dk and dv (64, 64 and 128 f32 a thread, as
+// at hd 128), and the columns are split one of two ways; for the
+// backward both were built and timed at that shape, in turns on one card
+// (PERF.md, the wide backward's findings), and the forward follows it:
+//
+//  - The forward, over the warps of a block up to hd 256
+//    (flash_fwd_split_tc): a slab's two warps compute S once, each for 32
+//    of a tile's 64 keys, exchange their row maxima and hand p on in
+//    shared memory as bf16 (two barriers of the slab's 64 threads a
+//    tile); 64-row q tiles, three K/V stages with Q riding in the last
+//    until its first refill: 212,480 bytes (221,696 with f32 o, p_hi and
+//    p_lo both).  Above hd 256 over blocks (flash_fwd_wide_tc): a block
+//    owns one 128-column chunk of o and recomputes S, (nc + 1) / 2 of the
+//    forward's products (2.5x at hd 512); 128-row q tiles with Q resident,
+//    three K chunk stages and two V chunk buffers: 220,160 bytes.  The
+//    f32-out twins split p into p_hi + p_lo as flash_fwd_tc<HD, float>.
 //
 //  - Over the warps of a block (hd <= 256; flash_dq_split_tc,
 //    flash_dkv_split_tc): 8 warps, 4 slabs of 16 rows (query rows for
@@ -1722,6 +1745,512 @@ __global__ void __launch_bounds__(kSplitThreads, 1)
                           reinterpret_cast<float*>(smem_tc));
 }
 
+// -- the wide forward (128 < hd <= 512) ------------------------------------
+// Up to hd 256 the output columns are split over the warps of a block, as
+// in the backward above: 8 warps, 4 slabs of 16 query rows by 2 column
+// halves of o.  The two warps of a slab compute S once, each for 32 of a
+// K/V tile's 64 keys over every column of the head (Q's fragments held in
+// registers); they exchange their row maxima through shared memory (a
+// barrier of the slab's two warps), so both keep one m, and hand p on in
+// shared memory as bf16 (a second such barrier); each warp then
+// multiplies the slab's whole P by its column half of V.  Each warp sums l
+// over its own keys, and the two halves add up at the end.  Nothing is
+// recomputed.  64-row q tiles; three stages of a 64-key K and V tile; Q
+// rides in the last stage's V until tile lo + 2 takes it.  The f32-out
+// entry hands on p_hi and p_lo both and issues two products a k-step.
+constexpr int kFwdSplitM = 64;  // query rows per block
+
+template <typename O>
+struct FwdSplit {
+  static constexpr int kStages = 3;
+  static constexpr int kP = std::is_same<O, float>::value ? 2 : 1;
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (kStages * 2 * kFwdN * (kSplitHd + 8) +
+                      kP * kFwdSplitM * (kFwdN + 8)) +
+      sizeof(float) * 2 * kFwdSplitM;  // row maxima, then sums, a half
+};
+
+static_assert(kFwdSplitM == kFwdN, "Q rides in one V stage");
+
+// the two warps of slab `slab` (64 threads) meet at named barrier 1 + slab
+__device__ __forceinline__ void slab_sync(int slab) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(slab + 1) : "memory");
+}
+
+template <int HD, typename O>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+    flash_fwd_split_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, O* __restrict__ o,
+                       float* __restrict__ lse, Problem P, int n_q,
+                       bool vec) {
+  constexpr bool kF32 = std::is_same<O, float>::value;
+  constexpr int M = kFwdSplitM, NTH = kSplitThreads;
+  constexpr int ST = FwdSplit<O>::kStages;
+  constexpr int S = HD + 8, RB = 2 * S;
+  constexpr int PS = kFwdN + 8, PB = 2 * PS;  // P: M rows x kFwdN keys
+  constexpr int KT = HD / 16;         // k-steps of Q K^T
+  constexpr int NT = kWideC / 8;      // 8-column tiles of an o half
+  constexpr int JT = kFwdN / 2 / 8;   // 8-key tiles of a warp's S
+  extern __shared__ uint4 smem_tc[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);  // ST stages of kFwdN rows
+  bf16* Vs = Ks + ST * kFwdN * S;               // ST stages of kFwdN rows
+  bf16* Ps = Vs + ST * kFwdN * S;               // p (p_hi), then p_lo
+  float* Xs = reinterpret_cast<float*>(Ps + FwdSplit<O>::kP * M * PS);
+  bf16* Qs = Vs + (ST - 1) * kFwdN * S;
+
+  // heavy first, as flash_fwd_tc
+  const int tiles = (P.seq_q + M - 1) / M;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * M;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sl = warp % 4, hf = warp / 4;  // row slab, column half
+  const int w0 = q0 + sl * 16;             // the slab's 16 rows
+  const int r0 = w0 + lane / 4;            // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);           // and columns c2, c2 + 1
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, M, kFwdN, lo, hi);
+  auto stage = [&](int t, int st) {
+    if (t >= hi) return;
+    stage_cols<kFwdN, HD, NTH>(Ks + st * kFwdN * S, kb, t * kFwdN, P.seq_k,
+                               P.hd, P.hd, vec);
+    stage_cols<kFwdN, HD, NTH>(Vs + st * kFwdN * S, vb, t * kFwdN, P.seq_k,
+                               P.hd, P.hd, vec);
+  };
+  // one commit group per tile: Q rides with the first
+  stage_cols<M, HD, NTH>(Qs, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    stage(lo + i, i);
+    cp_commit();
+  }
+  cp_wait<ST - 2>();
+  __syncthreads();
+
+  // k-steps that hold columns below hd (the rest are zeros)
+  const int kt = min(KT, (P.hd + 15) / 16);
+  uint32_t qf[KT][4];  // the slab's rows of Q as A fragments
+  {
+    const uint32_t a =
+        smem_u32(Qs) + (sl * 16 + lane % 16) * RB + (lane / 16) * 16;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk >= kt) break;
+      ldsm_x4(qf[kk], a + kk * 32);
+    }
+  }
+  // ldmatrix row addresses: K as the col-major B of Q K^T (the warp's 32
+  // keys), V transposed as the B of P V (the warp's column half), P as A
+  // (the slab's rows, every key)
+  const uint32_t k_lane = ((lane % 8) + (lane / 16) * 8) * RB +
+                          ((lane / 8) % 2) * 16 + hf * 32 * RB;
+  const uint32_t v_lane = ((lane % 8) + ((lane / 8) % 2) * 8) * RB +
+                          (lane / 16) * 16 + hf * kWideC * 2;
+  constexpr uint32_t kStage = kFwdN * RB;
+  const uint32_t ks0 = smem_u32(Ks) + k_lane, vs0 = smem_u32(Vs) + v_lane;
+  const uint32_t pa0 =
+      smem_u32(Ps) + (sl * 16 + lane % 16) * PB + (lane / 16) * 16;
+  // 16-column groups of the o half that hold columns below hd
+  const int ng = min(NT / 2, (P.hd - hf * kWideC + 15) / 16);
+  // this warp's and the other half's row maxima (then sums) of the slab
+  float* xm = Xs + (sl * 2 + hf) * 16 + lane / 4;
+  const float* xo = Xs + (sl * 2 + 1 - hf) * 16 + lane / 4;
+  bf16* pr = Ps + (sl * 16 + lane / 4) * PS + hf * 32 + c2;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sc = P.sm_scale * kLog2e;
+
+  for (int t = lo, st = 0; t < hi; ++t, st = st + 1 < ST ? st + 1 : 0) {
+    cp_wait<ST - 2>();
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copy takes (Q's, the first time)
+    __syncthreads();
+    stage(t + ST - 1, st == 0 ? ST - 1 : st - 1);
+    cp_commit();
+
+    const uint32_t ks = ks0 + st * kStage, vs = vs0 + st * kStage;
+    // S = Q K^T: the slab's 16 rows x the warp's 32 keys
+    float s[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk >= kt) break;
+#pragma unroll
+      for (int j = 0; j < JT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + j * 16 * RB + kk * 32);
+        mma(s[2 * j], qf[kk], b[0], b[1]);
+        mma(s[2 * j + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    const int k0 = t * kFwdN + hf * 32;
+    const bool full = all_kept(P, w0, 16, k0, 32);
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+    } else {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = keep(P, r0 + (e / 2) * 8, k0 + 8 * j + c2 + e % 2)
+                        ? s[j][e] * sc
+                        : kNegInf;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (lane % 4 == 0) xm[8 * h] = mx[h];
+    }
+    // the other half's maxima are in: both warps take the same m
+    slab_sync(sl);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], xo[8 * h]);
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float y = s[j][2 * h + x];
+          p[x] = full || y > kNegInf * 0.5f ? exp2f(y - m[h]) : 0.f;
+          rs[h] += p[x];
+        }
+        if constexpr (kF32) {
+          uint32_t phi, plo;
+          split_bf16(p[0], p[1], phi, plo);
+          *reinterpret_cast<uint32_t*>(pr + 8 * h * PS + 8 * j) = phi;
+          *reinterpret_cast<uint32_t*>(pr + M * PS + 8 * h * PS + 8 * j) =
+              plo;
+        } else {
+          *reinterpret_cast<uint32_t*>(pr + 8 * h * PS + 8 * j) =
+              pack_bf16(p[0], p[1]);
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    slab_sync(sl);  // the slab's P, both halves of its keys, is in place
+
+    // o[slab, half] += P[slab, every key] V[every key, half]
+#pragma unroll
+    for (int kk = 0; kk < kFwdN / 16; ++kk) {
+      uint32_t pa[4], pl[4];
+      ldsm_x4(pa, pa0 + kk * 32);
+      if constexpr (kF32) ldsm_x4(pl, pa0 + M * PB + kk * 32);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        if (j >= ng) break;
+        uint32_t b[4];
+        ldsm_x4_t(b, vs + kk * 16 * RB + j * 32);
+        mma(acc[2 * j], pa, b[0], b[1]);
+        mma(acc[2 * j + 1], pa, b[2], b[3]);
+        if constexpr (kF32) {
+          mma(acc[2 * j], pl, b[0], b[1]);
+          mma(acc[2 * j + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // each warp summed l over its own keys: the two halves add up (in
+  // either order the same f32 sum, so both warps divide by one l)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (lane % 4 == 0) xm[8 * h] = l[h];
+  }
+  slab_sync(sl);
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float ls = fmaxf(l[h] + xo[8 * h], 1e-30f);
+    inv[h] = 1.f / ls;
+    const int row = r0 + 8 * h;
+    if (hf == 0 && lane % 4 == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] =
+          (m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2) + logf(ls);
+  }
+  O* ob = o + q_off;
+  const int cb = hf * kWideC;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    store_pair(ob, r0, cb + 8 * j + c2, acc[j][0] * inv[0],
+               acc[j][1] * inv[0], P.seq_q, P.hd);
+    store_pair(ob, r0 + 8, cb + 8 * j + c2, acc[j][2] * inv[1],
+               acc[j][3] * inv[1], P.seq_q, P.hd);
+  }
+}
+
+// Above hd 256, over blocks in 128-column chunks: a block of 8 warps (16
+// query rows each, 128-row q tiles) owns one chunk of o and computes S
+// over every chunk of the head for it, Q resident in shared memory (its
+// A fragments reloaded each k-step), K streamed through a three-stage ring
+// one (tile, chunk) step at a time; V's chunk of the block rides with a
+// tile's last K chunk into one of two buffers (tile parity), so the
+// block's own chunk of P V needs no wait of its own.  P stays in
+// registers, as in flash_fwd_tc.  S is computed nc = ceil(hd / 128) times
+// over: (nc + 1) / 2 of the forward's products (2x at hd 384, 2.5x at 512).
+// nc >= 2 (here 3 or 4): with one chunk a V buffer would be refilled
+// while still read.
+template <int HD>
+struct FwdWide {
+  static constexpr int kStages = 3;
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (kFwdM * (HD + 8) + (kStages + 2) * kFwdN * (kWideC + 8));
+};
+
+template <int HD, typename O>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_wide_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, O* __restrict__ o,
+                      float* __restrict__ lse, Problem P, int n_q, int nc,
+                      bool vec) {
+  constexpr int M = kFwdM, NTH = kFwdThreads;
+  constexpr int ST = FwdWide<HD>::kStages;
+  constexpr int S = HD + 8, RB = 2 * S;          // Q: every column
+  constexpr int SC = kWideC + 8, RC = 2 * SC;    // K, V: one chunk
+  constexpr int KT = kWideC / 16;  // k-steps of a chunk
+  constexpr int NT = kWideC / 8;   // 8-column tiles of the o chunk
+  constexpr int JT = kFwdN / 8;    // 8-key tiles of S
+  extern __shared__ uint4 smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Ks = Qs + M * S;           // ST stages of kFwdN rows x kWideC
+  bf16* Vs = Ks + ST * kFwdN * SC;  // 2 buffers of kFwdN rows x kWideC
+
+  // heavy first, across heads and chunks
+  const int tiles = (P.seq_q + M - 1) / M;
+  const int per = n_q * nc;
+  const int rank = blockIdx.x / per;
+  const int n = (blockIdx.x % per) / nc, co = blockIdx.x % nc;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * M;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w0 = q0 + warp * 16;       // the warp's 16 rows
+  const int r0 = w0 + lane / 4;        // this thread's rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);       // and columns c2, c2 + 1 of a tile
+  const int cv = co * kWideC;          // the block's columns of o and V
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, M, kFwdN, lo, hi);
+  const int steps = max(hi - lo, 0) * nc;
+  // step i (K/V tile lo + i / nc, K's chunk i % nc; with the last, V's
+  // chunk co) into ring stage st (nothing past the last step)
+  auto stage = [&](int i, int st) {
+    if (i >= steps) return;
+    const int u = i / nc, j = i % nc;
+    const int row0 = (lo + u) * kFwdN;
+    const int c0 = j * kWideC;
+    stage_cols<kFwdN, kWideC, NTH>(Ks + st * kFwdN * SC, kb + c0, row0,
+                                   P.seq_k, P.hd, P.hd - c0, vec);
+    if (j == nc - 1)
+      stage_cols<kFwdN, kWideC, NTH>(Vs + (u % 2) * kFwdN * SC, vb + cv,
+                                     row0, P.seq_k, P.hd, P.hd - cv, vec);
+  };
+  // one commit group per step: Q rides with the first
+  stage_cols<M, HD, NTH>(Qs, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    stage(i, i);
+    cp_commit();
+  }
+
+  // ldmatrix row addresses: Q as A (every column, reloaded each k-step);
+  // a K chunk as the col-major B of Q K^T; V's chunk transposed as the B
+  // of P V
+  const uint32_t a_lane = (warp * 16 + lane % 16) * RB + (lane / 16) * 16;
+  const uint32_t b_lane =
+      ((lane % 8) + (lane / 16) * 8) * RC + ((lane / 8) % 2) * 16;
+  const uint32_t t_lane =
+      ((lane % 8) + ((lane / 8) % 2) * 8) * RC + (lane / 16) * 16;
+  constexpr uint32_t kStage = kFwdN * RC;
+  const uint32_t qa = smem_u32(Qs) + a_lane;
+  const uint32_t ks0 = smem_u32(Ks) + b_lane, vs0 = smem_u32(Vs) + t_lane;
+  // 16-column groups of the o chunk that hold columns below hd
+  const int ng = min(NT / 2, (P.hd - cv + 15) / 16);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sc = P.sm_scale * kLog2e;
+
+  int i = 0, st = 0;
+  for (int t = lo, u = 0; t < hi; ++t, ++u) {
+    // S = Q K^T over every chunk: the warp's 16 rows x kFwdN keys
+    float s[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int j = 0; j < nc; ++j, ++i) {
+      cp_wait<ST - 2>();
+      // step i has landed for every thread, and every warp is done with
+      // step i - 1, whose stage the next copy takes
+      __syncthreads();
+      stage(i + ST - 1, st == 0 ? ST - 1 : st - 1);
+      cp_commit();
+      const uint32_t ks = ks0 + st * kStage;
+      const int c0 = j * kWideC;
+      // k-steps that hold columns below hd (the rest are zeros)
+      const int kt = min(KT, (P.hd - c0 + 15) / 16);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        if (kk >= kt) break;
+        uint32_t a[4];
+        ldsm_x4(a, qa + c0 * 2 + kk * 32);
+#pragma unroll
+        for (int jj = 0; jj < JT / 2; ++jj) {
+          uint32_t b[4];
+          ldsm_x4(b, ks + jj * 16 * RC + kk * 32);
+          mma(s[2 * jj], a, b[0], b[1]);
+          mma(s[2 * jj + 1], a, b[2], b[3]);
+        }
+      }
+      st = st + 1 < ST ? st + 1 : 0;
+    }
+
+    const int k0 = t * kFwdN;
+    const bool full = all_kept(P, w0, 16, k0, kFwdN);
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+    } else {
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = keep(P, r0 + (e / 2) * 8, k0 + 8 * j + c2 + e % 2)
+                        ? s[j][e] * sc
+                        : kNegInf;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p =
+            full || x > kNegInf * 0.5f ? exp2f(x - m[e / 2]) : 0.f;
+        s[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // o[:, chunk co] += P V[:, chunk co]: V's buffer of tile parity u
+    const uint32_t vs = vs0 + (u % 2) * kStage;
+#pragma unroll
+    for (int kk = 0; kk < JT / 2; ++kk) {
+      uint32_t pa[4], pl[4];
+      if constexpr (std::is_same<O, float>::value) {
+        split_bf16(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], pa[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pl[3]);
+      } else {
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        if (j >= ng) break;
+        uint32_t b[4];
+        ldsm_x4_t(b, vs + kk * 16 * RC + j * 32);
+        mma(acc[2 * j], pa, b[0], b[1]);
+        mma(acc[2 * j + 1], pa, b[2], b[3]);
+        if constexpr (std::is_same<O, float>::value) {
+          mma(acc[2 * j], pl, b[0], b[1]);
+          mma(acc[2 * j + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float ls = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / ls;
+    const int row = r0 + 8 * h;
+    if (co == 0 && lane % 4 == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] =
+          (m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2) + logf(ls);
+  }
+  O* ob = o + q_off;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    store_pair(ob, r0, cv + 8 * j + c2, acc[j][0] * inv[0],
+               acc[j][1] * inv[0], P.seq_q, P.hd);
+    store_pair(ob, r0 + 8, cv + 8 * j + c2, acc[j][2] * inv[1],
+               acc[j][3] * inv[1], P.seq_q, P.hd);
+  }
+}
+
 // -- launch ----------------------------------------------------------------
 bool tc_vec(int hd, std::initializer_list<const void*> ptrs) {
   if (hd % 8 != 0) return false;
@@ -1915,6 +2444,61 @@ int dkv_split_tc(const void* q, const void* k, const void* v,
 }
 
 template <typename O>
+int fwd_split_tc(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int n_q, const Problem& P, bool vec,
+                 cudaStream_t st) {
+  auto kernel = flash_fwd_split_tc<kSplitHd, O>;
+  const size_t smem = FwdSplit<O>::kSmem;
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks =
+      static_cast<long long>((P.seq_q + kFwdSplitM - 1) / kFwdSplitM) * n_q;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kSplitThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<O*>(o),
+      static_cast<float*>(lse), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, typename O>
+int fwd_wide_tc(const void* q, const void* k, const void* v, void* o,
+                void* lse, int n_q, const Problem& P, bool vec,
+                cudaStream_t st) {
+  auto kernel = flash_fwd_wide_tc<HD, O>;
+  const size_t smem = FwdWide<HD>::kSmem;
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nc = (P.hd + kWideC - 1) / kWideC;
+  const long long blocks =
+      static_cast<long long>((P.seq_q + kFwdM - 1) / kFwdM) * n_q * nc;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kFwdThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<O*>(o),
+      static_cast<float*>(lse), P, n_q, nc, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 128 < hd <= 512 (any hd <= 512 runs): split over warps up to hd 256,
+// chunked over blocks above
+template <typename O>
+int launch_fwd_wide_tc(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int n_q, int g, int seq_q, int seq_k,
+                       int hd, int causal, int shift, int window,
+                       float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tc_vec(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= kSplitHd
+             ? fwd_split_tc<O>(q, k, v, o, lse, n_q, P, vec, st)
+             : fwd_wide_tc<512, O>(q, k, v, o, lse, n_q, P, vec, st);
+}
+
+template <typename O>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
                   void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
                   int causal, int shift, int window, float sm_scale,
@@ -1950,6 +2534,27 @@ extern "C" int vtpu_flash_fwd_bf16_f32out(const void* q, const void* k,
                                           float sm_scale, void* stream) {
   return launch_fwd_tc<float>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,
                               causal, shift, window, sm_scale, stream);
+}
+
+// 128 < hd <= 512: flash_fwd_split_tc up to hd 256, flash_fwd_wide_tc above
+extern "C" int vtpu_flash_fwd_wide_bf16(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int n_q, int g, int seq_q, int seq_k,
+                                        int hd, int causal, int shift,
+                                        int window, float sm_scale,
+                                        void* stream) {
+  return launch_fwd_wide_tc<bf16>(q, k, v, o, lse, n_q, g, seq_q, seq_k, hd,
+                                  causal, shift, window, sm_scale, stream);
+}
+
+// the same with o in f32 (ring attention's partials at hd > 128)
+extern "C" int vtpu_flash_fwd_wide_bf16_f32out(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int n_q, int g, int seq_q, int seq_k, int hd, int causal, int shift,
+    int window, float sm_scale, void* stream) {
+  return launch_fwd_wide_tc<float>(q, k, v, o, lse, n_q, g, seq_q, seq_k,
+                                   hd, causal, shift, window, sm_scale,
+                                   stream);
 }
 
 extern "C" int vtpu_flash_bwd_dkv_bf16(const void* q, const void* k,

@@ -6,9 +6,9 @@ the autograd functions built on them, and their plain PyTorch versions.
 The wrappers pick the kernel by head dim, before any launch: up to
 ``MAX_TILED_HD`` (128) the kernels above; up to ``MAX_HD`` (512) the
 ``_wide`` entries, which walk the head dim in 128-column chunks (the
-forwards and the f32 backward in ``csrc/flash_attention.cu``, the bf16
-backward on the tensor cores in ``csrc/flash_attention_sm90.cu``); above
-that they raise ``ValueError``.
+f32 forward and backward in ``csrc/flash_attention.cu``, the bf16 forward,
+its f32-out twin and the bf16 backward on the tensor cores in
+``csrc/flash_attention_sm90.cu``); above that they raise ``ValueError``.
 
 Counterpart of ``vtpu/ops/attention.py``, with its layouts: q, k, v
 ``[b, h, s, d]`` or ``[s, d]`` (any leading dims), lse ``[..., s, 1]`` in
