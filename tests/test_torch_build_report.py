@@ -56,6 +56,12 @@ FWD_WIDE = {(256, "bf16"): (_NS_TC + "18flash_fwd_split_tcILi256E13__nv_"
                             "ProblemEiib"),
             (512, "f32"): (_NS_TC + "17flash_fwd_wide_tcILi512EfEEvPK13__"
                            "nv_bfloat16S3_S3_PT0_PfN4vtpu5flash7ProblemEiib")}
+# the f32 backward at hd <= 128 as 3xTF32 (TF32 mma.sync)
+_NS_T3 = "_ZN58_GLOBAL__N__47a195ba_25_flash_attention_tf32x3_cu_0d4e81e2"
+DQ_T3 = {hd: (_NS_T3 + f"15flash_dq_tf32x3ILi{hd}EEEvPKfS2_S2_S2_S2_S2_Pf"
+              "N4vtpu5flash7ProblemEib") for hd in (64, 128)}
+DKV_T3 = {hd: (_NS_T3 + f"16flash_dkv_tf32x3ILi{hd}EEEvPKfS2_S2_S2_S2_S2_"
+               "PfS3_N4vtpu5flash7ProblemEib") for hd in (64, 128)}
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 _NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
@@ -70,25 +76,32 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
           paged_spills=False, f32out_stack=0, f32out_spills=False,
-          wide_spills=None, wide_mma=True, wide_fwd_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for fifteen flash kernels (the
-    f32-out forward at hd 64 and 128, the wide backward's four instances
-    and the wide forward's four among them), three paged kernels and one
-    other kernel.  ``wide_spills`` names a wide instance that spills;
-    without ``wide_mma`` the wide backward's instances, without
-    ``wide_fwd_mma`` the wide forward's, hold no tensor-core
+          wide_spills=None, wide_mma=True, wide_fwd_mma=True,
+          f32bwd_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for nineteen flash kernels (the
+    f32-out forward at hd 64 and 128, the wide backward's four instances,
+    the wide forward's four and the f32 backward's four 3xTF32 ones among
+    them), three paged kernels and one other kernel.  ``wide_spills``
+    names a wide or 3xTF32 instance that spills; without ``wide_mma`` the
+    wide backward's instances, without ``wide_fwd_mma`` the wide
+    forward's, without ``f32bwd_mma`` the 3xTF32 ones hold no tensor-core
     instruction."""
     hmma = "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
+    tf32 = "HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
     wide = []
     for sym, reg, mma in ((DQ_WIDE[256], 236, wide_mma),
                           (DQ_WIDE[512], 238, wide_mma),
                           (DKV_WIDE[256], 250, wide_mma),
                           (DKV_WIDE[512], 248, wide_mma),
                           *((FWD_WIDE[key], 200 + i, wide_fwd_mma)
-                            for i, key in enumerate(FWD_WIDE))):
+                            for i, key in enumerate(FWD_WIDE)),
+                          *((sym, 160 + i, f32bwd_mma) for i, sym in
+                            enumerate((DQ_T3[64], DQ_T3[128], DKV_T3[64],
+                                       DKV_T3[128])))):
         spills = chip_smoke._short(sym) == wide_spills
+        op = tf32 if "tf32x3" in sym else hmma
         wide.append((sym, reg, 24 if spills else 0,
-                     ([hmma] * 2 if mma else ["FFMA R1, R2, R3, R1 ;"])
+                     ([op] * 2 if mma else ["FFMA R1, R2, R3, R1 ;"])
                      + (["STL [R1+0x18], R9 ;"] if spills else [])))
     usage = [" Function {}:".format(LN),
              "  REG:32 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400"]
@@ -143,6 +156,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (FWD_WIDE[256, "f32"], "flash_fwd_split_tc<256,f32>"),
     (FWD_WIDE[512, "bf16"], "flash_fwd_wide_tc<512,bf16>"),
     (FWD_WIDE[512, "f32"], "flash_fwd_wide_tc<512,f32>"),
+    (DQ_T3[128], "flash_dq_tf32x3<128>"),
+    (DKV_T3[64], "flash_dkv_tf32x3<64>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
     (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
     (COMBINE_BF16, "paged_combine<bf16>"),
@@ -186,6 +201,9 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
         **{name: dict(registers=200 + i, stack_bytes=0, local_ops=0,
                       tensor_core_ops=2)
            for i, name in enumerate(chip_smoke.WIDE_FWD_INSTANCES)},
+        **{name: dict(registers=160 + i, stack_bytes=0, local_ops=0,
+                      tensor_core_ops=2)
+           for i, name in enumerate(chip_smoke.F32_BWD_INSTANCES)},
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -311,6 +329,50 @@ def test_a_wide_forward_without_tensor_core_ops_fails():
     assert chip_smoke.build_failures(report) == [
         f"{name}: no tensor-core instructions in its SASS"
         for name in chip_smoke.WIDE_FWD_INSTANCES]
+
+
+@pytest.mark.parametrize("name", ["flash_dq_tf32x3<64>",
+                                  "flash_dq_tf32x3<128>",
+                                  "flash_dkv_tf32x3<64>",
+                                  "flash_dkv_tf32x3<128>"])
+def test_a_library_without_an_f32_backward_instance_fails(name):
+    """The f32 dq and dk/dv entries run flash_dq_tf32x3 and
+    flash_dkv_tf32x3 at hd 64 and 128: a library that lacks any instance
+    (one built from sources that still send the f32 backward to the CUDA
+    cores, whose flash_bwd_dq<f32,128> does not count) fails, and one
+    that lacks both of a kernel's instances fails for the kernel too."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert "flash_bwd_dq<f32,128>" in report
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+    kernel = name.split("<")[0]
+    for other in chip_smoke.F32_BWD_INSTANCES:
+        if other.split("<")[0] == kernel:
+            report.pop(other, None)
+    assert f"{kernel}: not in the library" in \
+        chip_smoke.build_failures(report)
+
+
+@pytest.mark.parametrize("name", ["flash_dq_tf32x3<128>",
+                                  "flash_dkv_tf32x3<128>"])
+def test_a_spilling_f32_backward_fails_the_build_check(name):
+    """dq holds hd / 2 f32 a thread beside S and dP, and a dk/dv warp its
+    output beside S^T or dP^T: a build where that spills fails."""
+    report = chip_smoke.parse_cuobjdump(_dump(wide_spills=name))
+    assert report[name]["stack_bytes"] == 24
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: spills (stack 24 bytes, 1 local loads/stores)"]
+
+
+def test_an_f32_backward_without_tensor_core_ops_fails():
+    """A build whose f32 backward multiplies on the CUDA cores (no TF32
+    HMMA in its SASS) fails for every instance."""
+    report = chip_smoke.parse_cuobjdump(_dump(f32bwd_mma=False))
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: no tensor-core instructions in its SASS"
+        for name in ("flash_dq_tf32x3<64>", "flash_dq_tf32x3<128>",
+                     "flash_dkv_tf32x3<64>", "flash_dkv_tf32x3<128>")]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

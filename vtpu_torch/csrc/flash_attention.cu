@@ -1,32 +1,28 @@
-// Flash attention on the CUDA cores (sm_90a): the forward (o and the
-// per-row logsumexp) and the two backward kernels (dq; dk and dv), f32
-// arithmetic throughout.  The entries this source serves:
+// Flash attention on the CUDA cores (sm_90a), f32 arithmetic throughout:
+// the f32 forward (o and the per-row logsumexp) at every head dim, and
+// the f32 backward (dq; dk and dv) at 128 < hd <= 512.  The entries this
+// source serves:
 //
 //   vtpu_flash_fwd_f32                                  (flash_fwd)
-//   vtpu_flash_bwd_dq_f32                               (flash_bwd_dq)
-//   vtpu_flash_bwd_dkv_f32                              (flash_bwd_dkv)
 //
-// and, at 128 < hd <= 512, where the register tiles above stop, the f32
-// entries with the head dim in 128-column chunks
+// and, at 128 < hd <= 512, where the register tiles of flash_fwd stop,
+// the f32 entries with the head dim in 128-column chunks
 //
 //   vtpu_flash_fwd_wide_f32                             (flash_fwd_wide)
 //   vtpu_flash_bwd_dq_wide_f32                          (flash_bwd_dq_wide)
 //   vtpu_flash_bwd_dkv_wide_f32                         (flash_bwd_dkv_wide)
 //
-// Every bf16 entry runs on the tensor cores in flash_attention_sm90.cu:
-// at hd <= 128 the forward, dq and dk/dv, and the bf16 -> f32-out
-// forward of ring attention's partials, which splits p into two bf16
-// halves to keep its f32 o within 2e-5; at 128 < hd <= 512 the forward
-// and its f32-out twin (vtpu_flash_fwd_wide_bf16,
-// vtpu_flash_fwd_wide_bf16_f32out) and the backward
-// (vtpu_flash_bwd_dq_wide_bf16, vtpu_flash_bwd_dkv_wide_bf16).  The f32
-// entries stay here because the f32 exactness checks rely on f32 products
-// (TF32 tensor cores would not meet them).
+// The f32 backward at hd <= 128 (vtpu_flash_bwd_dq_f32,
+// vtpu_flash_bwd_dkv_f32) runs on the tensor cores as error-compensated
+// 3xTF32 in flash_attention_tf32x3.cu; every bf16 entry runs on the
+// tensor cores in flash_attention_sm90.cu.  The entries here stay on f32
+// products because one TF32 product per pair would miss the f32
+// exactness checks (3xTF32 is the way onto the tensor cores for them).
 //
 // Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
-//   flash_fwd     <- _attn_kernel          (reached from _flash_2d)
-//   flash_bwd_dq  <- _attn_bwd_dq_kernel   (reached from _flash_bwd_2d)
-//   flash_bwd_dkv <- _attn_bwd_dkv_kernel  (reached from _flash_bwd_2d)
+//   flash_fwd, flash_fwd_wide      <- _attn_kernel         (_flash_2d)
+//   flash_bwd_dq_wide              <- _attn_bwd_dq_kernel  (_flash_bwd_2d)
+//   flash_bwd_dkv_wide             <- _attn_bwd_dkv_kernel (_flash_bwd_2d)
 //
 // Layouts: q, o, do, dq [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd];
 // lse, delta [N, seq_q] f32.  N flattens every leading dim of the public
@@ -49,11 +45,12 @@
 //
 // What bounds them on an H100: operations.  Causal at b 2, H 32,
 // s 4096, hd 128 the forward does about 2*b*H*s^2*hd = 2.7e11 flops
-// (QK^T and PV over the kept half), dq 1.5x that (QK^T, dO V^T, dS K)
-// and dk/dv 2x (QK^T, dO V^T, P^T dO, dS^T Q); the bytes (q, k, v, o
-// once) are ~0.2 GB, 0.06 ms at 3.35 TB/s.  These kernels multiply on
-// the CUDA cores in f32, so their own ceiling is the f32 rate
-// (67 TFLOP/s, ~4.1 ms for the forward).  What the design does:
+// (QK^T and PV over the kept half); the chunked backward does 6 * hd
+// (dq) and 8 * hd (dk/dv) flops per kept pair, and recomputes the scores
+// once per output chunk.  The bytes (q, k, v, o once) are ~0.2 GB,
+// 0.06 ms at 3.35 TB/s.  These kernels multiply on the CUDA cores in
+// f32, so their own ceiling is the f32 rate (67 TFLOP/s, ~4.1 ms for the
+// forward).  What the design does:
 //
 //  - Tiles of 64 query rows by 64 keys staged in shared memory as f32
 //    (rows padded by 4 floats so the 16-byte reads of 8 neighbouring
@@ -65,18 +62,19 @@
 //  - The TPU grid walked q blocks in order with all of K/V resident in
 //    VMEM.  Here blocks run in any order on 132 SMs and each streams its
 //    K/V (or Q/dO) tiles from device memory (L2 holds the 2-16 MB of a
-//    head).  forward and dq: one block per (q tile, query head);
-//    dk/dv: one block per (k tile, kv head), which loops over the g
-//    query heads of its group and over the q tiles, keeping dk and dv in
-//    registers and writing them once (no atomics, no second pass): that
-//    loop is where the TPU path's vmap sums the cotangents of the
-//    broadcast k and v.
+//    head).  forward and dq: one block per (q tile, query head) and, in
+//    the chunked kernels, output chunk; dk/dv: one block per (k tile, kv
+//    head, output chunk), which loops over the g query heads of its group
+//    and over the q tiles, keeping its chunk of dk and dv in registers and
+//    writing it once (no
+//    atomics, no second pass): that loop is where the TPU path's vmap
+//    sums the cotangents of the broadcast k and v.
 //  - Fully masked tiles are skipped with the reference's bounds
 //    (_causal_hi, _window_lo; for dk/dv the first q tile at the diagonal
 //    and the window's last), so causal work is the kept half.
 //  - Staging costs (K + V + Q + P tiles, f32) are 116 KB for the
-//    forward, 150 KB for dq and 167 KB for dk/dv at hd 128, above the
-//    48 KB default: vtpu::allow_smem opts each kernel in.
+//    forward, 150 KB for dq and 167 KB for dk/dv at a 128-column chunk,
+//    above the 48 KB default: vtpu::allow_smem opts each kernel in.
 
 #include <initializer_list>
 
@@ -373,121 +371,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_tile<T, HD>(o + q_off, acc, inv, q0, P.seq_q, P.hd, P.hd, ty, tx);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq,
-                 Problem P, bool vec) {
-  constexpr int S = HD + 4;
-  constexpr int NU = HD / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kTile * S;
-  float* Ks = dOs + kTile * S;
-  float* Vs = Ks + kTile * S;
-  float* dSs = Vs + kTile * S;
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
-  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
-  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
-  const size_t r_off = static_cast<size_t>(n) * P.seq_q;
-  load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
-  load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
-  load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
-  load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
-
-  float4 acc[4][NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  int lo, hi;
-  kv_range(P, q0, kTile, kTile, lo, hi);
-  for (int t = lo; t < hi; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
-    load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(s, Qs, Ks, S, ty, tx);
-    tile_dot<HD>(dp, dOs, Vs, S, ty, tx);
-    probs_tile<false>(s, dp, nullptr, dSs, lse_s, delta_s, P, q0, k0, ty,
-                      tx);
-    __syncthreads();
-    tile_accum<HD>(acc, dSs, Ks, S, ty, tx);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, HD>(dq + q_off, acc, one, q0, P.seq_q, P.hd, P.hd, ty, tx);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, Problem P, bool vec) {
-  constexpr int S = HD + 4;
-  constexpr int NU = HD / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * S;
-  float* Qs = Vs + kTile * S;
-  float* dOs = Qs + kTile * S;
-  float* Ps = dOs + kTile * S;
-  float* dSs = Ps + kTile * kPS;
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
-  const int nk = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
-  load_tile<T, HD>(Ks, S, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
-  load_tile<T, HD>(Vs, S, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
-
-  float4 dk_acc[4][NU], dv_acc[4][NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      dk_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      dv_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  int lo, hi;
-  q_range(P, k0, kTile, kTile, lo, hi);
-  for (int h = 0; h < P.g; ++h) {
-    const int n = nk * P.g + h;
-    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
-    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
-    for (int t = lo; t < hi; ++t) {
-      const int q0 = t * kTile;
-      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_tile<T, HD>(Qs, S, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
-      load_tile<T, HD>(dOs, S, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
-      load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
-      load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
-      __syncthreads();
-      // transposed tiles: rows are keys (ty + 16 i), columns queries
-      float st[4][4], dpt[4][4];
-      tile_dot<HD>(st, Ks, Qs, S, ty, tx);
-      tile_dot<HD>(dpt, Vs, dOs, S, ty, tx);
-      probs_tile<true>(st, dpt, Ps, dSs, lse_s, delta_s, P, q0, k0, ty, tx);
-      __syncthreads();
-      tile_accum<HD>(dv_acc, Ps, dOs, S, ty, tx);
-      tile_accum<HD>(dk_acc, dSs, Qs, S, ty, tx);
-    }
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, HD>(dk + kv_off, dk_acc, one, k0, P.seq_k, P.hd, P.hd, ty,
-                    tx);
-  store_tile<T, HD>(dv + kv_off, dv_acc, one, k0, P.seq_k, P.hd, P.hd, ty,
-                    tx);
-}
-
 // -- head dims above 128: the head dim in chunks of kChunk ------------------
 // One block per (tile, head, output chunk): the scores (Q K^T, and dO V^T
 // for the backward) sum over every chunk of the head dim, staged chunk by
@@ -750,75 +633,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                   : fwd_hd<T, 128>(q, k, v, o, lse, n_q, P, vec, st);
 }
 
-template <typename T, int HD>
-int dq_hd(const void* q, const void* k, const void* v, const void* dout,
-          const void* lse, const void* delta, void* dq, int n_q,
-          const Problem& P, bool vec, cudaStream_t st) {
-  auto kernel = flash_bwd_dq<T, HD>;
-  const size_t smem = smem_dq<HD>();
-  cudaError_t e = vtpu::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((P.seq_q + kTile - 1) / kTile, n_q);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), P, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int n_q, int g,
-              int seq_q, int seq_k, int hd, int causal, int shift,
-              int window, float sm_scale, void* stream) {
-  Problem P;
-  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
-                    sm_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = can_vec<T>(hd, {q, k, v, dout});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 64
-             ? dq_hd<T, 64>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st)
-             : dq_hd<T, 128>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st);
-}
-
-template <typename T, int HD>
-int dkv_hd(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dk, void* dv, int n_kv,
-           const Problem& P, bool vec, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv<T, HD>;
-  const size_t smem = smem_dkv<HD>();
-  cudaError_t e = vtpu::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((P.seq_k + kTile - 1) / kTile, n_kv);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), P, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta,
-               void* dk, void* dv, int n_q, int g, int seq_q, int seq_k,
-               int hd, int causal, int shift, int window, float sm_scale,
-               void* stream) {
-  Problem P;
-  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
-                    sm_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = can_vec<T>(hd, {q, k, v, dout});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_kv = n_q / g;
-  return hd <= 64 ? dkv_hd<T, 64>(q, k, v, dout, lse, delta, dk, dv, n_kv,
-                                  P, vec, st)
-                  : dkv_hd<T, 128>(q, k, v, dout, lse, delta, dk, dv, n_kv,
-                                   P, vec, st);
-}
-
 // The chunked kernels, for 128 < hd <= kMaxWideHd: one launch each, grid
 // (tiles, heads, output chunks), the hd 128 kernels' shared memory.
 template <typename T>
@@ -924,8 +738,6 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
   }
 
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, launch_fwd<float>)
-VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_f32, launch_dq<float>)
-VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_f32, launch_dkv<float>)
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, launch_fwd_wide<float>)
 VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_f32, launch_dq_wide<float>)
 VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_f32, launch_dkv_wide<float>)

@@ -1,0 +1,758 @@
+// Flash attention's f32 backward on Hopper's tensor cores (sm_90a), as
+// error-compensated 3xTF32: dq, and dk with dv, at hd <= 128.  The
+// entries and the Pallas TPU kernels of vtpu/ops/attention.py they
+// replace:
+//
+//   vtpu_flash_bwd_dq_f32    flash_dq_tf32x3<64|128>
+//                            <- _attn_bwd_dq_kernel (pallas_call at :441,
+//                            reached from _flash_bwd_2d)
+//   vtpu_flash_bwd_dkv_f32   flash_dkv_tf32x3<64|128>
+//                            <- _attn_bwd_dkv_kernel (pallas_call at :459,
+//                            reached from _flash_bwd_2d)
+//
+// They compute what flash_bwd_dq_reference and flash_bwd_dkv_reference
+// in ops/attention.py compute: p = exp(s * sm_scale - lse) with p = 0 on
+// every masked entry (so a row whose lse is ~-1e30, the first row under
+// shift = -1, gives no gradient), dS = p (dP - delta) sm_scale, dq = dS K,
+// dk = dS^T Q and dv = P^T dO, with query head n reading kv head n / g
+// and the causal, shift and window bounds of flash_common.cuh.  Layouts
+// are flash_attention.cu's: q, do, dq [N, seq_q, hd]; k, v, dk, dv
+// [N / g, seq_k, hd]; lse, delta [N, seq_q] f32.  Every length and every
+// hd <= 128 runs here: tiles past seq_q, seq_k or hd are zero-filled on
+// the way in and never written.
+//
+// Why 3xTF32.  One TF32 product keeps 11 bits of each operand, about
+// 5e-4 relative error a product, and the f32 checks (dq, dk, dv within
+// 1e-4 of their largest value; a train step's gradients within 1e-4)
+// would fail.  So each operand x is split as hi + lo (split() below: hi
+// rounded to TF32 as cvt.rna.tf32.f32 rounds, lo = x - hi read by the
+// tensor core as TF32 rounded toward zero; hi + lo misses x by less than
+// 2^-21 |x|), and a product takes three m16n8k8 TF32 mma.sync into one
+// f32 accumulator, the two small ones first: a_lo b_hi, a_hi b_lo,
+// a_hi b_hi.  What is dropped (a_lo b_lo, lo's rounding) is about 2^-20
+// of a product.
+//
+// What bounds them on an H100: operations.  dq does 6 * hd flops per kept
+// (query, key) pair (Q K^T, dO V^T, dS K), dk/dv 8 * hd (Q K^T, dO V^T,
+// P^T dO, dS^T Q).  Causal at b 2, H 32, kv 8, s 4096, hd 128 that is
+// 4.124e11 and 5.499e11 flops.  Three TF32 products at the 495 TFLOP/s
+// TF32 peak do 165 TFLOP/s of f32 work: 2.4995 and 3.3327 ms, against
+// 6.1555 and 8.2073 ms at the 67 TFLOP/s of the CUDA cores; the bytes
+// (q, k, v, do, lse, delta once, dq or dk and dv once) take ~0.1 ms at
+// 3.35 TB/s.  mma.sync reaches about half that peak on this card, and
+// three of them a product leave few issue slots for anything else, so
+// the design keeps the instructions beside each mma few:
+//
+//  - The split is three integer and float instructions (cvt.rna itself
+//    compiles to four), and no element is split twice where several
+//    warps read it: a tile that every warp of a block reads as the B of
+//    its products (K and V for dq; Q and dO for dk/dv) is split once, by
+//    the whole block, into hi and lo planes in shared memory, and its
+//    fragments load from there.  What only one warp reads as an A (its
+//    own rows of Q and dO for dq, its own keys of K or V for dk/dv) stays
+//    f32 and is split at fragment load, in registers.
+//  - No ldmatrix: its .trans moves 16-bit halves and cannot transpose
+//    32-bit values, so fragments load by 32-bit shared loads.  The planes'
+//    rows are padded by 4 floats (stride hd + 4, 4 mod 32 banks), which
+//    keeps both read patterns free of bank conflicts: along a stored row
+//    (thread (g, t) reads row g, column t) and across stored rows (rows 2t
+//    and 2t + 1, column g: K in dS K, dO in P^T dO, Q in dS^T Q).  The A
+//    tiles are not padded (shared memory is full) but swizzled: column c
+//    of row r lies at c ^ 4 (r % 8), which spreads 8 rows over the banks.
+//  - P and dS go from the accumulators straight into A fragments.  An
+//    m16n8 accumulator holds columns (2t, 2t + 1) and a k8 TF32 A fragment
+//    columns (t, t + 4), so the k index of the next product is paired: k t
+//    is column 2t and k t + 4 column 2t + 1 of the 8-column tile, which
+//    makes the A fragment {c0, c2, c1, c3} of the accumulator, and the B
+//    fragment reads rows 2t and 2t + 1 (above).  No shuffle.
+//  - dq: one block of 8 warps per (128-row q tile, query head), 16 rows a
+//    warp; Q and dO resident; 32-key K/V tiles land as f32 by cp.async
+//    while the tile before is multiplied, and are split into the planes
+//    between two barriers (K; V's split for the next tile runs beside
+//    dS K, which reads only K); dq (hd / 2 f32 a thread) summed in
+//    registers and written once by the block that owns the rows.  Shared
+//    memory: 231,424 bytes at hd 128.
+//  - dk/dv: one block of 12 warps per (96-key tile, kv head), K and V
+//    resident, 6 pairs of warps with 16 keys each: the first warp of a
+//    pair computes S^T = K Q^T and P^T and sums dV = P^T dO, the second
+//    dP^T = V dO^T, takes P^T from the first through shared memory (a
+//    named barrier of the pair's 64 threads), forms dS^T and sums
+//    dK = dS^T Q.  So a warp holds one output (hd / 2 f32 a thread) and
+//    does one of each kind of product, and 12 warps fit the register
+//    file.  The block walks the g query heads of its group and their
+//    32-row q tiles; each tile's Q, dO, lse and delta land by cp.async
+//    while the tile before is multiplied.  The tensor core truncates its
+//    f32 sums, so a long chain of mma.sync into one accumulator drifts
+//    toward zero (past the 1e-4 limit for dk and dv at the shape above):
+//    a warp sums kFlush steps, adds them to its output rows in
+//    f32 and starts again from zero.  A warp owns its output rows, so no
+//    atomics: two calls give the same bits.  Shared memory: 211,456
+//    bytes at hd 128.
+//  - Fully masked tiles are skipped with the reference's bounds
+//    (kv_range, q_range), keep() runs only on tiles that straddle the
+//    diagonal, the window edge or a ragged end, and the heavy tiles of a
+//    causal grid (the last q tiles for dq, the first k tiles for dk/dv)
+//    are launched first.  Where hd % 4 != 0 or a pointer is not 16-byte
+//    aligned, the tiles are staged by plain loads instead of cp.async.
+
+#include <initializer_list>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using vtpu::cp_async16;
+using vtpu::cp_async4;
+using vtpu::cp_commit;
+using vtpu::cp_wait;
+using vtpu::smem_u32;
+using vtpu::flash::all_kept;
+using vtpu::flash::keep;
+using vtpu::flash::kv_range;
+using vtpu::flash::make_problem;
+using vtpu::flash::Problem;
+using vtpu::flash::q_range;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDqThreads = 256;   // dq: 8 warps
+constexpr int kDqM = 128;         // dq: query rows a block, 16 a warp
+constexpr int kDqN = 32;          // dq: keys a K/V tile
+constexpr int kDkvThreads = 384;  // dk/dv: 6 pairs of warps
+constexpr int kDkvN = 96;         // dk/dv: keys a block, 16 a pair
+constexpr int kDkvQ = 32;         // dk/dv: query rows a Q/dO tile
+constexpr int kPad = 4;           // floats of padding a row of a plane
+constexpr int kFlush = 32;        // dk/dv: steps a warp sums before a flush
+
+// -- 3xTF32 ------------------------------------------------------------------
+// x as hi + lo.  hi is x rounded to TF32 to nearest, ties away from zero
+// (cvt.rna.tf32.f32's rounding, as integer arithmetic: half a TF32 ulp
+// added to the magnitude's bits, which carries into the exponent where it
+// must, and the 13 low bits cleared; cvt.rna itself compiles to four
+// instructions on sm_90a).  lo = x - hi is exact in f32 and goes to the
+// tensor core as it is: the mma reads its top 19 bits, so lo is rounded
+// toward zero to TF32 there.  hi + lo misses x by less than 2^-21 |x|.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x to 2^-22 of the result (flushing a result below 2^-126 to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// c += a (16 x 8, row-major) * b (8 x 8, col-major): TF32, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b to about 2^-20 of each product: the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(c, al, bh[0], bh[1]);
+  mma(c, ah, bl[0], bl[1]);
+  mma(c, ah, bh[0], bh[1]);
+}
+
+// -- fragments (thread (g, t) = (lane / 4, lane % 4)) ------------------------
+// A of rows [r, r + 16) (r % 8 == 0), columns [c, c + 8) of a swizzled
+// tile (below): (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), split in
+// registers
+template <int HD>
+__device__ __forceinline__ void load_a(const float* X, int r, int c, int g,
+                                       int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float* p = X + (r + g) * HD;
+  const int c0 = (c + t) ^ (g << 2), c1 = (c + t + 4) ^ (g << 2);
+  split(p[c0], hi[0], lo[0]);
+  split(p[8 * HD + c0], hi[1], lo[1]);
+  split(p[c1], hi[2], lo[2]);
+  split(p[8 * HD + c1], hi[3], lo[3]);
+}
+
+// B of X Y^T from Y's hi and lo planes (row stride S): rows [n, n + 8) of
+// Y as its columns, Y's columns [c, c + 8) as k: (k t, n g) =
+// Y[n + g][c + t], (t + 4, g) = Y[n + g][c + t + 4]
+template <int S>
+__device__ __forceinline__ void load_bt(const float* H, const float* L,
+                                        int n, int c, int g, int t,
+                                        uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  const int at = (n + g) * S + c + t;
+  hi[0] = __float_as_uint(H[at]);
+  hi[1] = __float_as_uint(H[at + 4]);
+  lo[0] = __float_as_uint(L[at]);
+  lo[1] = __float_as_uint(L[at + 4]);
+}
+
+// B of X Y from Y's planes with the k index paired (to meet acc_as_a):
+// rows [r, r + 8) of Y as k, its columns [c, c + 8) as n: (k t, n g) =
+// Y[r + 2t][c + g], (t + 4, g) = Y[r + 2t + 1][c + g]
+template <int S>
+__device__ __forceinline__ void load_b_paired(const float* H, const float* L,
+                                              int r, int c, int g, int t,
+                                              uint32_t (&hi)[2],
+                                              uint32_t (&lo)[2]) {
+  const int at = (r + 2 * t) * S + c + g;
+  hi[0] = __float_as_uint(H[at]);
+  hi[1] = __float_as_uint(H[at + S]);
+  lo[0] = __float_as_uint(L[at]);
+  lo[1] = __float_as_uint(L[at + S]);
+}
+
+// An m16n8 accumulator (rows g, g + 8; columns 2t, 2t + 1) as the A of
+// the next product, k paired: k t is column 2t, k t + 4 column 2t + 1
+__device__ __forceinline__ void acc_as_a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// -- staging -----------------------------------------------------------------
+// Rows [row0, row0 + ROWS) and columns [0, w) of a [rows, ld] matrix as
+// ROWS rows of HD floats, zero past `rows` and past w.  SWZ: element
+// (r, c) at column c ^ 4 (r % 8), so that the A fragments of 8 rows fall
+// on distinct banks without padding; else row-major.  vec: 16-byte
+// cp.async copies (w, ld multiples of 4, src 16-byte aligned); else plain
+// loads.
+template <int ROWS, int HD, bool SWZ, int NT>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                      int row0, int rows, int ld, int w,
+                                      bool vec) {
+  if (vec) {
+    constexpr int CH = HD / 4;  // 16-byte chunks a row
+    constexpr int N = ROWS * CH;
+#pragma unroll
+    for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+      const int i = threadIdx.x + it * NT;
+      if (N % NT != 0 && i >= N) break;
+      const int r = i / CH, c = (i % CH) * 4;
+      const int row = row0 + r;
+      const bool ok = row < rows && c < w;
+      cp_async16(smem_u32(dst + r * HD + (SWZ ? c ^ ((r & 7) << 2) : c)),
+                 ok ? src + static_cast<size_t>(row) * ld + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HD; i += NT) {
+      const int r = i / HD, c = i % HD;
+      const int row = row0 + r;
+      dst[r * HD + (SWZ ? c ^ ((r & 7) << 2) : c)] =
+          row < rows && c < w ? src[static_cast<size_t>(row) * ld + c] : 0.f;
+    }
+  }
+}
+
+// The hi and lo planes (row stride HD + kPad) of a staged row-major
+// [ROWS, HD] tile, split once for every warp that reads them
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void split_plane(const float* a, float* ah,
+                                            float* al) {
+  constexpr int S = HD + kPad;
+  constexpr int CH = HD / 4;
+  constexpr int N = ROWS * CH;
+#pragma unroll
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int k = threadIdx.x + it * NT;
+    if (N % NT != 0 && k >= N) break;
+    const int r = k / CH, c = (k % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(a + r * HD + c);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(ah + r * S + c) = h;
+    *reinterpret_cast<uint4*>(al + r * S + c) = l;
+  }
+}
+
+// lse and delta of rows [row0, row0 + kDkvQ) into dst[0..Q) and
+// dst[Q..2Q), zero past `rows`
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           int row0, int rows) {
+  for (int i = threadIdx.x; i < 2 * kDkvQ; i += kDkvThreads) {
+    const float* src = i < kDkvQ ? lse : delta;
+    const int row = row0 + i % kDkvQ;
+    const bool ok = row < rows;
+    cp_async4(smem_u32(dst + i), ok ? src + row : src, ok);
+  }
+}
+
+// (a, b) into columns col, col + 1 of row `row` of a [rows, hd] f32
+// matrix, dropping what lies outside it
+__device__ __forceinline__ void store_pair(float* __restrict__ dst, int row,
+                                           int col, float a, float b,
+                                           int rows, int hd) {
+  if (row >= rows || col >= hd) return;
+  float* p = dst + static_cast<size_t>(row) * hd + col;
+  if (hd % 2 == 0) {  // col is even, so col + 1 < hd and p is 8-aligned
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    if (col + 1 < hd) p[1] = b;
+  }
+}
+
+// Rows r and r + 8 of a matrix with rows `ld` apart (dst points at a
+// column of its first row), columns 8c + 2t and 8c + 2t + 1 for every c,
+// += a (or = a where `first`), dropping rows past `rows` and columns past
+// w; a row's loads go out together, before its stores
+template <int KT>
+__device__ __forceinline__ void add_rows(float* __restrict__ dst,
+                                         const float (&a)[KT][4], int r,
+                                         int t, int rows, int w, int ld,
+                                         bool first) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= rows) continue;
+    float* p = dst + static_cast<size_t>(row) * ld + 2 * t;
+    if (ld % 2 == 0) {  // every column pair is 8-aligned and whole
+#pragma unroll
+      for (int c0 = 0; c0 < KT; c0 += 8) {  // 8 loads in flight
+        float2 o[8];
+#pragma unroll
+        for (int c = c0; c < c0 + 8 && c < KT; ++c)
+          o[c - c0] = first || 8 * c + 2 * t >= w
+                          ? make_float2(0.f, 0.f)
+                          : *reinterpret_cast<const float2*>(p + 8 * c);
+#pragma unroll
+        for (int c = c0; c < c0 + 8 && c < KT; ++c)
+          if (8 * c + 2 * t < w)
+            *reinterpret_cast<float2*>(p + 8 * c) = make_float2(
+                o[c - c0].x + a[c][2 * h], o[c - c0].y + a[c][2 * h + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * c + 2 * t + e < w)
+            p[8 * c + e] = (first ? 0.f : p[8 * c + e]) + a[c][2 * h + e];
+    }
+  }
+}
+
+// -- dq ----------------------------------------------------------------------
+template <int HD>
+constexpr size_t dq_smem() {  // Q, dO; K, V planes; the raw K, V tile
+  return sizeof(float) *
+         (2 * kDqM * HD + 4 * kDqN * (HD + kPad) + 2 * kDqN * HD);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    Problem P, int n_q, bool vec) {
+  constexpr int S = HD + kPad;
+  constexpr int KT = HD / 8;    // k-steps of Q K^T, dO V^T; tiles of dq
+  constexpr int JT = kDqN / 8;  // 8-key tiles of S and dP; k-steps of dS K
+  extern __shared__ float4 smem_t3[];
+  float* Qs = reinterpret_cast<float*>(smem_t3);  // swizzled
+  float* dOs = Qs + kDqM * HD;                    // swizzled
+  float* Kh = dOs + kDqM * HD;                    // planes, stride S
+  float* Kl = Kh + kDqN * S;
+  float* Vh = Kl + kDqN * S;
+  float* Vl = Vh + kDqN * S;
+  float* Kr = Vl + kDqN * S;                      // the raw tile, row-major
+  float* Vr = Kr + kDqN * HD;
+
+  // heavy first: under causal masking the last q tiles see the most keys
+  const int tiles = (P.seq_q + kDqM - 1) / kDqM;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * kDqM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;      // the warp's 16 rows of the tile
+  const int r0 = q0 + wr + g;    // this thread's rows r0, r0 + 8
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, kDqM, kDqN, lo, hi);
+  // the raw K/V tile tt (nothing past hi)
+  constexpr int NT = kDqThreads;
+  auto stage_kv = [&](int tt) {
+    if (tt >= hi) return;
+    stage<kDqN, HD, false, NT>(Kr, kb, tt * kDqN, P.seq_k, P.hd, P.hd, vec);
+    stage<kDqN, HD, false, NT>(Vr, vb, tt * kDqN, P.seq_k, P.hd, P.hd, vec);
+  };
+  stage<kDqM, HD, true, NT>(Qs, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  stage<kDqM, HD, true, NT>(dOs, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  stage_kv(lo);
+  cp_commit();
+
+  float ls[2], dl[2];  // lse (in log2 units) and delta of rows r0, r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t i = static_cast<size_t>(n) * P.seq_q + row;
+    ls[h] = row < P.seq_q ? lse[i] * kLog2e : 0.f;
+    dl[h] = row < P.seq_q ? delta[i] : 0.f;
+  }
+  const float sc = P.sm_scale * kLog2e;
+  float acc[KT][4];
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int tt = lo; tt < hi; ++tt) {
+    cp_wait<0>();
+    // the raw tile tt has landed, and every warp is done with the K planes
+    // of tile tt - 1 (tile tt's V planes were split halfway through it)
+    __syncthreads();
+    split_plane<kDqN, HD, NT>(Kr, Kh, Kl);
+    if (tt == lo) split_plane<kDqN, HD, NT>(Vr, Vh, Vl);
+    // the planes of tt are visible, and the raw tile is free again
+    __syncthreads();
+    stage_kv(tt + 1);  // lands while tile tt is multiplied
+    cp_commit();
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows x kDqN keys
+    float s[JT][4], dp[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ah[4], al[4], bh[2], bl[2];
+      load_a<HD>(Qs, wr, 8 * kk, g, t, ah, al);
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        load_bt<S>(Kh, Kl, 8 * j, 8 * kk, g, t, bh, bl);
+        mma3(s[j], ah, al, bh, bl);
+      }
+      load_a<HD>(dOs, wr, 8 * kk, g, t, ah, al);
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        load_bt<S>(Vh, Vl, 8 * j, 8 * kk, g, t, bh, bl);
+        mma3(dp[j], ah, al, bh, bl);
+      }
+    }
+
+    // P = exp(S sm_scale - lse), 0 where masked (after the exp, which
+    // overflows where lse is ~-1e30); dS = P (dP - delta) sm_scale
+    const int k0 = tt * kDqN;
+    const bool full = all_kept(P, q0 + wr, 16, k0, kDqN);
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        float p = ex2(fmaf(s[j][e], sc, -ls[h]));
+        if (!full && !keep(P, r0 + 8 * h, k0 + 8 * j + 2 * t + e % 2))
+          p = 0.f;
+        dp[j][e] = p * (dp[j][e] - dl[h]) * P.sm_scale;
+      }
+
+    // every warp is done with the V planes: tile tt + 1's are split now,
+    // beside dS K, which reads only the K planes
+    cp_wait<0>();
+    __syncthreads();
+    if (tt + 1 < hi) split_plane<kDqN, HD, NT>(Vr, Vh, Vl);
+
+    // dq += dS K: dS from the accumulators, K read across its rows
+#pragma unroll
+    for (int j = 0; j < JT; ++j) {
+      uint32_t ah[4], al[4];
+      acc_as_a(dp[j], ah, al);
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        uint32_t bh[2], bl[2];
+        load_b_paired<S>(Kh, Kl, 8 * j, 8 * c, g, t, bh, bl);
+        mma3(acc[c], ah, al, bh, bl);
+      }
+    }
+  }
+  cp_wait<0>();  // with no K/V tile, Q and dO may still be in flight
+
+  // one block owns its rows: dq is written once, no atomics
+  float* out = dq + q_off;
+#pragma unroll
+  for (int c = 0; c < KT; ++c) {
+    store_pair(out, r0, 8 * c + 2 * t, acc[c][0], acc[c][1], P.seq_q, P.hd);
+    store_pair(out, r0 + 8, 8 * c + 2 * t, acc[c][2], acc[c][3], P.seq_q,
+               P.hd);
+  }
+}
+
+// -- dk / dv -----------------------------------------------------------------
+template <int HD>
+constexpr size_t dkv_smem() {  // K, V; Q, dO planes; the raw Q, dO tile;
+                               // raw and current lse, delta; P^T's hand-on
+  return sizeof(float) *
+         (2 * kDkvN * HD + 4 * kDkvQ * (HD + kPad) + 2 * kDkvQ * HD +
+          4 * kDkvQ + kDkvThreads / 2 * 4 * (kDkvQ / 8));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, Problem P, int n_kv, bool vec) {
+  constexpr int S = HD + kPad;
+  constexpr int KT = HD / 8;     // k-steps of K Q^T, V dO^T; dk, dv tiles
+  constexpr int JT = kDkvQ / 8;  // 8-row tiles of S^T; k-steps of P^T dO
+  constexpr int NT = kDkvThreads;
+  extern __shared__ float4 smem_t3[];
+  float* Ks = reinterpret_cast<float*>(smem_t3);  // swizzled
+  float* Vs = Ks + kDkvN * HD;                    // swizzled
+  float* Qh = Vs + kDkvN * HD;                    // planes, stride S
+  float* Ql = Qh + kDkvQ * S;
+  float* dOh = Ql + kDkvQ * S;
+  float* dOl = dOh + kDkvQ * S;
+  float* Qr = dOl + kDkvQ * S;                    // the raw tile, row-major
+  float* dOr = Qr + kDkvQ * HD;
+  float* Rr = dOr + kDkvQ * HD;                   // its lse, delta
+  float* Rs = Rr + 2 * kDkvQ;                     // lse (log2 units), delta
+  float4* Ps = reinterpret_cast<float4*>(Rs + 2 * kDkvQ);  // P^T, a pair
+
+  // heavy first: under causal masking the first keys see the most rows
+  const int rank = blockIdx.x / n_kv, nk = blockIdx.x % n_kv;
+  const int k0 = rank * kDkvN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // a pair of warps shares 16 keys: the first computes S^T and P^T and
+  // sums dV, the second dP^T and dS^T (from the first's P^T) and sums dK
+  const int pair = warp / 2;
+  const bool second = warp % 2;
+  const int kw = pair * 16;        // the pair's 16 keys of the block
+  const int kr = k0 + kw + g;      // this thread's keys kr, kr + 8
+  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
+  stage<kDkvN, HD, true, NT>(Ks, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+  stage<kDkvN, HD, true, NT>(Vs, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+  // the first warp: K, Q^T, dO; the second: V, dO^T, Q
+  const float* As = second ? Vs : Ks;
+  const float* Bh = second ? dOh : Qh;
+  const float* Bl = second ? dOl : Ql;
+  const float* Ch = second ? Qh : dOh;
+  const float* Cl = second ? Ql : dOl;
+  float* out = (second ? dk : dv) + kv_off;
+
+  int lo, hi;
+  q_range(P, k0, kDkvN, kDkvQ, lo, hi);
+  const int nt = max(hi - lo, 0), iters = P.g * nt;
+  // the raw step i (query head nk * g + i / nt, q tile lo + i % nt): Q,
+  // dO, lse, delta (nothing past the last step)
+  auto stage_q = [&](int i) {
+    if (i >= iters) return;
+    const int n = nk * P.g + i / nt;
+    const int q0 = (lo + i % nt) * kDkvQ;
+    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+    stage<kDkvQ, HD, false, NT>(Qr, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+    stage<kDkvQ, HD, false, NT>(dOr, dout + q_off, q0, P.seq_q, P.hd, P.hd,
+                                vec);
+    stage_rows(Rr, lse + r_off, delta + r_off, q0, P.seq_q);
+  };
+  stage_q(0);
+  cp_commit();
+
+  const float sc = P.sm_scale * kLog2e;
+  float acc[KT][4];  // dV (first warp) or dK (second)
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // A long chain of mma.sync sums loses bits toward zero (the tensor core
+  // truncates its f32 sums), so a warp sums at most kFlush steps in its
+  // registers, then adds them to dv or dk in f32 and starts again from
+  // zero.  The warp owns its keys' rows of its output: no other thread
+  // writes them (no atomics), and the first period stores.
+  for (int i0 = 0; i0 < max(iters, 1); i0 += kFlush) {
+    for (int i = i0; i < min(i0 + kFlush, iters); ++i) {
+      cp_wait<0>();
+      // the raw step i has landed, and every warp is done with the planes
+      // and the hand-on of step i - 1
+      __syncthreads();
+      split_plane<kDkvQ, HD, NT>(Qr, Qh, Ql);
+      split_plane<kDkvQ, HD, NT>(dOr, dOh, dOl);
+      if (threadIdx.x < 2 * kDkvQ)
+        Rs[threadIdx.x] = threadIdx.x < kDkvQ ? Rr[threadIdx.x] * kLog2e
+                                              : Rr[threadIdx.x];
+      // the planes of step i are visible, and the raw step is free again
+      __syncthreads();
+      stage_q(i + 1);  // lands while step i is multiplied
+      cp_commit();
+      const int q0 = (lo + i % nt) * kDkvQ;
+
+      // S^T = K Q^T (first warp) or dP^T = V dO^T (second): the pair's
+      // 16 keys x kDkvQ rows
+      float s[JT][4];
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<HD>(As, kw, 8 * kk, g, t, ah, al);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          load_bt<S>(Bh, Bl, 8 * j, 8 * kk, g, t, bh, bl);
+          mma3(s[j], ah, al, bh, bl);
+        }
+      }
+
+      // P^T = exp(S^T sm_scale - lse), 0 where masked (rows are keys,
+      // columns queries), handed on to the second warp, which forms
+      // dS^T = P^T (dP^T - delta) sm_scale
+      const int bar = 1 + pair;  // a named barrier of the pair's 64 threads
+      if (!second) {
+        const bool full = all_kept(P, q0, kDkvQ, k0 + kw, 16);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + e % 2;  // query row of the tile
+            float p = ex2(fmaf(s[j][e], sc, -Rs[c]));
+            if (!full && !keep(P, q0 + c, kr + 8 * (e / 2))) p = 0.f;
+            s[j][e] = p;
+          }
+          Ps[(pair * JT + j) * 32 + lane] =
+              make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+        }
+        asm volatile("bar.arrive %0, 64;\n" ::"r"(bar) : "memory");
+      } else {
+        asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          const float4 p = Ps[(pair * JT + j) * 32 + lane];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + e % 2;
+            s[j][e] = pv[e] * (s[j][e] - Rs[kDkvQ + c]) * P.sm_scale;
+          }
+        }
+      }
+
+      // dV += P^T dO (first warp) or dK += dS^T Q (second): P^T or dS^T
+      // from the accumulators, dO or Q read across their rows
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_as_a(s[j], ah, al);
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          uint32_t bh[2], bl[2];
+          load_b_paired<S>(Ch, Cl, 8 * j, 8 * c, g, t, bh, bl);
+          mma3(acc[c], ah, al, bh, bl);
+        }
+      }
+    }
+    add_rows<KT>(out, acc, kr, t, P.seq_k, P.hd, P.hd, i0 == 0);
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  }
+  cp_wait<0>();  // with no step, K and V may still be in flight
+}
+
+// -- launchers ---------------------------------------------------------------
+bool can_vec(int hd, std::initializer_list<const void*> ptrs) {
+  if (hd % 4 != 0) return false;
+  for (const void* p : ptrs)
+    if (!vtpu::aligned16(p)) return false;
+  return true;
+}
+
+template <int HD>
+int dq_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int n_q,
+              const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_dq_tf32x3<HD>;
+  const size_t smem = dq_smem<HD>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (P.seq_q + kDqM - 1) / kDqM;
+  kernel<<<tiles * n_q, kDqThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int n_kv, const Problem& P, bool vec, cudaStream_t st) {
+  auto kernel = flash_dkv_tf32x3<HD>;
+  const size_t smem = dkv_smem<HD>();
+  cudaError_t e = vtpu::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (P.seq_k + kDkvN - 1) / kDkvN;
+  kernel<<<tiles * n_kv, kDkvThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), P, n_kv, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int vtpu_flash_bwd_dq_f32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int n_q, int g, int seq_q,
+                                     int seq_k, int hd, int causal,
+                                     int shift, int window, float sm_scale,
+                                     void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64
+             ? dq_tf32x3<64>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st)
+             : dq_tf32x3<128>(q, k, v, dout, lse, delta, dq, n_q, P, vec, st);
+}
+
+extern "C" int vtpu_flash_bwd_dkv_f32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int n_q, int g,
+                                      int seq_q, int seq_k, int hd,
+                                      int causal, int shift, int window,
+                                      float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_kv = n_q / g;
+  return hd <= 64 ? dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, n_kv,
+                                   P, vec, st)
+                  : dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, n_kv,
+                                    P, vec, st);
+}

@@ -1,5 +1,5 @@
 // Shared by the flash-attention sources (flash_attention.cu,
-// flash_attention_sm90.cu): the problem description, the reference's
+// flash_attention_sm90.cu, flash_attention_tf32x3.cu): the problem description, the reference's
 // keep rule, and the tile bounds that skip fully masked tiles.
 #pragma once
 

@@ -1,7 +1,9 @@
 """Flash attention: the wrappers of the flash kernels (forward, dq,
 dk/dv; bf16 -> bf16 and the bf16 -> f32-out forward on the tensor cores
-in ``csrc/flash_attention_sm90.cu``, f32 in ``csrc/flash_attention.cu``),
-the autograd functions built on them, and their plain PyTorch versions.
+in ``csrc/flash_attention_sm90.cu``; the f32 backward on the tensor cores
+as 3xTF32 in ``csrc/flash_attention_tf32x3.cu``; the f32 forward in
+``csrc/flash_attention.cu``), the autograd functions built on them, and
+their plain PyTorch versions.
 
 The wrappers pick the kernel by head dim, before any launch: up to
 ``MAX_TILED_HD`` (128) the kernels above; up to ``MAX_HD`` (512) the
