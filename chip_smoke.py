@@ -20,7 +20,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    wide backward's (``flash_dq_split_tc<256>``, ``flash_dkv_split_tc<256>``
    up to hd 256, ``flash_dq_wide_tc<512>``, ``flash_dkv_wide_tc<512>``
    above) and the f32 backward's 3xTF32 ones (``flash_dq_tf32x3<64|128>``,
-   ``flash_dkv_tf32x3<64|128>``) must be there;
+   ``flash_dkv_tf32x3<64|128>`` up to hd 128,
+   ``flash_dq_split_tf32x3<256|512>``, ``flash_dkv_split_tf32x3<256|512>``
+   above) must be there;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (the paged kernels at the kernel
    phase's lengths and at the serve phase's): max abs error against the stated
@@ -64,7 +66,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bf16 flash kernels at a full-width hd 256 shape (b 2, 16 heads, 4 kv
    heads, s 4096, causal; ``shape: "wide_full"``), timed beside SDPA and
    beside the CUDA-core wide kernels' times (``earlier_ms``), and the f32
-   entries there (still the CUDA-core chunked kernels) beside SDPA; then one
+   entries there (the forward on the CUDA cores, dq and dk/dv as 3xTF32)
+   beside SDPA and, for dq and dk/dv, the CUDA-core times they replaced
+   (``earlier_ms``); then one
    small row per head dim or group that only the chunked and head-grouped
    kernels take (``shape: "wide_heads"``: paged at g 8 / hd 256, g 4 /
    hd 512, g 1 / hd 512, g 32 / hd 128; flash at hd 192, 256, 512);
@@ -79,7 +83,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (``arm: "f32"``: the training widths in f32, as the reference model
    ships, depth 2, 2 steps, then a profiled step, ``window:
    "train_step_f32"``), whose dq and dk/dv go through the 3xTF32 kernels
-   once a layer a step;
+   once a layer a step; and an f32 hd 256 arm (``arm: "f32_wide"``: the
+   hd 256 arm's widths in f32, depth 2, 2 steps, then a profiled step,
+   ``window: "train_step_f32_wide"``), whose dq and dk/dv go through the
+   wide 3xTF32 kernels once a layer a step;
 7. training exactness: depth 2, b 1 x s 1024, at hd 128 and at hd 256
    (16 heads, 4 kv heads), the kernel path against
    clone(flash_kernel="off", ln_kernel="off"); in f32 the loss within
@@ -377,7 +384,8 @@ TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc",
                        "flash_dq_split_tc", "flash_dkv_split_tc",
                        "flash_dq_wide_tc", "flash_dkv_wide_tc",
                        "flash_fwd_split_tc", "flash_fwd_wide_tc",
-                       "flash_dq_tf32x3", "flash_dkv_tf32x3")
+                       "flash_dq_tf32x3", "flash_dkv_tf32x3",
+                       "flash_dq_split_tf32x3", "flash_dkv_split_tf32x3")
 # the f32-out forward's instances (hd <= 64 and <= 128), the bf16 wide
 # backward's and the bf16 and f32-out wide forward's (split over warps up
 # to hd 256, chunked over blocks above)
@@ -388,9 +396,15 @@ WIDE_FWD_INSTANCES = ("flash_fwd_split_tc<256,bf16>",
                       "flash_fwd_split_tc<256,f32>",
                       "flash_fwd_wide_tc<512,bf16>",
                       "flash_fwd_wide_tc<512,f32>")
-# the f32 backward's 3xTF32 instances (hd <= 64 and <= 128)
+# the f32 backward's 3xTF32 instances (hd <= 64 and <= 128), and above
+# hd 128 (the output columns split over a block's warps; <256> up to hd
+# 256, <512> above)
 F32_BWD_INSTANCES = ("flash_dq_tf32x3<64>", "flash_dq_tf32x3<128>",
                      "flash_dkv_tf32x3<64>", "flash_dkv_tf32x3<128>")
+F32_WIDE_BWD_INSTANCES = ("flash_dq_split_tf32x3<256>",
+                          "flash_dq_split_tf32x3<512>",
+                          "flash_dkv_split_tf32x3<256>",
+                          "flash_dkv_split_tf32x3<512>")
 PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
@@ -461,10 +475,11 @@ def build_failures(report: dict) -> list:
     tensor-core kernels must hold tensor-core instructions, and the
     forward's f32-out instances, every instance of the bf16 wide
     backward and of the wide forward, and the f32 backward's 3xTF32
-    instances must be among them."""
+    instances (hd <= 128 and above) must be among them."""
     bad = [f"{name}: not in the library"
            for name in F32OUT_INSTANCES + WIDE_BWD_INSTANCES
-           + WIDE_FWD_INSTANCES + F32_BWD_INSTANCES if name not in report]
+           + WIDE_FWD_INSTANCES + F32_BWD_INSTANCES + F32_WIDE_BWD_INSTANCES
+           if name not in report]
     for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
         if not rows:
@@ -876,30 +891,38 @@ WIDE_FULL_EARLIER_MS = {"flash_forward": 16.6446, "flash_bwd_dq": 27.8840,
 # cores as 3xTF32 (PERF.md kernel table, rows 5-6: the parent's first
 # turn of hack/f32_turns.py)
 F32_BWD_EARLIER_MS = {"flash_bwd_dq": 14.5187, "flash_bwd_dkv": 19.3596}
+# the f32 dq and dk/dv times at WIDE_FULL on the CUDA cores
+# (flash_bwd_dq_wide<float>, flash_bwd_dkv_wide<float> of
+# flash_attention.cu), before each moved to the tensor cores as 3xTF32
+# (PERF.md kernel table, rows 5-6)
+F32_WIDE_FULL_EARLIER_MS = {"flash_bwd_dq": 27.8189, "flash_bwd_dkv": 35.9563}
 
 
 def flash_wide_full_row(gen, card: str) -> dict:
     """The bf16 forward, dq and dk/dv at WIDE_FULL, causal: errors against
     the plain versions (two bf16 ulps), times beside SDPA's, the bound and
     the CUDA-core times they replaced; then the bf16 -> f32-out forward
-    there (2e-5); then the f32 entries there, which stay on the CUDA
-    cores above hd 128 (``flash_fwd_wide``, ``flash_bwd_dq_wide``,
-    ``flash_bwd_dkv_wide``), beside SDPA in f32 and both bounds."""
+    there (2e-5); then the f32 entries there (the forward on the CUDA
+    cores, ``flash_fwd_wide``; dq and dk/dv as 3xTF32,
+    ``flash_dq_split_tf32x3<256>``, ``flash_dkv_split_tf32x3<256>``), beside
+    SDPA in f32, both bounds and the CUDA-core times of dq and dk/dv
+    (``F32_WIDE_FULL_EARLIER_MS``).  Returns the f32 rows."""
     import torch
 
-    rows = flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True,
-                       card=card, shape_tag="wide_full",
-                       earlier=WIDE_FULL_EARLIER_MS)
+    flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True, card=card,
+                shape_tag="wide_full", earlier=WIDE_FULL_EARLIER_MS)
     flash_f32out_row(gen, card, WIDE_FULL, "wide_full")
-    flash_check(gen, torch.float32, WIDE_FULL, time_it=True, card=card,
-                shape_tag="wide_full")
-    return rows
+    return flash_check(gen, torch.float32, WIDE_FULL, time_it=True,
+                       card=card, shape_tag="wide_full",
+                       earlier=F32_WIDE_FULL_EARLIER_MS)
 
 
 def flash_phase(card: str, gen) -> dict:
     """The main-shape rows (the bf16 ones under their kernel names, the
-    f32 backward's as ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``),
-    after the f32-out, full-width and s-1024 rows."""
+    f32 backward's as ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``) and
+    the full-width hd 256 f32 backward's (``flash_bwd_dq_f32_wide``,
+    ``flash_bwd_dkv_f32_wide``), after the f32-out, full-width and s-1024
+    rows."""
     import torch
 
     summary = {}
@@ -913,7 +936,9 @@ def flash_phase(card: str, gen) -> dict:
         else:
             summary.update(rows)
     flash_f32out_row(gen, card)
-    flash_wide_full_row(gen, card)
+    wide = flash_wide_full_row(gen, card)
+    summary.update({f"{name}_f32_wide": wide[name]
+                    for name in F32_WIDE_FULL_EARLIER_MS})
     small = dict(FLASH, b=1, s=1024)
     for dtype in (torch.float32, torch.bfloat16):
         flash_check(gen, dtype, small, window=256, card=card)
@@ -1451,6 +1476,13 @@ TRAIN_F32_REDUCED = TRAIN_REDUCED[1:] + [
     "step"]
 # the f32 backward's kernels, which the f32 arm's profiled step must run
 F32_BWD_KERNELS = ("flash_dq_tf32x3", "flash_dkv_tf32x3")
+# the f32 hd 256 arm: TRAIN_WIDE in f32 (its kv width, 4 x 256, is the
+# f32 arm's 8 x 128), whose dq and dk/dv run the wide 3xTF32 kernels,
+# which its profiled step must run
+TRAIN_F32_WIDE_REDUCED = TRAIN_REDUCED[1:] + [
+    "depth 32 -> 2: the arm measures the f32 hd 256 attention kernels a "
+    "layer a step"]
+F32_WIDE_BWD_KERNELS = ("flash_dq_split_tf32x3", "flash_dkv_split_tf32x3")
 
 
 def train_phase(card: str, seed: int, cfg=None, steps: int = TRAIN_STEPS,
@@ -1474,8 +1506,9 @@ def train_phase(card: str, seed: int, cfg=None, steps: int = TRAIN_STEPS,
 
         reference_numerics()  # no TF32 in torch's own GEMMs
     tag = {"arm": arm} if arm else {}
-    reduced = {None: TRAIN_REDUCED, "f32": TRAIN_F32_REDUCED}.get(
-        arm, TRAIN_WIDE_REDUCED)
+    reduced = {None: TRAIN_REDUCED, "f32": TRAIN_F32_REDUCED,
+               "f32_wide": TRAIN_F32_WIDE_REDUCED}.get(arm,
+                                                      TRAIN_WIDE_REDUCED)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     model = TransformerLM(**cfg, device="cuda", dtype=dtype, generator=gen)
@@ -4137,6 +4170,14 @@ def main() -> int:
     tally(launches, f32_arm)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         launches[f"{name}_f32"] = f32_arm[name]
+    f32_wide_arm = train_phase(card, args.seed, TRAIN_WIDE,
+                               TRAIN_WIDE_STEPS, arm="f32_wide",
+                               dtype=torch.float32,
+                               profile="train_step_f32_wide",
+                               require=F32_WIDE_BWD_KERNELS)
+    tally(launches, f32_wide_arm)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        launches[f"{name}_f32_wide"] = f32_wide_arm[name]
     for heads in EXACT_HEADS:
         train_exactness_phase(card, args.seed, heads)
         train_exactness_bf16_phase(card, args.seed, heads)
@@ -4170,6 +4211,12 @@ def main() -> int:
                              "vtpu/ops/attention.py:91"),
         "flash_bwd_dkv_f32": ("vtpu_torch/csrc/flash_attention_tf32x3.cu",
                               "vtpu/ops/attention.py:130"),
+        "flash_bwd_dq_f32_wide": (
+            "vtpu_torch/csrc/flash_attention_tf32x3.cu",
+            "vtpu/ops/attention.py:91"),
+        "flash_bwd_dkv_f32_wide": (
+            "vtpu_torch/csrc/flash_attention_tf32x3.cu",
+            "vtpu/ops/attention.py:130"),
     }
     kernels = []
     for name, (src, repl) in sources.items():

@@ -4,9 +4,13 @@ with chip_smoke.py's own phases: the main-shape f32 flash rows
 (``flash_check``: forward, dq and dk/dv against their plain versions,
 beside SDPA in f32 and both bounds) and the f32 train arm
 (``train_phase`` on ``TRAIN_F32``, 2 Adam steps, then one profiled
-step), each line as chip_smoke.py prints it.
+step), each line as chip_smoke.py prints it.  With ``--wide``, the same
+above hd 128 instead: the f32 rows at ``WIDE_FULL`` (b 2, 16 heads over
+4 kv heads, s 4096, hd 256, causal) and at the small wide-head shapes
+(``WIDE_FLASH``: hd 192, 256, 512), and the f32 hd 256 arm
+(``TRAIN_WIDE`` in f32).
 
-    python3 hack/f32_turns.py [--tree DIR] [--seed 0]
+    python3 hack/f32_turns.py [--tree DIR] [--seed 0] [--wide]
 
 DIR (default: this checkout) goes first on ``sys.path``, so its
 ``vtpu_torch`` (kernels built from its ``csrc`` into its own ``_build``)
@@ -27,6 +31,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--wide", action="store_true",
+                    help="the hd 256 rows and arm instead of the hd 128 ones")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -46,15 +52,34 @@ def main() -> int:
 
     reference_numerics()
     card = cs.card_line()
-    tf32x3 = os.path.exists(os.path.join(
-        tree, "vtpu_torch", "csrc", "flash_attention_tf32x3.cu"))
+    # which kernels the tree's f32 backward has: the profiled step
+    # requires them only where its sources define them
+    src = os.path.join(tree, "vtpu_torch", "csrc",
+                       "flash_attention_tf32x3.cu")
+    code = open(src).read() if os.path.exists(src) else ""
+    need = cs.F32_WIDE_BWD_KERNELS if args.wide else cs.F32_BWD_KERNELS
+    have = all(name + "<" in code for name in need)
     cs.emit(phase="turn", tree=tree, package=vtpu_torch.__file__,
-            tf32x3=tf32x3, card=card)
+            wide=args.wide, tf32x3=have, card=card)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    cs.flash_check(gen, torch.float32, cs.FLASH, time_it=True, card=card)
-    cs.train_phase(card, args.seed, cs.TRAIN_F32, cs.TRAIN_F32_STEPS,
-                   arm="f32", dtype=torch.float32, profile="train_step_f32",
-                   require=cs.F32_BWD_KERNELS if tf32x3 else ())
+    if args.wide:
+        cs.flash_check(gen, torch.float32, cs.WIDE_FULL, time_it=True,
+                       card=card, shape_tag="wide_full",
+                       earlier=cs.F32_WIDE_FULL_EARLIER_MS)
+        for geom in cs.WIDE_FLASH:
+            cs.flash_check(gen, torch.float32, geom, time_it=True,
+                           card=card, shape_tag="wide_heads")
+        cs.train_phase(card, args.seed, cs.TRAIN_WIDE,
+                       cs.TRAIN_WIDE_STEPS, arm="f32_wide",
+                       dtype=torch.float32, profile="train_step_f32_wide",
+                       require=need if have else ())
+    else:
+        cs.flash_check(gen, torch.float32, cs.FLASH, time_it=True,
+                       card=card)
+        cs.train_phase(card, args.seed, cs.TRAIN_F32, cs.TRAIN_F32_STEPS,
+                       arm="f32", dtype=torch.float32,
+                       profile="train_step_f32",
+                       require=need if have else ())
     return 0
 
 

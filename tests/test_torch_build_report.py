@@ -62,6 +62,12 @@ DQ_T3 = {hd: (_NS_T3 + f"15flash_dq_tf32x3ILi{hd}EEEvPKfS2_S2_S2_S2_S2_Pf"
               "N4vtpu5flash7ProblemEib") for hd in (64, 128)}
 DKV_T3 = {hd: (_NS_T3 + f"16flash_dkv_tf32x3ILi{hd}EEEvPKfS2_S2_S2_S2_S2_"
                "PfS3_N4vtpu5flash7ProblemEib") for hd in (64, 128)}
+# and above hd 128 (the output columns split over a block's warps)
+DQ_T3_WIDE = {hd: (_NS_T3 + f"21flash_dq_split_tf32x3ILi{hd}EEEvPKfS2_S2_"
+                   "S2_S2_S2_PfN4vtpu5flash7ProblemEib") for hd in (256, 512)}
+DKV_T3_WIDE = {hd: (_NS_T3 + f"22flash_dkv_split_tf32x3ILi{hd}EEEvPKfS2_"
+                    "S2_S2_S2_S2_PfS3_N4vtpu5flash7ProblemEib")
+               for hd in (256, 512)}
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 _NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
@@ -77,15 +83,16 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
           paged_spills=False, f32out_stack=0, f32out_spills=False,
           wide_spills=None, wide_mma=True, wide_fwd_mma=True,
-          f32bwd_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for nineteen flash kernels (the
-    f32-out forward at hd 64 and 128, the wide backward's four instances,
-    the wide forward's four and the f32 backward's four 3xTF32 ones among
-    them), three paged kernels and one other kernel.  ``wide_spills``
-    names a wide or 3xTF32 instance that spills; without ``wide_mma`` the
-    wide backward's instances, without ``wide_fwd_mma`` the wide
-    forward's, without ``f32bwd_mma`` the 3xTF32 ones hold no tensor-core
-    instruction."""
+          f32bwd_mma=True, f32wide_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for twenty-three flash kernels
+    (the f32-out forward at hd 64 and 128, the wide backward's four
+    instances, the wide forward's four, the f32 backward's four 3xTF32
+    ones at hd <= 128 and its four above among them), three paged kernels
+    and one other kernel.  ``wide_spills`` names a wide or 3xTF32
+    instance that spills; without ``wide_mma`` the wide backward's
+    instances, without ``wide_fwd_mma`` the wide forward's, without
+    ``f32bwd_mma`` the 3xTF32 ones at hd <= 128, without ``f32wide_mma``
+    those above hd 128 hold no tensor-core instruction."""
     hmma = "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
     tf32 = "HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
     wide = []
@@ -97,7 +104,11 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
                             for i, key in enumerate(FWD_WIDE)),
                           *((sym, 160 + i, f32bwd_mma) for i, sym in
                             enumerate((DQ_T3[64], DQ_T3[128], DKV_T3[64],
-                                       DKV_T3[128])))):
+                                       DKV_T3[128]))),
+                          *((sym, 170 + i, f32wide_mma) for i, sym in
+                            enumerate((DQ_T3_WIDE[256], DQ_T3_WIDE[512],
+                                       DKV_T3_WIDE[256],
+                                       DKV_T3_WIDE[512])))):
         spills = chip_smoke._short(sym) == wide_spills
         op = tf32 if "tf32x3" in sym else hmma
         wide.append((sym, reg, 24 if spills else 0,
@@ -158,6 +169,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (FWD_WIDE[512, "f32"], "flash_fwd_wide_tc<512,f32>"),
     (DQ_T3[128], "flash_dq_tf32x3<128>"),
     (DKV_T3[64], "flash_dkv_tf32x3<64>"),
+    (DQ_T3_WIDE[256], "flash_dq_split_tf32x3<256>"),
+    (DKV_T3_WIDE[512], "flash_dkv_split_tf32x3<512>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
     (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
     (COMBINE_BF16, "paged_combine<bf16>"),
@@ -204,6 +217,9 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
         **{name: dict(registers=160 + i, stack_bytes=0, local_ops=0,
                       tensor_core_ops=2)
            for i, name in enumerate(chip_smoke.F32_BWD_INSTANCES)},
+        **{name: dict(registers=170 + i, stack_bytes=0, local_ops=0,
+                      tensor_core_ops=2)
+           for i, name in enumerate(chip_smoke.F32_WIDE_BWD_INSTANCES)},
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -373,6 +389,55 @@ def test_an_f32_backward_without_tensor_core_ops_fails():
         f"{name}: no tensor-core instructions in its SASS"
         for name in ("flash_dq_tf32x3<64>", "flash_dq_tf32x3<128>",
                      "flash_dkv_tf32x3<64>", "flash_dkv_tf32x3<128>")]
+
+
+@pytest.mark.parametrize("name", ["flash_dq_split_tf32x3<256>",
+                                  "flash_dq_split_tf32x3<512>",
+                                  "flash_dkv_split_tf32x3<256>",
+                                  "flash_dkv_split_tf32x3<512>"])
+def test_a_library_without_a_wide_f32_backward_instance_fails(name):
+    """The wide f32 dq and dk/dv entries run flash_dq_split_tf32x3 and
+    flash_dkv_split_tf32x3 at <256> (hd <= 256) and <512>: a library that
+    lacks any instance (one built from sources that still send them to
+    the CUDA cores) fails, and one that lacks both of a kernel's
+    instances fails for the kernel too."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+    kernel = name.split("<")[0]
+    for other in chip_smoke.F32_WIDE_BWD_INSTANCES:
+        if other.split("<")[0] == kernel:
+            report.pop(other, None)
+    assert f"{kernel}: not in the library" in \
+        chip_smoke.build_failures(report)
+
+
+@pytest.mark.parametrize("name", ["flash_dq_split_tf32x3<256>",
+                                  "flash_dq_split_tf32x3<512>",
+                                  "flash_dkv_split_tf32x3<256>",
+                                  "flash_dkv_split_tf32x3<512>"])
+def test_a_spilling_wide_f32_backward_fails_the_build_check(name):
+    """A warp holds 128 columns of dq, dk or dv beside its shares of S and
+    dP (and dq the next K/V tile): a build where that spills fails."""
+    report = chip_smoke.parse_cuobjdump(_dump(wide_spills=name))
+    assert report[name]["stack_bytes"] == 24
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: spills (stack 24 bytes, 1 local loads/stores)"]
+
+
+def test_a_wide_f32_backward_without_tf32_mma_fails():
+    """A build whose wide f32 backward multiplies on the CUDA cores (no
+    TF32 HMMA in its SASS) fails for every instance, and the kernels at
+    hd <= 128 are not taken for them."""
+    report = chip_smoke.parse_cuobjdump(_dump(f32wide_mma=False))
+    assert report["flash_dq_tf32x3<128>"]["tensor_core_ops"] == 2
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: no tensor-core instructions in its SASS"
+        for name in ("flash_dq_split_tf32x3<256>",
+                     "flash_dq_split_tf32x3<512>",
+                     "flash_dkv_split_tf32x3<256>",
+                     "flash_dkv_split_tf32x3<512>")]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

@@ -1,6 +1,7 @@
-"""The f32 flash backward at hd <= 128, which runs on the tensor cores as
-error-compensated 3xTF32 (``flash_dq_tf32x3`` and ``flash_dkv_tf32x3`` in
-``csrc/flash_attention_tf32x3.cu``), held on the CPU.
+"""The f32 flash backward, which runs on the tensor cores as
+error-compensated 3xTF32 (``flash_dq_tf32x3`` and ``flash_dkv_tf32x3`` at
+hd <= 128, ``flash_dq_split_tf32x3`` and ``flash_dkv_split_tf32x3``
+above, in ``csrc/flash_attention_tf32x3.cu``), held on the CPU.
 
 (a) ``cvt.rna.tf32.f32`` emulated in torch: round to nearest with ties
 away from zero, to 10 mantissa bits, on hand-picked bit patterns (a tie,
@@ -12,7 +13,13 @@ split x = hi + lo rebuilds every operand to 2^-21.
 P^T dO and dS^T Q as lo_a hi_b + hi_a lo_b + hi_a hi_b, with hi the
 cvt.rna rounding of (a) and lo = x - hi read by the tensor core as
 TF32 rounded toward zero, each sum in f32;
-p and dS formed in f32 between them.  dq, dk and dv must lie within 1e-4
+p and dS formed in f32 between them.  Above hd 128 as the wide kernels
+take it: S and dP (S^T and dP^T) as one share a 128-column group of the
+head dim, the shares added in group order, and dq, dk and dv summed a
+flush period at a time (1024 keys for dq; 1024 rows of the group's query
+heads, one head after another, for dk and dv), each period's product
+added to the output in f32.  At these sizes a block's sums fit in one
+period (the card test crosses periods at s 1100).  dq, dk and dv must lie within 1e-4
 of each output's largest value (the limit the card holds the kernels
 to) of the JAX package's Pallas backward, which runs in interpret mode
 (``jat.flash_attention`` through ``jax.vjp`` at s 128 and 256, a
@@ -133,6 +140,57 @@ def mm1(a, b):
     return tf32(a) @ tf32(b)
 
 
+WIDE_C = 128   # columns of a group above hd 128 (the kernels' kWideC)
+FLUSH = 1024   # keys (dq) or rows (dk, dv) the wide kernels sum a period
+
+
+def by_groups(mm, a, b):
+    """a b^T as the wide kernels form S and dP: a share a 128-column group
+    of the head dim (past hd the zero fill adds exact zeros), added in
+    group order."""
+    out = mm(a[..., :WIDE_C], b[..., :WIDE_C].transpose(-1, -2))
+    for c in range(WIDE_C, a.shape[-1], WIDE_C):
+        out = out + mm(a[..., c:c + WIDE_C],
+                       b[..., c:c + WIDE_C].transpose(-1, -2))
+    return out
+
+
+def by_periods(mm, a, b):
+    """a b as the wide kernels sum dq, dk and dv: FLUSH of the summed
+    index at a time, each period's product added in f32."""
+    out = mm(a[..., :FLUSH], b[..., :FLUSH, :])
+    for c in range(FLUSH, a.shape[-1], FLUSH):
+        out = out + mm(a[..., c:c + FLUSH], b[..., c:c + FLUSH, :])
+    return out
+
+
+def emulated_wide_backward(q, k, v, do, lse, delta, causal, shift, window,
+                           mm):
+    """dq, dk, dv as the wide kernels (hd > 128) compute them: S and dP by
+    column groups, dq, dk and dv by flush periods, dk and dv summing the
+    group's query heads one after another along the period.  Shapes as
+    :func:`emulated_backward`."""
+    scale = q.shape[-1] ** -0.5
+    kg, vg = k[:, None], v[:, None]
+    keep = tat._keep(q.shape[-2], k.shape[-2], causal, shift, window,
+                     q.device)
+    p = torch.exp(by_groups(mm, q, kg) * scale - lse)
+    p = p.masked_fill(~keep, 0.0)
+    ds = p * (by_groups(mm, do, vg) - delta) * scale
+    dq = by_periods(mm, ds, kg)
+    s_k, hd = k.shape[-2:]
+
+    def heads_in_turn(x):  # [.., g, s_q, s_k] -> [.., s_k, g s_q]
+        return x.transpose(-1, -2).transpose(-3, -2).reshape(
+            *x.shape[:-3], s_k, -1)
+
+    rows_q = q.reshape(*q.shape[:-3], -1, hd)
+    rows_do = do.reshape(*do.shape[:-3], -1, hd)
+    dk = by_periods(mm, heads_in_turn(ds), rows_q)
+    dv = by_periods(mm, heads_in_turn(p), rows_do)
+    return dq, dk, dv
+
+
 def emulated_backward(q, k, v, do, lse, delta, causal, shift, window, mm):
     """dq, dk, dv as the kernels compute them, every product through
     ``mm``: S = Q K^T, P = exp(S scale - lse) (0 where masked), dP =
@@ -198,8 +256,9 @@ def _emulate(name, hd, mm):
     o, lse = tat.flash_attention_reference(tq, tk, tv, causal, shift,
                                            window)
     delta = (tdo * o).sum(-1, keepdim=True)
-    got = emulated_backward(tq[0], tk[0], tv[0], tdo[0], lse[0], delta[0],
-                            causal, shift, window, mm)
+    emulate = emulated_wide_backward if hd > 128 else emulated_backward
+    got = emulate(tq[0], tk[0], tv[0], tdo[0], lse[0], delta[0], causal,
+                  shift, window, mm)
     # dq [1, g, s, hd]; dk, dv [1, 1, s, hd] as the JAX grads
     got = [got[0][None].numpy(), got[1][None].numpy(), got[2][None].numpy()]
     return [float(np.abs(a - b).max() / np.abs(b).max())
@@ -207,14 +266,14 @@ def _emulate(name, hd, mm):
 
 
 @pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256, 512])
 def test_three_tf32_products_match_the_jax_pallas_backward(hd, name):
     rel = _emulate(name, hd, mm3)
     assert max(rel) <= TOL, dict(zip(("dq", "dk", "dv"), rel))
 
 
 @pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256, 512])
 def test_one_tf32_product_misses_the_limit(hd, name):
     """Why three: at the same seeds one rounding of each operand puts
     the worst of dq, dk and dv above 1e-4 of its largest value."""

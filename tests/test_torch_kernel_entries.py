@@ -82,15 +82,15 @@ def test_the_flash_entries_are_split_by_route():
     """bf16 -> bf16 forward, dq and dk/dv, the bf16 -> f32-out forward,
     and at 128 < hd <= 512 the bf16 forward, its f32-out twin and the
     bf16 backward (dq and dk/dv) on the tensor cores in bf16; the f32
-    backward at hd <= 128 (dq and dk/dv) on the tensor cores as 3xTF32;
-    only the other f32 entries (the forward, and the backward above hd
-    128) stay on the CUDA cores."""
+    backward (dq and dk/dv) at every hd on the tensor cores as 3xTF32;
+    only the two f32 forwards stay on the CUDA cores."""
     where = {name: path.rsplit("/", 1)[-1] for name, path in _definitions()}
     tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dq_bf16",
               "vtpu_flash_bwd_dkv_bf16", "vtpu_flash_fwd_bf16_f32out",
               "vtpu_flash_fwd_wide_bf16", "vtpu_flash_fwd_wide_bf16_f32out",
               "vtpu_flash_bwd_dq_wide_bf16", "vtpu_flash_bwd_dkv_wide_bf16"}
-    tf32x3 = {"vtpu_flash_bwd_dq_f32", "vtpu_flash_bwd_dkv_f32"}
+    tf32x3 = {"vtpu_flash_bwd_dq_f32", "vtpu_flash_bwd_dkv_f32",
+              "vtpu_flash_bwd_dq_wide_f32", "vtpu_flash_bwd_dkv_wide_f32"}
     for name in _build.SIGNATURES:
         if not name.startswith("vtpu_flash_"):
             continue
@@ -99,6 +99,4 @@ def test_the_flash_entries_are_split_by_route():
                 else "flash_attention.cu")
         assert where[name] == want, name
     cuda_cores = {n for n, f in where.items() if f == "flash_attention.cu"}
-    assert cuda_cores == {"vtpu_flash_fwd_f32", "vtpu_flash_fwd_wide_f32",
-                          "vtpu_flash_bwd_dq_wide_f32",
-                          "vtpu_flash_bwd_dkv_wide_f32"}
+    assert cuda_cores == {"vtpu_flash_fwd_f32", "vtpu_flash_fwd_wide_f32"}

@@ -1,56 +1,43 @@
-// Flash attention on the CUDA cores (sm_90a), f32 arithmetic throughout:
-// the f32 forward (o and the per-row logsumexp) at every head dim, and
-// the f32 backward (dq; dk and dv) at 128 < hd <= 512.  The entries this
-// source serves:
+// Flash attention's f32 forward on the CUDA cores (sm_90a), f32
+// arithmetic throughout: o and the per-row logsumexp at every head dim.
+// The entries this source serves:
 //
-//   vtpu_flash_fwd_f32                                  (flash_fwd)
+//   vtpu_flash_fwd_f32        flash_fwd       (hd <= 128)
+//   vtpu_flash_fwd_wide_f32   flash_fwd_wide  (128 < hd <= 512, the head
+//                                              dim in 128-column chunks)
 //
-// and, at 128 < hd <= 512, where the register tiles of flash_fwd stop,
-// the f32 entries with the head dim in 128-column chunks
+// Every other flash entry runs on the tensor cores: the f32 backward
+// (dq; dk and dv) at every hd as error-compensated 3xTF32 in
+// flash_attention_tf32x3.cu, every bf16 entry in flash_attention_sm90.cu.
+// The forward stays on f32 products because one TF32 product per pair
+// would miss the f32 exactness checks (3xTF32 is the way onto the tensor
+// cores for it too).
 //
-//   vtpu_flash_fwd_wide_f32                             (flash_fwd_wide)
-//   vtpu_flash_bwd_dq_wide_f32                          (flash_bwd_dq_wide)
-//   vtpu_flash_bwd_dkv_wide_f32                         (flash_bwd_dkv_wide)
-//
-// The f32 backward at hd <= 128 (vtpu_flash_bwd_dq_f32,
-// vtpu_flash_bwd_dkv_f32) runs on the tensor cores as error-compensated
-// 3xTF32 in flash_attention_tf32x3.cu; every bf16 entry runs on the
-// tensor cores in flash_attention_sm90.cu.  The entries here stay on f32
-// products because one TF32 product per pair would miss the f32
-// exactness checks (3xTF32 is the way onto the tensor cores for them).
-//
-// Replaces the Pallas TPU kernels of vtpu/ops/attention.py:
+// Replaces the Pallas TPU kernel of vtpu/ops/attention.py:
 //   flash_fwd, flash_fwd_wide      <- _attn_kernel         (_flash_2d)
-//   flash_bwd_dq_wide              <- _attn_bwd_dq_kernel  (_flash_bwd_2d)
-//   flash_bwd_dkv_wide             <- _attn_bwd_dkv_kernel (_flash_bwd_2d)
 //
-// Layouts: q, o, do, dq [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd];
-// lse, delta [N, seq_q] f32.  N flattens every leading dim of the public
-// [..., s, hd] tensors (batch and heads), and query head n reads kv head
-// n / g, which is grouped-query attention written into the index: k and
-// v are never repeated per query head.  Scores are (q . k) * sm_scale in
-// f32.  With `causal`, key k is kept for query q iff k <= q + shift and,
-// with window > 0, k > q + shift - window (the reference's _causal_mask).
+// Layouts: q, o [N, seq_q, hd]; k, v [N / g, seq_k, hd]; lse [N, seq_q]
+// f32.  N flattens every leading dim of the public [..., s, hd] tensors
+// (batch and heads), and query head n reads kv head n / g, which is
+// grouped-query attention written into the index: k and v are never
+// repeated per query head.  Scores are (q . k) * sm_scale in f32.  With
+// `causal`, key k is kept for query q iff k <= q + shift and, with
+// window > 0, k > q + shift - window (the reference's _causal_mask).
 //
-// Numerics are the TPU kernels': online softmax with m starting at
+// Numerics are the TPU kernel's: online softmax with m starting at
 // -1e30, l clamped at 1e-30 (a row with no kept key writes o = 0 and
-// lse ~ -1e30), lse = m + log(l); the backward rematerializes
-// p = exp(s - lse) and forces p = 0 on every masked entry, so a row
-// whose lse is ~-1e30 (shift = -1 leaves the first row without a key)
-// gives no gradient instead of 1/L per masked key.  The forward applies
-// the same p = 0 rule.  Unlike the TPU wrappers, which send a length
-// that is not a multiple of 128 to the XLA reference, these kernels take
-// every length: tiles past seq_q or seq_k are zero-filled on the way in,
-// their entries masked, and their rows never written.
+// lse ~ -1e30), lse = m + log(l), and p = 0 on every masked entry.
+// Unlike the TPU wrapper, which sends a length that is not a multiple of
+// 128 to the XLA reference, these kernels take every length: tiles past
+// seq_q or seq_k are zero-filled on the way in, their entries masked, and
+// their rows never written.
 //
 // What bounds them on an H100: operations.  Causal at b 2, H 32,
 // s 4096, hd 128 the forward does about 2*b*H*s^2*hd = 2.7e11 flops
-// (QK^T and PV over the kept half); the chunked backward does 6 * hd
-// (dq) and 8 * hd (dk/dv) flops per kept pair, and recomputes the scores
-// once per output chunk.  The bytes (q, k, v, o once) are ~0.2 GB,
-// 0.06 ms at 3.35 TB/s.  These kernels multiply on the CUDA cores in
-// f32, so their own ceiling is the f32 rate (67 TFLOP/s, ~4.1 ms for the
-// forward).  What the design does:
+// (QK^T and PV over the kept half).  The bytes (q, k, v, o once) are
+// ~0.2 GB, 0.06 ms at 3.35 TB/s.  These kernels multiply on the CUDA
+// cores in f32, so their own ceiling is the f32 rate (67 TFLOP/s, ~4.1 ms
+// for the forward).  What the design does:
 //
 //  - Tiles of 64 query rows by 64 keys staged in shared memory as f32
 //    (rows padded by 4 floats so the 16-byte reads of 8 neighbouring
@@ -60,20 +47,13 @@
 //    loads for 64 FMAs.  Each output row is spread over 16 threads of a
 //    half-warp, so row max and row sum are four shuffles.
 //  - The TPU grid walked q blocks in order with all of K/V resident in
-//    VMEM.  Here blocks run in any order on 132 SMs and each streams its
-//    K/V (or Q/dO) tiles from device memory (L2 holds the 2-16 MB of a
-//    head).  forward and dq: one block per (q tile, query head) and, in
-//    the chunked kernels, output chunk; dk/dv: one block per (k tile, kv
-//    head, output chunk), which loops over the g query heads of its group
-//    and over the q tiles, keeping its chunk of dk and dv in registers and
-//    writing it once (no
-//    atomics, no second pass): that loop is where the TPU path's vmap
-//    sums the cotangents of the broadcast k and v.
+//    VMEM.  Here blocks run in any order on 132 SMs: one block per (q
+//    tile, query head) and, in the chunked kernel, output chunk, each
+//    streaming its K/V tiles from device memory (L2 holds the 2-16 MB of
+//    a head).
 //  - Fully masked tiles are skipped with the reference's bounds
-//    (_causal_hi, _window_lo; for dk/dv the first q tile at the diagonal
-//    and the window's last), so causal work is the kept half.
-//  - Staging costs (K + V + Q + P tiles, f32) are 116 KB for the
-//    forward, 150 KB for dq and 167 KB for dk/dv at a 128-column chunk,
+//    (_causal_hi, _window_lo), so causal work is the kept half.
+//  - Staging (K + V + Q + P tiles, f32) is 116 KB at a 128-column chunk,
 //    above the 48 KB default: vtpu::allow_smem opts each kernel in.
 
 #include <initializer_list>
@@ -87,11 +67,10 @@ using vtpu::flash::Problem;
 using vtpu::flash::keep;
 using vtpu::flash::kv_range;
 using vtpu::flash::make_problem;
-using vtpu::flash::q_range;
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kTile = 64;      // query rows and keys per tile
-constexpr int kPS = kTile + 4; // row stride of the staged P / dS tiles
+constexpr int kPS = kTile + 4; // row stride of the staged P tile
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -122,16 +101,6 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
       }
     }
     *reinterpret_cast<float4*>(dst + r * stride + d) = f;
-  }
-}
-
-// One f32 value per row of a [rows] vector, zero past rows.
-__device__ __forceinline__ void load_rowvec(float* dst,
-                                            const float* __restrict__ src,
-                                            int row0, int rows) {
-  if (threadIdx.x < kTile) {
-    const int row = row0 + threadIdx.x;
-    dst[threadIdx.x] = row < rows ? src[row] : 0.f;
   }
 }
 
@@ -291,33 +260,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[4][4],
   }
 }
 
-// The rows' dS (and p, where Ps is given) of one tile, from the scores s
-// = Q K^T, dp = dO V^T and the rows' lse and delta.  Transposed (dk/dv):
-// tile rows are keys, columns queries.
-template <bool TRANSPOSED>
-__device__ __forceinline__ void probs_tile(const float (&s)[4][4],
-                                           const float (&dp)[4][4],
-                                           float* Ps, float* dSs,
-                                           const float* lse_s,
-                                           const float* delta_s,
-                                           const Problem& P, int q0, int k0,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = TRANSPOSED ? tx + 16 * j : ty + 16 * i;  // query
-      const int c = TRANSPOSED ? ty + 16 * i : tx + 16 * j;  // key
-      const float p = keep(P, q0 + r, k0 + c)
-                          ? expf(s[i][j] * P.sm_scale - lse_s[r])
-                          : 0.f;
-      const int at = TRANSPOSED ? c * kPS + r : r * kPS + c;
-      if (Ps) Ps[at] = p;
-      dSs[at] = p * (dp[i][j] - delta_s[r]) * P.sm_scale;
-    }
-  }
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
@@ -372,12 +314,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -- head dims above 128: the head dim in chunks of kChunk ------------------
-// One block per (tile, head, output chunk): the scores (Q K^T, and dO V^T
-// for the backward) sum over every chunk of the head dim, staged chunk by
-// chunk through the HD = kChunk tiles above, and the block accumulates
-// only its own kChunk columns of o, dq or dk / dv in registers.  So the
-// staging and the registers are those of the hd 128 kernels, at the price
-// of computing the scores once per output chunk (ceil(hd / 128) times).
+// One block per (tile, head, output chunk): the scores Q K^T sum over
+// every chunk of the head dim, staged chunk by chunk through the HD =
+// kChunk tiles above, and the block accumulates only its own kChunk
+// columns of o in registers.  So the staging and the registers are those
+// of the hd 128 kernel, at the price of computing the scores once per
+// output chunk (ceil(hd / 128) times).
 constexpr int kChunk = 128;
 
 template <typename T>
@@ -441,157 +383,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         min(kChunk, P.hd - c_out), ty, tx);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dq,
-                      Problem P, bool vec) {
-  constexpr int S = kChunk + 4;
-  constexpr int NU = kChunk / 64;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kTile * S;
-  float* Ks = dOs + kTile * S;
-  float* Vs = Ks + kTile * S;
-  float* dSs = Vs + kTile * S;
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
-  const int n = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int c_out = blockIdx.z * kChunk;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
-  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
-  const size_t r_off = static_cast<size_t>(n) * P.seq_q;
-  load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
-  load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
-
-  float4 acc[4][NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  int lo, hi;
-  kv_range(P, q0, kTile, kTile, lo, hi);
-  for (int t = lo; t < hi; ++t) {
-    const int k0 = t * kTile;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < P.hd; c += kChunk) {
-      const int w = min(kChunk, P.hd - c);
-      __syncthreads();  // the previous chunk (or tile) is consumed
-      load_tile<T, kChunk>(Qs, S, q + q_off + c, q0, P.seq_q, P.hd, w, vec);
-      load_tile<T, kChunk>(dOs, S, dout + q_off + c, q0, P.seq_q, P.hd, w,
-                           vec);
-      load_tile<T, kChunk>(Ks, S, k + kv_off + c, k0, P.seq_k, P.hd, w, vec);
-      load_tile<T, kChunk>(Vs, S, v + kv_off + c, k0, P.seq_k, P.hd, w, vec);
-      __syncthreads();
-      tile_dot_add<kChunk>(s, Qs, Ks, S, ty, tx);
-      tile_dot_add<kChunk>(dp, dOs, Vs, S, ty, tx);
-    }
-    __syncthreads();  // every thread is done with the last chunk's K
-    load_tile<T, kChunk>(Ks, S, k + kv_off + c_out, k0, P.seq_k, P.hd,
-                         min(kChunk, P.hd - c_out), vec);
-    probs_tile<false>(s, dp, nullptr, dSs, lse_s, delta_s, P, q0, k0, ty,
-                      tx);
-    __syncthreads();
-    tile_accum<kChunk>(acc, dSs, Ks, S, ty, tx);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, kChunk>(dq + q_off + c_out, acc, one, q0, P.seq_q, P.hd,
-                        min(kChunk, P.hd - c_out), ty, tx);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dk,
-                       T* __restrict__ dv, Problem P, bool vec) {
-  constexpr int S = kChunk + 4;
-  constexpr int NU = kChunk / 64;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * S;
-  float* Qs = Vs + kTile * S;
-  float* dOs = Qs + kTile * S;
-  float* Ps = dOs + kTile * S;
-  float* dSs = Ps + kTile * kPS;
-  float* lse_s = dSs + kTile * kPS;
-  float* delta_s = lse_s + kTile;
-  const int nk = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int c_out = blockIdx.z * kChunk, w_out = min(kChunk, P.hd - c_out);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
-
-  float4 dk_acc[4][NU], dv_acc[4][NU];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      dk_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      dv_acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  int lo, hi;
-  q_range(P, k0, kTile, kTile, lo, hi);
-  for (int h = 0; h < P.g; ++h) {
-    const int n = nk * P.g + h;
-    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
-    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
-    for (int t = lo; t < hi; ++t) {
-      const int q0 = t * kTile;
-      // transposed tiles: rows are keys (ty + 16 i), columns queries
-      float st[4][4] = {}, dpt[4][4] = {};
-      for (int c = 0; c < P.hd; c += kChunk) {
-        const int w = min(kChunk, P.hd - c);
-        __syncthreads();  // the previous chunk (or tile) is consumed
-        load_tile<T, kChunk>(Ks, S, k + kv_off + c, k0, P.seq_k, P.hd, w,
-                             vec);
-        load_tile<T, kChunk>(Vs, S, v + kv_off + c, k0, P.seq_k, P.hd, w,
-                             vec);
-        load_tile<T, kChunk>(Qs, S, q + q_off + c, q0, P.seq_q, P.hd, w,
-                             vec);
-        load_tile<T, kChunk>(dOs, S, dout + q_off + c, q0, P.seq_q, P.hd, w,
-                             vec);
-        if (c == 0) {
-          load_rowvec(lse_s, lse + r_off, q0, P.seq_q);
-          load_rowvec(delta_s, delta + r_off, q0, P.seq_q);
-        }
-        __syncthreads();
-        tile_dot_add<kChunk>(st, Ks, Qs, S, ty, tx);
-        tile_dot_add<kChunk>(dpt, Vs, dOs, S, ty, tx);
-      }
-      __syncthreads();  // every thread is done with the last chunk's Q, dO
-      load_tile<T, kChunk>(Qs, S, q + q_off + c_out, q0, P.seq_q, P.hd,
-                           w_out, vec);
-      load_tile<T, kChunk>(dOs, S, dout + q_off + c_out, q0, P.seq_q, P.hd,
-                           w_out, vec);
-      probs_tile<true>(st, dpt, Ps, dSs, lse_s, delta_s, P, q0, k0, ty, tx);
-      __syncthreads();
-      tile_accum<kChunk>(dv_acc, Ps, dOs, S, ty, tx);
-      tile_accum<kChunk>(dk_acc, dSs, Qs, S, ty, tx);
-    }
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, kChunk>(dk + kv_off + c_out, dk_acc, one, k0, P.seq_k, P.hd,
-                        w_out, ty, tx);
-  store_tile<T, kChunk>(dv + kv_off + c_out, dv_acc, one, k0, P.seq_k, P.hd,
-                        w_out, ty, tx);
-}
-
 template <int HD>
 constexpr size_t smem_fwd() {
   return sizeof(float) * (3 * kTile * (HD + 4) + kTile * kPS);
-}
-template <int HD>
-constexpr size_t smem_dq() {
-  return sizeof(float) * (4 * kTile * (HD + 4) + kTile * kPS + 2 * kTile);
-}
-template <int HD>
-constexpr size_t smem_dkv() {
-  return sizeof(float) *
-         (4 * kTile * (HD + 4) + 2 * kTile * kPS + 2 * kTile);
 }
 
 template <typename T>
@@ -633,8 +427,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                   : fwd_hd<T, 128>(q, k, v, o, lse, n_q, P, vec, st);
 }
 
-// The chunked kernels, for 128 < hd <= kMaxWideHd: one launch each, grid
-// (tiles, heads, output chunks), the hd 128 kernels' shared memory.
+// The chunked kernel, for 128 < hd <= kMaxWideHd: one launch, grid
+// (tiles, heads, output chunks), the hd 128 kernel's shared memory.
 template <typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
                     void* lse, int n_q, int g, int seq_q, int seq_k, int hd,
@@ -657,55 +451,6 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dq_wide(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, int n_q, int g, int seq_q, int seq_k, int hd,
-                   int causal, int shift, int window, float sm_scale,
-                   void* stream) {
-  Problem P;
-  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
-                    sm_scale, vtpu::flash::kMaxWideHd))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_bwd_dq_wide<T>;
-  const size_t smem = smem_dq<kChunk>();
-  cudaError_t e = vtpu::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((seq_q + kTile - 1) / kTile, n_q,
-                  (hd + kChunk - 1) / kChunk);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), P, can_vec<T>(hd, {q, k, v, dout}));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dkv_wide(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int n_q, int g, int seq_q, int seq_k,
-                    int hd, int causal, int shift, int window,
-                    float sm_scale, void* stream) {
-  Problem P;
-  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
-                    sm_scale, vtpu::flash::kMaxWideHd))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_bwd_dkv_wide<T>;
-  const size_t smem = smem_dkv<kChunk>();
-  cudaError_t e = vtpu::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((seq_k + kTile - 1) / kTile, n_q / g,
-                  (hd + kChunk - 1) / kChunk);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), P,
-      can_vec<T>(hd, {q, k, v, dout}));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 #define VTPU_FLASH_FWD_ENTRY(NAME, LAUNCH)                                  \
@@ -717,27 +462,5 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
                   window, sm_scale, stream);                                \
   }
 
-#define VTPU_FLASH_DQ_ENTRY(NAME, LAUNCH)                                    \
-  extern "C" int NAME(const void* q, const void* k, const void* v,           \
-                      const void* dout, const void* lse, const void* delta,  \
-                      void* dq, int n_q, int g, int seq_q, int seq_k,        \
-                      int hd, int causal, int shift, int window,             \
-                      float sm_scale, void* stream) {                        \
-    return LAUNCH(q, k, v, dout, lse, delta, dq, n_q, g, seq_q, seq_k, hd,   \
-                  causal, shift, window, sm_scale, stream);                  \
-  }
-
-#define VTPU_FLASH_DKV_ENTRY(NAME, LAUNCH)                                   \
-  extern "C" int NAME(const void* q, const void* k, const void* v,           \
-                      const void* dout, const void* lse, const void* delta,  \
-                      void* dk, void* dv, int n_q, int g, int seq_q,         \
-                      int seq_k, int hd, int causal, int shift, int window,  \
-                      float sm_scale, void* stream) {                        \
-    return LAUNCH(q, k, v, dout, lse, delta, dk, dv, n_q, g, seq_q, seq_k,   \
-                  hd, causal, shift, window, sm_scale, stream);              \
-  }
-
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_f32, launch_fwd<float>)
 VTPU_FLASH_FWD_ENTRY(vtpu_flash_fwd_wide_f32, launch_fwd_wide<float>)
-VTPU_FLASH_DQ_ENTRY(vtpu_flash_bwd_dq_wide_f32, launch_dq_wide<float>)
-VTPU_FLASH_DKV_ENTRY(vtpu_flash_bwd_dkv_wide_f32, launch_dkv_wide<float>)

@@ -30,10 +30,9 @@
 //                                :459, reached from _flash_bwd_2d)
 //
 // The _wide entries take 128 < hd <= 512: the split kernels up to hd 256,
-// the chunked (_wide_tc) ones above.  The f32 backward at hd <= 128
-// runs on the tensor cores as 3xTF32 in flash_attention_tf32x3.cu; the
-// other f32 entries (the forward at every hd, the backward above hd 128)
-// stay on the CUDA-core kernels of flash_attention.cu.  Layouts, masks
+// the chunked (_wide_tc) ones above.  The f32 backward runs on the
+// tensor cores as 3xTF32 in flash_attention_tf32x3.cu; the f32 forward
+// stays on the CUDA-core kernels of flash_attention.cu.  Layouts, masks
 // and numerics are that file's: q,
 // o, do [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd]; lse, delta
 // [N, seq_q] f32; query head n reads kv head n / g; m starts at -1e30, a

@@ -1,14 +1,16 @@
 // Flash attention's f32 backward on Hopper's tensor cores (sm_90a), as
-// error-compensated 3xTF32: dq, and dk with dv, at hd <= 128.  The
+// error-compensated 3xTF32: dq, and dk with dv, at every hd <= 512.  The
 // entries and the Pallas TPU kernels of vtpu/ops/attention.py they
 // replace:
 //
-//   vtpu_flash_bwd_dq_f32    flash_dq_tf32x3<64|128>
-//                            <- _attn_bwd_dq_kernel (pallas_call at :441,
-//                            reached from _flash_bwd_2d)
-//   vtpu_flash_bwd_dkv_f32   flash_dkv_tf32x3<64|128>
-//                            <- _attn_bwd_dkv_kernel (pallas_call at :459,
-//                            reached from _flash_bwd_2d)
+//   vtpu_flash_bwd_dq_f32        flash_dq_tf32x3<64|128>         (hd <= 128)
+//   vtpu_flash_bwd_dq_wide_f32   flash_dq_split_tf32x3<256|512>  (128 < hd)
+//                                <- _attn_bwd_dq_kernel (pallas_call at :441,
+//                                reached from _flash_bwd_2d)
+//   vtpu_flash_bwd_dkv_f32       flash_dkv_tf32x3<64|128>        (hd <= 128)
+//   vtpu_flash_bwd_dkv_wide_f32  flash_dkv_split_tf32x3<256|512> (128 < hd)
+//                                <- _attn_bwd_dkv_kernel (pallas_call at :459,
+//                                reached from _flash_bwd_2d)
 //
 // They compute what flash_bwd_dq_reference and flash_bwd_dkv_reference
 // in ops/attention.py compute: p = exp(s * sm_scale - lse) with p = 0 on
@@ -18,7 +20,8 @@
 // and the causal, shift and window bounds of flash_common.cuh.  Layouts
 // are flash_attention.cu's: q, do, dq [N, seq_q, hd]; k, v, dk, dv
 // [N / g, seq_k, hd]; lse, delta [N, seq_q] f32.  Every length and every
-// hd <= 128 runs here: tiles past seq_q, seq_k or hd are zero-filled on
+// hd <= 512 runs here (the f32 forward stays on the CUDA cores in
+// flash_attention.cu): tiles past seq_q, seq_k or hd are zero-filled on
 // the way in and never written.
 //
 // Why 3xTF32.  One TF32 product keeps 11 bits of each operand, about
@@ -35,9 +38,11 @@
 // What bounds them on an H100: operations.  dq does 6 * hd flops per kept
 // (query, key) pair (Q K^T, dO V^T, dS K), dk/dv 8 * hd (Q K^T, dO V^T,
 // P^T dO, dS^T Q).  Causal at b 2, H 32, kv 8, s 4096, hd 128 that is
-// 4.124e11 and 5.499e11 flops.  Three TF32 products at the 495 TFLOP/s
-// TF32 peak do 165 TFLOP/s of f32 work: 2.4995 and 3.3327 ms, against
-// 6.1555 and 8.2073 ms at the 67 TFLOP/s of the CUDA cores; the bytes
+// 4.124e11 and 5.499e11 flops, and the same at the full-width hd 256
+// shape (b 2, H 16, kv 4, s 4096: H * hd is 4096 in both).  Three TF32
+// products at the 495 TFLOP/s TF32 peak do 165 TFLOP/s of f32 work:
+// 2.4995 and 3.3327 ms, against 6.1555 and 8.2073 ms at the 67 TFLOP/s
+// of the CUDA cores; the bytes
 // (q, k, v, do, lse, delta once, dq or dk and dv once) take ~0.1 ms at
 // 3.35 TB/s.  mma.sync reaches about half that peak on this card, and
 // three of them a product leave few issue slots for anything else, so
@@ -88,6 +93,42 @@
 //    f32 and starts again from zero.  A warp owns its output rows, so no
 //    atomics: two calls give the same bits.  Shared memory: 211,456
 //    bytes at hd 128.
+//  - Above hd 128 (the _split_ kernels, instances <256> for hd <= 256 and
+//    <512> above): a warp still holds kWideC = 128 columns of an output
+//    (64 f32 a thread), so the output columns are split into HD / 128
+//    groups over the warps of a slab of 16 rows (dq: query rows; dk/dv:
+//    keys), and S and dP are formed once a block, not once a group: each
+//    warp of a slab computes its group's share of the products that sum
+//    over the head dim (S = Q K^T, dP = dO V^T; for dk/dv S^T = K Q^T or
+//    dP^T = V dO^T) over its 128 columns only, the shares meet in shared
+//    memory after a barrier, and every warp of the slab adds them in group
+//    order (so all get the same bits).  Nothing is recomputed, and no
+//    warp splits more of its A rows than its own group's columns.  The
+//    k-loops hold no branch (one that left them early, for columns past
+//    hd, kept ptxas from moving loads across k-steps and cost about a
+//    fifth of both kernels' time at hd 256; PERF.md, PR 23), so a group
+//    that lies wholly or partly past hd multiplies the zero fill: the
+//    <256> instance does hd 256's work at hd 192, the <512> one hd 512's
+//    at hd 320.
+//  - dq above 128: 8 warps, 4 slabs of 16 rows by 2 groups (64 rows) at
+//    <256>, 2 slabs by 4 groups (32 rows) at <512>; Q and dO resident
+//    (swizzled, 131,072 bytes), K/V tiles of 16 (8) keys as planes.  A
+//    raw K/V tile does not fit beside them, so the next tile's K and V
+//    come into registers (4 float4 each a thread) while a tile is
+//    multiplied and are split into the planes from there: K between two
+//    barriers, V beside dS K, which reads only K.  214,016 / 205,312 bytes.
+//  - dk/dv above 128: a slab of 16 keys holds 2 * hd / 128 warps, dV's
+//    groups then dK's; a dV warp computes its group's share of S^T, a dK
+//    warp its share of dP^T; after a named barrier of the slab each warp
+//    forms P^T (a dK warp also dS^T) from the summed shares and sums its
+//    group of dV = P^T dO or dK = dS^T Q.  12 warps, 3 slabs (48 keys) at
+//    <256>, 8 warps, 1 slab (16 keys) at <512>; Q/dO tiles of 16 (8) rows
+//    land raw by cp.async while the step before is multiplied and are
+//    split into planes between two barriers.  210,176 / 168,576 bytes.
+//  - Above hd 128 every accumulator that sums over the sequence, dq's
+//    too, is flushed into its output every kFlushK k-steps of 8 keys or
+//    rows; at hd <= 128 only dk/dv's are (dq sums its seq_k / 8 k-steps
+//    in one chain there, 3.2e-6 of its largest value at the main shape).
 //  - Fully masked tiles are skipped with the reference's bounds
 //    (kv_range, q_range), keep() runs only on tiles that straddle the
 //    diagonal, the window edge or a ragged end, and the heavy tiles of a
@@ -121,7 +162,9 @@ constexpr int kDkvThreads = 384;  // dk/dv: 6 pairs of warps
 constexpr int kDkvN = 96;         // dk/dv: keys a block, 16 a pair
 constexpr int kDkvQ = 32;         // dk/dv: query rows a Q/dO tile
 constexpr int kPad = 4;           // floats of padding a row of a plane
-constexpr int kFlush = 32;        // dk/dv: steps a warp sums before a flush
+constexpr int kFlushK = 128;      // k-steps a warp sums before a flush
+constexpr int kFlush = kFlushK / (kDkvQ / 8);  // dk/dv: steps a flush
+constexpr int kWideC = 128;       // hd > 128: columns a warp holds of an output
 
 // -- 3xTF32 ------------------------------------------------------------------
 // x as hi + lo.  hi is x rounded to TF32 to nearest, ties away from zero
@@ -253,6 +296,18 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
+// x split into hi and lo, stored at ah[at .. at + 4) and al[at .. at + 4)
+__device__ __forceinline__ void put_split(float4 x, float* ah, float* al,
+                                          int at) {
+  uint4 h, l;
+  split(x.x, h.x, l.x);
+  split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z);
+  split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(ah + at) = h;
+  *reinterpret_cast<uint4*>(al + at) = l;
+}
+
 // The hi and lo planes (row stride HD + kPad) of a staged row-major
 // [ROWS, HD] tile, split once for every warp that reads them
 template <int ROWS, int HD, int NT>
@@ -266,29 +321,73 @@ __device__ __forceinline__ void split_plane(const float* a, float* ah,
     const int k = threadIdx.x + it * NT;
     if (N % NT != 0 && k >= N) break;
     const int r = k / CH, c = (k % CH) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(a + r * HD + c);
-    uint4 h, l;
-    split(x.x, h.x, l.x);
-    split(x.y, h.y, l.y);
-    split(x.z, h.z, l.z);
-    split(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(ah + r * S + c) = h;
-    *reinterpret_cast<uint4*>(al + r * S + c) = l;
+    put_split(*reinterpret_cast<const float4*>(a + r * HD + c), ah, al,
+              r * S + c);
   }
 }
 
-// lse and delta of rows [row0, row0 + kDkvQ) into dst[0..Q) and
-// dst[Q..2Q), zero past `rows`
+// Columns [c, c + 4) of row `row` of a [rows, ld] matrix, zero past
+// `rows` and past w; vec: one 16-byte load (as stage's cp.async)
+__device__ __forceinline__ float4 fetch4(const float* __restrict__ src,
+                                         int row, int c, int rows, int ld,
+                                         int w, bool vec) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= rows || c >= w) return x;
+  const float* p = src + static_cast<size_t>(row) * ld + c;
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  x.x = p[0];
+  if (c + 1 < w) x.y = p[1];
+  if (c + 2 < w) x.z = p[2];
+  if (c + 3 < w) x.w = p[3];
+  return x;
+}
+
+// Rows [row0, row0 + ROWS) and columns [0, w) of a [rows, ld] matrix into
+// a thread's registers: x[i] is 16-byte chunk threadIdx.x + i NT of the
+// row-major [ROWS, HD] tile (for a plane where a raw tile does not fit)
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void fetch_tile(float4 (&x)[ROWS * HD / 4 / NT],
+                                           const float* __restrict__ src,
+                                           int row0, int rows, int ld, int w,
+                                           bool vec) {
+  constexpr int CH = HD / 4;
+  static_assert(ROWS * CH % NT == 0, "a tile is whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    x[i] = fetch4(src, row0 + k / CH, (k % CH) * 4, rows, ld, w, vec);
+  }
+}
+
+// fetch_tile's registers into the hi and lo planes (row stride HD + kPad)
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void stash_tile(
+    const float4 (&x)[ROWS * HD / 4 / NT], float* ah, float* al) {
+  constexpr int CH = HD / 4;
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const int k = threadIdx.x + i * NT;
+    put_split(x[i], ah, al, (k / CH) * (HD + kPad) + (k % CH) * 4);
+  }
+}
+
+// lse and delta of rows [row0, row0 + Q) into dst[0..Q) and dst[Q..2Q),
+// zero past `rows`
+template <int Q, int NT>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta,
                                            int row0, int rows) {
-  for (int i = threadIdx.x; i < 2 * kDkvQ; i += kDkvThreads) {
-    const float* src = i < kDkvQ ? lse : delta;
-    const int row = row0 + i % kDkvQ;
+  for (int i = threadIdx.x; i < 2 * Q; i += NT) {
+    const float* src = i < Q ? lse : delta;
+    const int row = row0 + i % Q;
     const bool ok = row < rows;
     cp_async4(smem_u32(dst + i), ok ? src + row : src, ok);
   }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 // (a, b) into columns col, col + 1 of row `row` of a [rows, hd] f32
@@ -567,7 +666,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     stage<kDkvQ, HD, false, NT>(Qr, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
     stage<kDkvQ, HD, false, NT>(dOr, dout + q_off, q0, P.seq_q, P.hd, P.hd,
                                 vec);
-    stage_rows(Rr, lse + r_off, delta + r_off, q0, P.seq_q);
+    stage_rows<kDkvQ, NT>(Rr, lse + r_off, delta + r_off, q0, P.seq_q);
   };
   stage_q(0);
   cp_commit();
@@ -675,6 +774,388 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   cp_wait<0>();  // with no step, K and V may still be in flight
 }
 
+// -- 128 < hd <= HD (256 or 512): the output columns split over the warps --
+// A slab of 16 rows (dq: query rows; dk/dv: keys) has one warp a group of
+// kWideC output columns (two groups of dk and dv's: dV's, then dK's).
+// Each warp computes its group's share of the products that sum over the
+// head dim, over its own kWideC columns of it, and puts it in shared
+// memory; after a barrier every warp of the slab adds the shares in group
+// order, so each holds the same S and dP (S^T and dP^T) bit for bit.
+
+// dq: 8 warps; query rows a block (64 at HD 256, 32 at 512) and keys a
+// K/V tile (16, 8) such that Q and dO stay resident beside the K and V
+// planes and the shares; the next tile waits in registers (4 float4 of K
+// and of V a thread).
+template <int HD>
+struct WideDq {
+  static constexpr int kGroups = HD / kWideC;  // warps a slab
+  static constexpr int kThreads = 256;
+  static constexpr int M = 16 * kThreads / 32 / kGroups;
+  static constexpr int N = 4096 / HD;
+  static constexpr int kFlush = kFlushK / (N / 8);  // tiles a flush
+  // Q, dO; K, V planes; S and dP shares (2 x N / 8 float4 a lane a warp)
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * M * HD + 4 * N * (HD + kPad) + kThreads * N);
+};
+
+// dk/dv: a slab of 16 keys is 2 kGroups warps; 3 slabs (48 keys, 12
+// warps) at HD 256, 1 (16 keys, 8 warps) at 512; Q/dO tiles of 16 (8)
+// rows, raw by cp.async, then planes
+template <int HD>
+struct WideDkv {
+  static constexpr int kGroups = HD / kWideC;
+  static constexpr int kSlabWarps = 2 * kGroups;  // dV's groups, dK's
+  static constexpr int kThreads = HD <= 256 ? 384 : 256;
+  static constexpr int N = 16 * kThreads / 32 / kSlabWarps;
+  static constexpr int Q = 4096 / HD;
+  static constexpr int kFlush = kFlushK / (Q / 8);  // steps a flush
+  // K, V; Q, dO planes; the raw Q, dO tile; raw and current lse, delta;
+  // S^T or dP^T shares (Q / 8 float4 a lane a warp)
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * N * HD + 4 * Q * (HD + kPad) + 2 * Q * HD +
+                       4 * Q + kThreads * Q / 2);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WideDq<HD>::kThreads, 1)
+    flash_dq_split_tf32x3(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq, Problem P, int n_q,
+                          bool vec) {
+  using W = WideDq<HD>;
+  constexpr int NT = W::kThreads, NG = W::kGroups, M = W::M, N = W::N;
+  constexpr int S = HD + kPad;
+  constexpr int KT = kWideC / 8;  // k-steps of a share; 8-column tiles of dq
+  constexpr int JT = N / 8;       // 8-key tiles of S and dP; k-steps of dS K
+  constexpr int F = N * HD / 4 / NT;  // float4 a thread of a K or V tile
+  extern __shared__ float4 smem_t3[];
+  float* Qs = reinterpret_cast<float*>(smem_t3);  // swizzled
+  float* dOs = Qs + M * HD;                       // swizzled
+  float* Kh = dOs + M * HD;                       // planes, stride S
+  float* Kl = Kh + N * S;
+  float* Vh = Kl + N * S;
+  float* Vl = Vh + N * S;
+  float4* X = reinterpret_cast<float4*>(Vl + N * S);  // [warp][2][JT][lane]
+
+  // heavy first: under causal masking the last q tiles see the most keys
+  const int tiles = (P.seq_q + M - 1) / M;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * M;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int sl = warp / NG, c0 = (warp % NG) * kWideC;  // slab, group
+  const int wr = sl * 16;       // the slab's 16 rows of the tile
+  const int r0 = q0 + wr + g;   // this thread's rows r0, r0 + 8
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, M, N, lo, hi);
+  const int nt = max(hi - lo, 0);
+  stage<M, HD, true, NT>(Qs, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  stage<M, HD, true, NT>(dOs, dout + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  cp_commit();
+  float4 kx[F], vx[F];  // the next K and V tile
+  if (nt > 0) {
+    fetch_tile<N, HD, NT>(kx, kb, lo * N, P.seq_k, P.hd, P.hd, vec);
+    fetch_tile<N, HD, NT>(vx, vb, lo * N, P.seq_k, P.hd, P.hd, vec);
+  }
+
+  float ls[2], dl[2];  // lse (in log2 units) and delta of rows r0, r0 + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t i = static_cast<size_t>(n) * P.seq_q + row;
+    ls[h] = row < P.seq_q ? lse[i] * kLog2e : 0.f;
+    dl[h] = row < P.seq_q ? delta[i] : 0.f;
+  }
+  const float sc = P.sm_scale * kLog2e;
+  float acc[KT][4];
+#pragma unroll
+  for (int c = 0; c < KT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  cp_wait<0>();  // Q and dO, visible after the first barrier
+  float* out = dq + q_off + c0;
+
+  // a warp sums kFlush tiles, adds them to its rows and columns of dq,
+  // which only it writes (no atomics; the first period stores)
+  for (int i0 = 0; i0 < max(nt, 1); i0 += W::kFlush) {
+    for (int i = i0; i < min(i0 + W::kFlush, nt); ++i) {
+      const int tt = lo + i;
+      // every warp is done with the K planes of tile tt - 1 (its V planes
+      // were replaced halfway through it)
+      __syncthreads();
+      stash_tile<N, HD, NT>(kx, Kh, Kl);
+      if (i == 0) stash_tile<N, HD, NT>(vx, Vh, Vl);
+      __syncthreads();  // the planes of tile tt are visible
+      if (i + 1 < nt) {  // tile tt + 1 comes in while tt is multiplied
+        fetch_tile<N, HD, NT>(kx, kb, (tt + 1) * N, P.seq_k, P.hd, P.hd, vec);
+        fetch_tile<N, HD, NT>(vx, vb, (tt + 1) * N, P.seq_k, P.hd, P.hd, vec);
+      }
+
+      // the group's share of S = Q K^T and dP = dO V^T: the slab's 16 rows
+      // x N keys over the group's columns of the head
+      float s[JT][4], dp[JT][4];
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<HD>(Qs, wr, c0 + 8 * kk, g, t, ah, al);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          load_bt<S>(Kh, Kl, 8 * j, c0 + 8 * kk, g, t, bh, bl);
+          mma3(s[j], ah, al, bh, bl);
+        }
+        load_a<HD>(dOs, wr, c0 + 8 * kk, g, t, ah, al);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          load_bt<S>(Vh, Vl, 8 * j, c0 + 8 * kk, g, t, bh, bl);
+          mma3(dp[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        X[((2 * warp) * JT + j) * 32 + lane] =
+            make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+        X[((2 * warp + 1) * JT + j) * 32 + lane] =
+            make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+      }
+      // every share is in place, and every warp is done with the V planes:
+      // tile tt + 1's are split now, beside dS K, which reads only K
+      __syncthreads();
+      if (i + 1 < nt) stash_tile<N, HD, NT>(vx, Vh, Vl);
+
+      // S and dP: the slab's shares added in group order; P = exp(S
+      // sm_scale - lse), 0 where masked (after the exp, which overflows
+      // where lse is ~-1e30); dS = P (dP - delta) sm_scale
+      const int k0 = tt * N;
+      const bool full = all_kept(P, q0 + wr, 16, k0, N);
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const float4* xs = X + (2 * sl * NG * JT + j) * 32 + lane;
+        float4 a = xs[0], b = xs[JT * 32];
+#pragma unroll
+        for (int w = 1; w < NG; ++w) {
+          a = add4(a, xs[2 * w * JT * 32]);
+          b = add4(b, xs[(2 * w + 1) * JT * 32]);
+        }
+        const float sv[4] = {a.x, a.y, a.z, a.w};
+        const float dv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2;
+          float p = ex2(fmaf(sv[e], sc, -ls[h]));
+          if (!full && !keep(P, r0 + 8 * h, k0 + 8 * j + 2 * t + e % 2))
+            p = 0.f;
+          dp[j][e] = p * (dv[e] - dl[h]) * P.sm_scale;
+        }
+      }
+
+      // dq[slab, group] += dS K[:, group]: dS from the accumulators, K read
+      // across its rows
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_as_a(dp[j], ah, al);
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          uint32_t bh[2], bl[2];
+          load_b_paired<S>(Kh, Kl, 8 * j, c0 + 8 * c, g, t, bh, bl);
+          mma3(acc[c], ah, al, bh, bl);
+        }
+      }
+    }
+    add_rows<KT>(out, acc, r0, t, P.seq_q, P.hd - c0, P.hd, i0 == 0);
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WideDkv<HD>::kThreads, 1)
+    flash_dkv_split_tf32x3(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           Problem P, int n_kv, bool vec) {
+  using W = WideDkv<HD>;
+  constexpr int NT = W::kThreads, NG = W::kGroups, KN = W::N, Q = W::Q;
+  constexpr int S = HD + kPad;
+  constexpr int KT = kWideC / 8;  // k-steps of a share; tiles of its output
+  constexpr int JT = Q / 8;       // 8-row tiles of S^T; k-steps of P^T dO
+  extern __shared__ float4 smem_t3[];
+  float* Ks = reinterpret_cast<float*>(smem_t3);  // swizzled
+  float* Vs = Ks + KN * HD;                       // swizzled
+  float* Qh = Vs + KN * HD;                       // planes, stride S
+  float* Ql = Qh + Q * S;
+  float* dOh = Ql + Q * S;
+  float* dOl = dOh + Q * S;
+  float* Qr = dOl + Q * S;                        // the raw tile, row-major
+  float* dOr = Qr + Q * HD;
+  float* Rr = dOr + Q * HD;                       // its lse, delta
+  float* Rs = Rr + 2 * Q;                         // lse (log2 units), delta
+  float4* X = reinterpret_cast<float4*>(Rs + 2 * Q);  // [warp][JT][lane]
+
+  // heavy first: under causal masking the first keys see the most rows
+  const int rank = blockIdx.x / n_kv, nk = blockIdx.x % n_kv;
+  const int k0 = rank * KN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // a slab's warps: its groups of dV (each with its share of S^T), then
+  // of dK (each with its share of dP^T)
+  const int sl = warp / W::kSlabWarps, role = warp % W::kSlabWarps;
+  const bool second = role >= NG;
+  const int c0 = (role % NG) * kWideC;
+  const int kw = sl * 16;          // the slab's 16 keys of the block
+  const int kr = k0 + kw + g;      // this thread's keys kr, kr + 8
+  const size_t kv_off = static_cast<size_t>(nk) * P.seq_k * P.hd;
+  stage<KN, HD, true, NT>(Ks, k + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+  stage<KN, HD, true, NT>(Vs, v + kv_off, k0, P.seq_k, P.hd, P.hd, vec);
+  // dV's warps: K, Q^T, dO; dK's: V, dO^T, Q
+  const float* As = second ? Vs : Ks;
+  const float* Bh = second ? dOh : Qh;
+  const float* Bl = second ? dOl : Ql;
+  const float* Ch = second ? Qh : dOh;
+  const float* Cl = second ? Ql : dOl;
+  float* out = (second ? dk : dv) + kv_off + c0;
+
+  int lo, hi;
+  q_range(P, k0, KN, Q, lo, hi);
+  const int nt = max(hi - lo, 0), iters = P.g * nt;
+  // the raw step i (query head nk * g + i / nt, q tile lo + i % nt): Q,
+  // dO, lse, delta (nothing past the last step)
+  auto stage_q = [&](int i) {
+    if (i >= iters) return;
+    const int n = nk * P.g + i / nt;
+    const int q0 = (lo + i % nt) * Q;
+    const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+    const size_t r_off = static_cast<size_t>(n) * P.seq_q;
+    stage<Q, HD, false, NT>(Qr, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+    stage<Q, HD, false, NT>(dOr, dout + q_off, q0, P.seq_q, P.hd, P.hd,
+                            vec);
+    stage_rows<Q, NT>(Rr, lse + r_off, delta + r_off, q0, P.seq_q);
+  };
+  stage_q(0);
+  cp_commit();
+
+  const float sc = P.sm_scale * kLog2e;
+  float acc[KT][4];  // the group's dV (dV's warps) or dK (dK's)
+#pragma unroll
+  for (int c = 0; c < KT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  // a warp sums kFlush steps, adds them to its keys' rows and its group's
+  // columns of dv or dk, which only it writes (no atomics; the first
+  // period stores)
+  for (int i0 = 0; i0 < max(iters, 1); i0 += W::kFlush) {
+    for (int i = i0; i < min(i0 + W::kFlush, iters); ++i) {
+      cp_wait<0>();
+      // the raw step i has landed, and every warp is done with the planes,
+      // the rows and the shares of step i - 1
+      __syncthreads();
+      split_plane<Q, HD, NT>(Qr, Qh, Ql);
+      split_plane<Q, HD, NT>(dOr, dOh, dOl);
+      if (threadIdx.x < 2 * Q)
+        Rs[threadIdx.x] = threadIdx.x < Q ? Rr[threadIdx.x] * kLog2e
+                                          : Rr[threadIdx.x];
+      // the planes of step i are visible, and the raw step is free again
+      __syncthreads();
+      stage_q(i + 1);  // lands while step i is multiplied
+      cp_commit();
+      const int q0 = (lo + i % nt) * Q;
+
+      // the group's share of S^T = K Q^T (dV's warps) or dP^T = V dO^T
+      // (dK's): the slab's 16 keys x Q rows over the group's columns
+      float s[JT][4];
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        load_a<HD>(As, kw, c0 + 8 * kk, g, t, ah, al);
+#pragma unroll
+        for (int j = 0; j < JT; ++j) {
+          load_bt<S>(Bh, Bl, 8 * j, c0 + 8 * kk, g, t, bh, bl);
+          mma3(s[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+        X[(warp * JT + j) * 32 + lane] =
+            make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      // every share of the slab is in place: a named barrier of its warps
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sl),
+                   "r"(32 * W::kSlabWarps)
+                   : "memory");
+
+      // S^T (and dP^T) from the shares in group order; P^T = exp(S^T
+      // sm_scale - lse), 0 where masked (rows are keys, columns queries);
+      // dK's warps form dS^T = P^T (dP^T - delta) sm_scale
+      const bool full = all_kept(P, q0, Q, k0 + kw, 16);
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const float4* xs = X + (sl * W::kSlabWarps * JT + j) * 32 + lane;
+        float4 a = xs[0], b = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int w = 1; w < NG; ++w) a = add4(a, xs[w * JT * 32]);
+        if (second) {
+          b = xs[NG * JT * 32];
+#pragma unroll
+          for (int w = 1; w < NG; ++w) b = add4(b, xs[(NG + w) * JT * 32]);
+        }
+        const float sv[4] = {a.x, a.y, a.z, a.w};
+        const float dpv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + e % 2;  // query row of the tile
+          float p = ex2(fmaf(sv[e], sc, -Rs[c]));
+          if (!full && !keep(P, q0 + c, kr + 8 * (e / 2))) p = 0.f;
+          s[j][e] = second ? p * (dpv[e] - Rs[Q + c]) * P.sm_scale : p;
+        }
+      }
+
+      // dV[slab, group] += P^T dO[:, group] or dK[slab, group] +=
+      // dS^T Q[:, group]: P^T or dS^T from the accumulators, dO or Q read
+      // across their rows
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_as_a(s[j], ah, al);
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          uint32_t bh[2], bl[2];
+          load_b_paired<S>(Ch, Cl, 8 * j, c0 + 8 * c, g, t, bh, bl);
+          mma3(acc[c], ah, al, bh, bl);
+        }
+      }
+    }
+    add_rows<KT>(out, acc, kr, t, P.seq_k, P.hd - c0, P.hd, i0 == 0);
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  }
+  cp_wait<0>();  // with no step, K and V may still be in flight
+}
+
 // -- launchers ---------------------------------------------------------------
 bool can_vec(int hd, std::initializer_list<const void*> ptrs) {
   if (hd % 4 != 0) return false;
@@ -710,6 +1191,42 @@ int dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (P.seq_k + kDkvN - 1) / kDkvN;
   kernel<<<tiles * n_kv, kDkvThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), P, n_kv, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dq_split_tf32x3(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int n_q, const Problem& P, bool vec,
+                    cudaStream_t st) {
+  using W = WideDq<HD>;
+  auto kernel = flash_dq_split_tf32x3<HD>;
+  cudaError_t e = vtpu::allow_smem(kernel, W::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (P.seq_q + W::M - 1) / W::M;
+  kernel<<<tiles * n_q, W::kThreads, W::kSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int dkv_split_tf32x3(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int n_kv, const Problem& P,
+                     bool vec, cudaStream_t st) {
+  using W = WideDkv<HD>;
+  auto kernel = flash_dkv_split_tf32x3<HD>;
+  cudaError_t e = vtpu::allow_smem(kernel, W::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (P.seq_k + W::N - 1) / W::N;
+  kernel<<<tiles * n_kv, W::kThreads, W::kSmem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -755,4 +1272,45 @@ extern "C" int vtpu_flash_bwd_dkv_f32(const void* q, const void* k,
                                    P, vec, st)
                   : dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, n_kv,
                                     P, vec, st);
+}
+
+// 128 < hd <= 512: the <256> instances up to hd 256, the <512> ones above
+extern "C" int vtpu_flash_bwd_dq_wide_f32(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          void* dq, int n_q, int g,
+                                          int seq_q, int seq_k, int hd,
+                                          int causal, int shift, int window,
+                                          float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 256 ? dq_split_tf32x3<256>(q, k, v, dout, lse, delta, dq,
+                                          n_q, P, vec, st)
+                   : dq_split_tf32x3<512>(q, k, v, dout, lse, delta, dq,
+                                          n_q, P, vec, st);
+}
+
+extern "C" int vtpu_flash_bwd_dkv_wide_f32(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse,
+                                           const void* delta, void* dk,
+                                           void* dv, int n_q, int g,
+                                           int seq_q, int seq_k, int hd,
+                                           int causal, int shift, int window,
+                                           float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v, dout});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_kv = n_q / g;
+  return hd <= 256 ? dkv_split_tf32x3<256>(q, k, v, dout, lse, delta, dk,
+                                           dv, n_kv, P, vec, st)
+                   : dkv_split_tf32x3<512>(q, k, v, dout, lse, delta, dk,
+                                           dv, n_kv, P, vec, st);
 }
