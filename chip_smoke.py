@@ -22,7 +22,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    above) and the f32 backward's 3xTF32 ones (``flash_dq_tf32x3<64|128>``,
    ``flash_dkv_tf32x3<64|128>`` up to hd 128,
    ``flash_dq_split_tf32x3<256|512>``, ``flash_dkv_split_tf32x3<256|512>``
-   above) must be there;
+   above) and the f32 forward's (``flash_fwd_tf32x3<64|128|256|512>``)
+   must be there;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (the paged kernels at the kernel
    phase's lengths and at the serve phase's): max abs error against the stated
@@ -58,17 +59,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
    f32-out forward (tensor cores, p split into two bf16 halves) timed at
    the training path's shape, o within 2e-5 and lse within 2e-5
    relative, beside the CUDA-core time it replaced (``earlier_ms``); the
-   f32 dq and dk/dv (3xTF32 on the tensor cores) beside the CUDA-core
-   times they replaced (``earlier_ms``); every f32 row's bound is the
+   f32 forward, dq and dk/dv (3xTF32 on the tensor cores) beside the
+   CUDA-core times they replaced (``earlier_ms``); every f32 row's bound
+   is the
    3xTF32 one (ops at 495 / 3 TFLOP/s, ``bound_by:
    "operations_3xtf32"``) with the CUDA cores' (67 TFLOP/s) beside it as
    ``bound_cuda_core_ms``; the
    bf16 flash kernels at a full-width hd 256 shape (b 2, 16 heads, 4 kv
    heads, s 4096, causal; ``shape: "wide_full"``), timed beside SDPA and
    beside the CUDA-core wide kernels' times (``earlier_ms``), and the f32
-   entries there (the forward on the CUDA cores, dq and dk/dv as 3xTF32)
-   beside SDPA and, for dq and dk/dv, the CUDA-core times they replaced
-   (``earlier_ms``); then one
+   entries there (the forward, dq and dk/dv as 3xTF32) beside SDPA and
+   the CUDA-core times they replaced (``earlier_ms``); then one
    small row per head dim or group that only the chunked and head-grouped
    kernels take (``shape: "wide_heads"``: paged at g 8 / hd 256, g 4 /
    hd 512, g 1 / hd 512, g 32 / hd 128; flash at hd 192, 256, 512);
@@ -82,11 +83,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the bf16 wide tensor-core kernels once a layer a step; and an f32 arm
    (``arm: "f32"``: the training widths in f32, as the reference model
    ships, depth 2, 2 steps, then a profiled step, ``window:
-   "train_step_f32"``), whose dq and dk/dv go through the 3xTF32 kernels
-   once a layer a step; and an f32 hd 256 arm (``arm: "f32_wide"``: the
-   hd 256 arm's widths in f32, depth 2, 2 steps, then a profiled step,
-   ``window: "train_step_f32_wide"``), whose dq and dk/dv go through the
-   wide 3xTF32 kernels once a layer a step;
+   "train_step_f32"``), whose forward, dq and dk/dv go through the
+   3xTF32 kernels once a layer a step; and an f32 hd 256 arm (``arm:
+   "f32_wide"``: the hd 256 arm's widths in f32, depth 2, 2 steps, then a
+   profiled step, ``window: "train_step_f32_wide"``), whose forward, dq
+   and dk/dv go through the wide 3xTF32 kernels once a layer a step;
 7. training exactness: depth 2, b 1 x s 1024, at hd 128 and at hd 256
    (16 heads, 4 kv heads), the kernel path against
    clone(flash_kernel="off", ln_kernel="off"); in f32 the loss within
@@ -385,7 +386,8 @@ TENSOR_CORE_KERNELS = ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc",
                        "flash_dq_wide_tc", "flash_dkv_wide_tc",
                        "flash_fwd_split_tc", "flash_fwd_wide_tc",
                        "flash_dq_tf32x3", "flash_dkv_tf32x3",
-                       "flash_dq_split_tf32x3", "flash_dkv_split_tf32x3")
+                       "flash_dq_split_tf32x3", "flash_dkv_split_tf32x3",
+                       "flash_fwd_tf32x3")
 # the f32-out forward's instances (hd <= 64 and <= 128), the bf16 wide
 # backward's and the bf16 and f32-out wide forward's (split over warps up
 # to hd 256, chunked over blocks above)
@@ -405,6 +407,11 @@ F32_WIDE_BWD_INSTANCES = ("flash_dq_split_tf32x3<256>",
                           "flash_dq_split_tf32x3<512>",
                           "flash_dkv_split_tf32x3<256>",
                           "flash_dkv_split_tf32x3<512>")
+# the f32 forward's 3xTF32 instances: hd <= 64 and <= 128 (a warp a slab
+# of 16 rows), <= 256 and <= 512 (o's columns in groups over a slab's
+# warps)
+F32_FWD_INSTANCES = tuple(f"flash_fwd_tf32x3<{hd}>"
+                          for hd in (64, 128, 256, 512))
 PAGED_KERNELS = ("paged_partial", "paged_combine")
 
 
@@ -474,11 +481,13 @@ def build_failures(report: dict) -> list:
     library and spill nothing (no stack frame, no LDL / STL); the
     tensor-core kernels must hold tensor-core instructions, and the
     forward's f32-out instances, every instance of the bf16 wide
-    backward and of the wide forward, and the f32 backward's 3xTF32
-    instances (hd <= 128 and above) must be among them."""
+    backward and of the wide forward, and the f32 backward's and
+    forward's 3xTF32 instances (hd <= 128 and above) must be among
+    them."""
     bad = [f"{name}: not in the library"
            for name in F32OUT_INSTANCES + WIDE_BWD_INSTANCES
            + WIDE_FWD_INSTANCES + F32_BWD_INSTANCES + F32_WIDE_BWD_INSTANCES
+           + F32_FWD_INSTANCES
            if name not in report]
     for name in TENSOR_CORE_KERNELS + PAGED_KERNELS:
         rows = {k: r for k, r in report.items() if name in k}
@@ -896,17 +905,21 @@ F32_BWD_EARLIER_MS = {"flash_bwd_dq": 14.5187, "flash_bwd_dkv": 19.3596}
 # flash_attention.cu), before each moved to the tensor cores as 3xTF32
 # (PERF.md kernel table, rows 5-6)
 F32_WIDE_FULL_EARLIER_MS = {"flash_bwd_dq": 27.8189, "flash_bwd_dkv": 35.9563}
+# the f32 forward's times at FLASH and WIDE_FULL on the CUDA cores
+# (flash_fwd and flash_fwd_wide of flash_attention.cu), before it moved
+# to the tensor cores as 3xTF32 (PERF.md kernel table, row 4)
+F32_FWD_EARLIER_MS = {"main": 10.8068, "wide_full": 16.9362}
 
 
 def flash_wide_full_row(gen, card: str) -> dict:
     """The bf16 forward, dq and dk/dv at WIDE_FULL, causal: errors against
     the plain versions (two bf16 ulps), times beside SDPA's, the bound and
     the CUDA-core times they replaced; then the bf16 -> f32-out forward
-    there (2e-5); then the f32 entries there (the forward on the CUDA
-    cores, ``flash_fwd_wide``; dq and dk/dv as 3xTF32,
-    ``flash_dq_split_tf32x3<256>``, ``flash_dkv_split_tf32x3<256>``), beside
-    SDPA in f32, both bounds and the CUDA-core times of dq and dk/dv
-    (``F32_WIDE_FULL_EARLIER_MS``).  Returns the f32 rows."""
+    there (2e-5); then the f32 entries there (3xTF32:
+    ``flash_fwd_tf32x3<256>``, ``flash_dq_split_tf32x3<256>``,
+    ``flash_dkv_split_tf32x3<256>``), beside SDPA in f32, both bounds and
+    the CUDA-core times they replaced (``F32_WIDE_FULL_EARLIER_MS``,
+    ``F32_FWD_EARLIER_MS``).  Returns the f32 rows."""
     import torch
 
     flash_check(gen, torch.bfloat16, WIDE_FULL, time_it=True, card=card,
@@ -914,13 +927,21 @@ def flash_wide_full_row(gen, card: str) -> dict:
     flash_f32out_row(gen, card, WIDE_FULL, "wide_full")
     return flash_check(gen, torch.float32, WIDE_FULL, time_it=True,
                        card=card, shape_tag="wide_full",
-                       earlier=F32_WIDE_FULL_EARLIER_MS)
+                       earlier=f32_earlier("wide_full"))
+
+
+def f32_earlier(tag: str) -> dict:
+    """The CUDA-core times (kernel name -> ms) that the f32 rows at FLASH
+    (``tag`` "main") or WIDE_FULL ("wide_full") are written beside."""
+    bwd = F32_BWD_EARLIER_MS if tag == "main" else F32_WIDE_FULL_EARLIER_MS
+    return {"flash_forward": F32_FWD_EARLIER_MS[tag], **bwd}
 
 
 def flash_phase(card: str, gen) -> dict:
     """The main-shape rows (the bf16 ones under their kernel names, the
-    f32 backward's as ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``) and
-    the full-width hd 256 f32 backward's (``flash_bwd_dq_f32_wide``,
+    f32 ones as ``flash_forward_f32``, ``flash_bwd_dq_f32`` and
+    ``flash_bwd_dkv_f32``) and the full-width hd 256 f32 ones
+    (``flash_forward_f32_wide``, ``flash_bwd_dq_f32_wide``,
     ``flash_bwd_dkv_f32_wide``), after the f32-out, full-width and s-1024
     rows."""
     import torch
@@ -929,16 +950,14 @@ def flash_phase(card: str, gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         rows = flash_check(gen, dtype, FLASH, time_it=True, card=card,
-                           earlier=F32_BWD_EARLIER_MS if f32 else None)
+                           earlier=f32_earlier("main") if f32 else None)
         if f32:
-            summary.update({f"{name}_f32": rows[name]
-                            for name in F32_BWD_EARLIER_MS})
+            summary.update({f"{name}_f32": row for name, row in rows.items()})
         else:
             summary.update(rows)
     flash_f32out_row(gen, card)
     wide = flash_wide_full_row(gen, card)
-    summary.update({f"{name}_f32_wide": wide[name]
-                    for name in F32_WIDE_FULL_EARLIER_MS})
+    summary.update({f"{name}_f32_wide": row for name, row in wide.items()})
     small = dict(FLASH, b=1, s=1024)
     for dtype in (torch.float32, torch.bfloat16):
         flash_check(gen, dtype, small, window=256, card=card)
@@ -1474,15 +1493,17 @@ TRAIN_F32_STEPS = 2
 TRAIN_F32_REDUCED = TRAIN_REDUCED[1:] + [
     "depth 32 -> 2: the arm measures the f32 attention kernels a layer a "
     "step"]
-# the f32 backward's kernels, which the f32 arm's profiled step must run
-F32_BWD_KERNELS = ("flash_dq_tf32x3", "flash_dkv_tf32x3")
+# the f32 attention kernels (3xTF32), which the f32 arm's profiled step
+# must run
+F32_KERNELS = ("flash_fwd_tf32x3", "flash_dq_tf32x3", "flash_dkv_tf32x3")
 # the f32 hd 256 arm: TRAIN_WIDE in f32 (its kv width, 4 x 256, is the
-# f32 arm's 8 x 128), whose dq and dk/dv run the wide 3xTF32 kernels,
-# which its profiled step must run
+# f32 arm's 8 x 128), whose forward, dq and dk/dv run the wide 3xTF32
+# kernels, which its profiled step must run
 TRAIN_F32_WIDE_REDUCED = TRAIN_REDUCED[1:] + [
     "depth 32 -> 2: the arm measures the f32 hd 256 attention kernels a "
     "layer a step"]
-F32_WIDE_BWD_KERNELS = ("flash_dq_split_tf32x3", "flash_dkv_split_tf32x3")
+F32_WIDE_KERNELS = ("flash_fwd_tf32x3", "flash_dq_split_tf32x3",
+                    "flash_dkv_split_tf32x3")
 
 
 def train_phase(card: str, seed: int, cfg=None, steps: int = TRAIN_STEPS,
@@ -4166,17 +4187,17 @@ def main() -> int:
                                 TRAIN_WIDE_STEPS, arm="wide_heads"))
     f32_arm = train_phase(card, args.seed, TRAIN_F32, TRAIN_F32_STEPS,
                           arm="f32", dtype=torch.float32,
-                          profile="train_step_f32", require=F32_BWD_KERNELS)
+                          profile="train_step_f32", require=F32_KERNELS)
     tally(launches, f32_arm)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
         launches[f"{name}_f32"] = f32_arm[name]
     f32_wide_arm = train_phase(card, args.seed, TRAIN_WIDE,
                                TRAIN_WIDE_STEPS, arm="f32_wide",
                                dtype=torch.float32,
                                profile="train_step_f32_wide",
-                               require=F32_WIDE_BWD_KERNELS)
+                               require=F32_WIDE_KERNELS)
     tally(launches, f32_wide_arm)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
         launches[f"{name}_f32_wide"] = f32_wide_arm[name]
     for heads in EXACT_HEADS:
         train_exactness_phase(card, args.seed, heads)
@@ -4207,6 +4228,11 @@ def main() -> int:
                          "vtpu/ops/attention.py:91"),
         "flash_bwd_dkv": ("vtpu_torch/csrc/flash_attention_sm90.cu",
                           "vtpu/ops/attention.py:130"),
+        "flash_forward_f32": ("vtpu_torch/csrc/flash_attention_tf32x3.cu",
+                              "vtpu/ops/attention.py:48"),
+        "flash_forward_f32_wide": (
+            "vtpu_torch/csrc/flash_attention_tf32x3.cu",
+            "vtpu/ops/attention.py:48"),
         "flash_bwd_dq_f32": ("vtpu_torch/csrc/flash_attention_tf32x3.cu",
                              "vtpu/ops/attention.py:91"),
         "flash_bwd_dkv_f32": ("vtpu_torch/csrc/flash_attention_tf32x3.cu",

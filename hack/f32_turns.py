@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time one tree's f32 flash backward and f32 training step on the card,
+"""Time one tree's f32 flash kernels and f32 training step on the card,
 with chip_smoke.py's own phases: the main-shape f32 flash rows
 (``flash_check``: forward, dq and dk/dv against their plain versions,
 beside SDPA in f32 and both bounds) and the f32 train arm
@@ -52,34 +52,33 @@ def main() -> int:
 
     reference_numerics()
     card = cs.card_line()
-    # which kernels the tree's f32 backward has: the profiled step
-    # requires them only where its sources define them
+    # which of the f32 kernels (forward, dq, dk/dv) the tree's 3xTF32
+    # source defines: the profiled step requires those it has
     src = os.path.join(tree, "vtpu_torch", "csrc",
                        "flash_attention_tf32x3.cu")
     code = open(src).read() if os.path.exists(src) else ""
-    need = cs.F32_WIDE_BWD_KERNELS if args.wide else cs.F32_BWD_KERNELS
-    have = all(name + "<" in code for name in need)
+    need = cs.F32_WIDE_KERNELS if args.wide else cs.F32_KERNELS
+    have = tuple(name for name in need if name + "<" in code)
     cs.emit(phase="turn", tree=tree, package=vtpu_torch.__file__,
-            wide=args.wide, tf32x3=have, card=card)
+            wide=args.wide, tf32x3=list(have), card=card)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.wide:
         cs.flash_check(gen, torch.float32, cs.WIDE_FULL, time_it=True,
                        card=card, shape_tag="wide_full",
-                       earlier=cs.F32_WIDE_FULL_EARLIER_MS)
+                       earlier=cs.f32_earlier("wide_full"))
         for geom in cs.WIDE_FLASH:
             cs.flash_check(gen, torch.float32, geom, time_it=True,
                            card=card, shape_tag="wide_heads")
         cs.train_phase(card, args.seed, cs.TRAIN_WIDE,
                        cs.TRAIN_WIDE_STEPS, arm="f32_wide",
                        dtype=torch.float32, profile="train_step_f32_wide",
-                       require=need if have else ())
+                       require=have)
     else:
         cs.flash_check(gen, torch.float32, cs.FLASH, time_it=True,
-                       card=card)
+                       card=card, earlier=cs.f32_earlier("main"))
         cs.train_phase(card, args.seed, cs.TRAIN_F32, cs.TRAIN_F32_STEPS,
                        arm="f32", dtype=torch.float32,
-                       profile="train_step_f32",
-                       require=need if have else ())
+                       profile="train_step_f32", require=have)
     return 0
 
 

@@ -68,6 +68,9 @@ DQ_T3_WIDE = {hd: (_NS_T3 + f"21flash_dq_split_tf32x3ILi{hd}EEEvPKfS2_S2_"
 DKV_T3_WIDE = {hd: (_NS_T3 + f"22flash_dkv_split_tf32x3ILi{hd}EEEvPKfS2_"
                     "S2_S2_S2_S2_PfS3_N4vtpu5flash7ProblemEib")
                for hd in (256, 512)}
+# the f32 forward as 3xTF32, one template at every hd
+FWD_T3 = {hd: (_NS_T3 + f"16flash_fwd_tf32x3ILi{hd}EEEvPKfS2_S2_PfS3_N4vtpu5"
+               "flash7ProblemEib") for hd in (64, 128, 256, 512)}
 FWD_F32OUT = (_NS_CC + "9flash_fwdI13__nv_bfloat16fLi64EEEvPKT_S4_S4_PT0_Pf"
               "N4vtpu5flash7ProblemEb")
 _NS_PA = "_ZN51_GLOBAL__N__04d40e2e_18_paged_attention_cu_da7c5523"
@@ -83,16 +86,17 @@ LN = "_ZN4vtpu9ln_kernelIfEEvPKT_PKfS5_PS1_iif"
 def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
           paged_spills=False, f32out_stack=0, f32out_spills=False,
           wide_spills=None, wide_mma=True, wide_fwd_mma=True,
-          f32bwd_mma=True, f32wide_mma=True) -> str:
-    """cuobjdump -res-usage -sass output for twenty-three flash kernels
+          f32bwd_mma=True, f32wide_mma=True, f32fwd_mma=True) -> str:
+    """cuobjdump -res-usage -sass output for twenty-seven flash kernels
     (the f32-out forward at hd 64 and 128, the wide backward's four
     instances, the wide forward's four, the f32 backward's four 3xTF32
-    ones at hd <= 128 and its four above among them), three paged kernels
-    and one other kernel.  ``wide_spills`` names a wide or 3xTF32
-    instance that spills; without ``wide_mma`` the wide backward's
-    instances, without ``wide_fwd_mma`` the wide forward's, without
-    ``f32bwd_mma`` the 3xTF32 ones at hd <= 128, without ``f32wide_mma``
-    those above hd 128 hold no tensor-core instruction."""
+    ones at hd <= 128 and its four above, and the f32 forward's four
+    among them), three paged kernels and one other kernel.
+    ``wide_spills`` names a wide or 3xTF32 instance that spills; without
+    ``wide_mma`` the wide backward's instances, without ``wide_fwd_mma``
+    the wide forward's, without ``f32bwd_mma`` the 3xTF32 backward's at
+    hd <= 128, without ``f32wide_mma`` those above hd 128, without
+    ``f32fwd_mma`` the f32 forward's hold no tensor-core instruction."""
     hmma = "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
     tf32 = "HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
     wide = []
@@ -108,7 +112,9 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
                           *((sym, 170 + i, f32wide_mma) for i, sym in
                             enumerate((DQ_T3_WIDE[256], DQ_T3_WIDE[512],
                                        DKV_T3_WIDE[256],
-                                       DKV_T3_WIDE[512])))):
+                                       DKV_T3_WIDE[512]))),
+                          *((sym, 180 + i, f32fwd_mma) for i, sym in
+                            enumerate(FWD_T3.values()))):
         spills = chip_smoke._short(sym) == wide_spills
         op = tf32 if "tf32x3" in sym else hmma
         wide.append((sym, reg, 24 if spills else 0,
@@ -171,6 +177,8 @@ def _dump(dkv_stack=0, dkv_spills=False, fwd_mma=True, paged_stack=0,
     (DKV_T3[64], "flash_dkv_tf32x3<64>"),
     (DQ_T3_WIDE[256], "flash_dq_split_tf32x3<256>"),
     (DKV_T3_WIDE[512], "flash_dkv_split_tf32x3<512>"),
+    (FWD_T3[64], "flash_fwd_tf32x3<64>"),
+    (FWD_T3[512], "flash_fwd_tf32x3<512>"),
     (PARTIAL_BF16, "paged_partial<bf16,bf16,false,4,4>"),
     (PARTIAL_Q8, "paged_partial<f32,i8,true,8,2>"),
     (COMBINE_BF16, "paged_combine<bf16>"),
@@ -220,6 +228,9 @@ def test_parse_reads_registers_stack_locals_and_tensor_core_ops():
         **{name: dict(registers=170 + i, stack_bytes=0, local_ops=0,
                       tensor_core_ops=2)
            for i, name in enumerate(chip_smoke.F32_WIDE_BWD_INSTANCES)},
+        **{name: dict(registers=180 + i, stack_bytes=0, local_ops=0,
+                      tensor_core_ops=2)
+           for i, name in enumerate(chip_smoke.F32_FWD_INSTANCES)},
     }
     assert chip_smoke.build_failures(report) == []
 
@@ -438,6 +449,48 @@ def test_a_wide_f32_backward_without_tf32_mma_fails():
                      "flash_dq_split_tf32x3<512>",
                      "flash_dkv_split_tf32x3<256>",
                      "flash_dkv_split_tf32x3<512>")]
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_tf32x3<64>",
+                                  "flash_fwd_tf32x3<128>",
+                                  "flash_fwd_tf32x3<256>",
+                                  "flash_fwd_tf32x3<512>"])
+def test_a_library_without_an_f32_forward_instance_fails(name):
+    """The f32 forward entries run flash_fwd_tf32x3 at <64> and <128>
+    (hd <= 128) and at <256> and <512> (above): a library that lacks any
+    instance (one built from sources that still send the f32 forward to
+    the CUDA cores) fails, and one that lacks all four fails for the
+    kernel too."""
+    report = chip_smoke.parse_cuobjdump(_dump())
+    del report[name]
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: not in the library"]
+    for other in chip_smoke.F32_FWD_INSTANCES:
+        report.pop(other, None)
+    assert "flash_fwd_tf32x3: not in the library" in \
+        chip_smoke.build_failures(report)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_tf32x3<128>",
+                                  "flash_fwd_tf32x3<256>"])
+def test_a_spilling_f32_forward_fails_the_build_check(name):
+    """A warp holds o's 128 columns (64 f32 a thread) beside S and P's
+    split fragments: a build where that spills fails."""
+    report = chip_smoke.parse_cuobjdump(_dump(wide_spills=name))
+    assert report[name]["stack_bytes"] == 24
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: spills (stack 24 bytes, 1 local loads/stores)"]
+
+
+def test_an_f32_forward_without_tf32_mma_fails():
+    """A build whose f32 forward multiplies on the CUDA cores (no TF32
+    HMMA in its SASS) fails for every instance, and the f32-out forward's
+    bf16 HMMA is not taken for it."""
+    report = chip_smoke.parse_cuobjdump(_dump(f32fwd_mma=False))
+    assert report["flash_fwd_tc<128,f32>"]["tensor_core_ops"] == 6
+    assert chip_smoke.build_failures(report) == [
+        f"{name}: no tensor-core instructions in its SASS"
+        for name in chip_smoke.F32_FWD_INSTANCES]
 
 
 def test_a_spilling_paged_kernel_fails_the_build_check():

@@ -39,8 +39,9 @@ def test_f32_backward_entries_run_the_tf32x3_kernels():
     ``flash_dkv_tf32x3`` at hd 64 and 128, and the wide entries
     ``vtpu_flash_bwd_dq_wide_f32`` and ``vtpu_flash_bwd_dkv_wide_f32``
     launch ``flash_dq_split_tf32x3`` / ``flash_dkv_split_tf32x3`` at 256
-    and 512; the CUDA-core source holds none of these entries nor their
-    old kernels, and keeps the f32 forward (both entries)."""
+    and 512, beside the f32 forward's entries, which launch
+    ``flash_fwd_tf32x3`` there too; no source defines the old CUDA-core
+    kernels."""
     code = {p.rsplit("/", 1)[-1]: _code(p) for p in _build._sources()
             if p.endswith(".cu")}
     t3 = code["flash_attention_tf32x3.cu"]
@@ -63,16 +64,20 @@ def test_f32_backward_entries_run_the_tf32x3_kernels():
     assert "m16n8k8.row.col.f32.tf32.tf32.f32" in t3
     # hi: cvt.rna.tf32.f32's rounding as integer arithmetic
     assert "+ 0x1000u) & 0xffffe000u" in t3
-    cc = code["flash_attention.cu"]
-    for gone in ("vtpu_flash_bwd_dq_f32", "vtpu_flash_bwd_dkv_f32",
-                 "vtpu_flash_bwd_dq_wide_f32", "vtpu_flash_bwd_dkv_wide_f32",
-                 "flash_bwd_dq(", "flash_bwd_dkv(", "launch_dq(",
-                 "launch_dkv(", "flash_bwd_dq_wide(", "flash_bwd_dkv_wide(",
-                 "launch_dq_wide(", "launch_dkv_wide("):
-        assert gone not in cc, gone
-    for kept in ("vtpu_flash_fwd_f32", "vtpu_flash_fwd_wide_f32",
-                 "flash_fwd(", "flash_fwd_wide("):
-        assert re.search(r"\b" + re.escape(kept), cc), kept
+    for entry, sizes in (("vtpu_flash_fwd_f32", (64, 128)),
+                         ("vtpu_flash_fwd_wide_f32", (256, 512))):
+        m = re.search(r'extern\s+"C"\s+int\s+' + entry +
+                      r'\s*\([^)]*\)\s*\{(.*?)\n\}', t3, flags=re.S)
+        assert m and re.search(r"\bfwd_tf32x3<%d>.*\bfwd_tf32x3<%d>" % sizes,
+                               m.group(1), flags=re.S), entry
+    assert "flash_attention.cu" not in code
+    for name, cc in code.items():
+        for gone in ("flash_bwd_dq(", "flash_bwd_dkv(", "launch_dq(",
+                     "launch_dkv(", "flash_bwd_dq_wide(",
+                     "flash_bwd_dkv_wide(", "launch_dq_wide(",
+                     "launch_dkv_wide(", "flash_fwd(", "flash_fwd_wide(",
+                     "launch_fwd(", "launch_fwd_wide("):
+            assert not re.search(r"\b" + re.escape(gone), cc), (name, gone)
 
 
 @pytest.fixture

@@ -38,8 +38,8 @@ def test_f32out_entry_runs_the_tensor_core_forward():
     """``vtpu_flash_fwd_bf16_f32out`` is defined in the tensor-core
     source and launches ``flash_fwd_tc`` with f32 o; so is the wide
     f32-out entry, which launches ``flash_fwd_split_tc`` (hd <= 256) and
-    ``flash_fwd_wide_tc`` (above) with f32 o.  The CUDA-core source
-    defines neither bf16 wide forward."""
+    ``flash_fwd_wide_tc`` (above) with f32 o.  No other source defines
+    the f32-out entries or the bf16 wide forward."""
     code = {p.rsplit("/", 1)[-1]: _code(p) for p in _build._sources()
             if p.endswith(".cu")}
     tc = code["flash_attention_sm90.cu"]
@@ -61,10 +61,12 @@ def test_f32out_entry_runs_the_tensor_core_forward():
                                 launch.group(1), flags=re.S)
     for kernel in ("fwd_split_tc", "fwd_wide_tc"):
         assert re.search(r"flash_" + kernel + r"<\w+,\s*O>", tc), kernel
-    cc = code["flash_attention.cu"]
-    for entry in ("vtpu_flash_fwd_bf16_f32out", "vtpu_flash_fwd_wide_bf16",
-                  "vtpu_flash_fwd_wide_bf16_f32out"):
-        assert not re.search(r"\b" + entry + r"\b", cc), entry
+    for name, cc in code.items():
+        if name == "flash_attention_sm90.cu":
+            continue
+        for entry in ("vtpu_flash_fwd_bf16_f32out", "vtpu_flash_fwd_wide_bf16",
+                      "vtpu_flash_fwd_wide_bf16_f32out"):
+            assert not re.search(r"\b" + entry + r"\b", cc), (name, entry)
 
 
 @pytest.fixture

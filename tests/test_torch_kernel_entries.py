@@ -81,22 +81,23 @@ def test_the_scanner_sees_both_forms_and_skips_comments(tmp_path,
 def test_the_flash_entries_are_split_by_route():
     """bf16 -> bf16 forward, dq and dk/dv, the bf16 -> f32-out forward,
     and at 128 < hd <= 512 the bf16 forward, its f32-out twin and the
-    bf16 backward (dq and dk/dv) on the tensor cores in bf16; the f32
-    backward (dq and dk/dv) at every hd on the tensor cores as 3xTF32;
-    only the two f32 forwards stay on the CUDA cores."""
+    bf16 backward (dq and dk/dv) on the tensor cores in bf16; every f32
+    entry (forward, dq and dk/dv, at every hd) on the tensor cores as
+    3xTF32; no flash entry is left on the CUDA cores."""
     where = {name: path.rsplit("/", 1)[-1] for name, path in _definitions()}
     tensor = {"vtpu_flash_fwd_bf16", "vtpu_flash_bwd_dq_bf16",
               "vtpu_flash_bwd_dkv_bf16", "vtpu_flash_fwd_bf16_f32out",
               "vtpu_flash_fwd_wide_bf16", "vtpu_flash_fwd_wide_bf16_f32out",
               "vtpu_flash_bwd_dq_wide_bf16", "vtpu_flash_bwd_dkv_wide_bf16"}
-    tf32x3 = {"vtpu_flash_bwd_dq_f32", "vtpu_flash_bwd_dkv_f32",
+    tf32x3 = {"vtpu_flash_fwd_f32", "vtpu_flash_fwd_wide_f32",
+              "vtpu_flash_bwd_dq_f32", "vtpu_flash_bwd_dkv_f32",
               "vtpu_flash_bwd_dq_wide_f32", "vtpu_flash_bwd_dkv_wide_f32"}
-    for name in _build.SIGNATURES:
-        if not name.startswith("vtpu_flash_"):
-            continue
+    flash = {name for name in _build.SIGNATURES
+             if name.startswith("vtpu_flash_")}
+    assert flash == tensor | tf32x3
+    for name in flash:
         want = ("flash_attention_sm90.cu" if name in tensor
-                else "flash_attention_tf32x3.cu" if name in tf32x3
-                else "flash_attention.cu")
+                else "flash_attention_tf32x3.cu")
         assert where[name] == want, name
-    cuda_cores = {n for n, f in where.items() if f == "flash_attention.cu"}
-    assert cuda_cores == {"vtpu_flash_fwd_f32", "vtpu_flash_fwd_wide_f32"}
+    sources = {path.rsplit("/", 1)[-1] for path in _build._sources()}
+    assert "flash_attention.cu" not in sources

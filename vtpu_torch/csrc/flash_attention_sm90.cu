@@ -30,10 +30,9 @@
 //                                :459, reached from _flash_bwd_2d)
 //
 // The _wide entries take 128 < hd <= 512: the split kernels up to hd 256,
-// the chunked (_wide_tc) ones above.  The f32 backward runs on the
-// tensor cores as 3xTF32 in flash_attention_tf32x3.cu; the f32 forward
-// stays on the CUDA-core kernels of flash_attention.cu.  Layouts, masks
-// and numerics are that file's: q,
+// the chunked (_wide_tc) ones above.  The f32 entries (forward, dq and
+// dk/dv) run on the tensor cores as 3xTF32 in flash_attention_tf32x3.cu,
+// whose layouts, masks and numerics these kernels share: q,
 // o, do [N, seq_q, hd]; k, v, dk, dv [N / g, seq_k, hd]; lse, delta
 // [N, seq_q] f32; query head n reads kv head n / g; m starts at -1e30, a
 // masked p is forced to 0, l is clamped at 1e-30, lse = m + log(l) in

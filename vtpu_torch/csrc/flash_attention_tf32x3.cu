@@ -1,8 +1,12 @@
-// Flash attention's f32 backward on Hopper's tensor cores (sm_90a), as
-// error-compensated 3xTF32: dq, and dk with dv, at every hd <= 512.  The
-// entries and the Pallas TPU kernels of vtpu/ops/attention.py they
-// replace:
+// Flash attention's f32 kernels on Hopper's tensor cores (sm_90a), as
+// error-compensated 3xTF32: the forward (o and the per-row logsumexp),
+// dq, and dk with dv, at every hd <= 512.  The entries and the Pallas TPU
+// kernels of vtpu/ops/attention.py they replace:
 //
+//   vtpu_flash_fwd_f32           flash_fwd_tf32x3<64|128>        (hd <= 128)
+//   vtpu_flash_fwd_wide_f32      flash_fwd_tf32x3<256|512>       (128 < hd)
+//                                <- _attn_kernel (pallas_call at :409,
+//                                reached from _flash_2d)
 //   vtpu_flash_bwd_dq_f32        flash_dq_tf32x3<64|128>         (hd <= 128)
 //   vtpu_flash_bwd_dq_wide_f32   flash_dq_split_tf32x3<256|512>  (128 < hd)
 //                                <- _attn_bwd_dq_kernel (pallas_call at :441,
@@ -12,56 +16,67 @@
 //                                <- _attn_bwd_dkv_kernel (pallas_call at :459,
 //                                reached from _flash_bwd_2d)
 //
-// They compute what flash_bwd_dq_reference and flash_bwd_dkv_reference
-// in ops/attention.py compute: p = exp(s * sm_scale - lse) with p = 0 on
-// every masked entry (so a row whose lse is ~-1e30, the first row under
-// shift = -1, gives no gradient), dS = p (dP - delta) sm_scale, dq = dS K,
-// dk = dS^T Q and dv = P^T dO, with query head n reading kv head n / g
-// and the causal, shift and window bounds of flash_common.cuh.  Layouts
-// are flash_attention.cu's: q, do, dq [N, seq_q, hd]; k, v, dk, dv
-// [N / g, seq_k, hd]; lse, delta [N, seq_q] f32.  Every length and every
-// hd <= 512 runs here (the f32 forward stays on the CUDA cores in
-// flash_attention.cu): tiles past seq_q, seq_k or hd are zero-filled on
-// the way in and never written.
+// The forward computes what flash_attention_reference in ops/attention.py
+// computes: S = Q K^T sm_scale, an online softmax with m from -1e30 and
+// p = 0 on every masked entry, l clamped at 1e-30, o = acc / l and
+// lse = m + log(l) (a row with no kept key, the first row under
+// shift = -1, writes o = 0 and lse ~ -1e30).  The backward computes what
+// flash_bwd_dq_reference and flash_bwd_dkv_reference compute: p =
+// exp(s * sm_scale - lse) with p = 0 on every masked entry (so a row
+// whose lse is ~-1e30 gives no gradient), dS = p (dP - delta) sm_scale,
+// dq = dS K, dk = dS^T Q and dv = P^T dO.  Query head n reads kv head
+// n / g (grouped-query attention written into the index: k and v are
+// never repeated), and the causal, shift and window bounds are those of
+// flash_common.cuh.  Layouts: q, o, do, dq [N, seq_q, hd]; k, v, dk, dv
+// [N / g, seq_k, hd]; lse, delta [N, seq_q] f32, N flattening every
+// leading dim of the public [..., s, hd] tensors.  Every length and every
+// hd <= 512 runs here: tiles past seq_q, seq_k or hd are zero-filled on
+// the way in and never written (the TPU wrapper sends a length that is
+// not a multiple of 128 to the XLA reference instead).
 //
 // Why 3xTF32.  One TF32 product keeps 11 bits of each operand, about
-// 5e-4 relative error a product, and the f32 checks (dq, dk, dv within
-// 1e-4 of their largest value; a train step's gradients within 1e-4)
-// would fail.  So each operand x is split as hi + lo (split() below: hi
-// rounded to TF32 as cvt.rna.tf32.f32 rounds, lo = x - hi read by the
-// tensor core as TF32 rounded toward zero; hi + lo misses x by less than
-// 2^-21 |x|), and a product takes three m16n8k8 TF32 mma.sync into one
-// f32 accumulator, the two small ones first: a_lo b_hi, a_hi b_lo,
-// a_hi b_hi.  What is dropped (a_lo b_lo, lo's rounding) is about 2^-20
-// of a product.
+// 5e-4 relative error a product, and the f32 checks (o within 2e-5 and
+// lse within 2e-5 relative; dq, dk, dv within 1e-4 of their largest
+// value; a train step's gradients within 1e-4) would fail: emulated at
+// hd 64-512 against the Pallas kernels, one TF32 product misses o by
+// 3.0e-4 to 1.8e-3 (tests/test_torch_f32_forward.py).  So each operand x
+// is split as hi + lo (split() below: hi rounded to TF32 as
+// cvt.rna.tf32.f32 rounds, lo = x - hi read by the tensor core as TF32
+// rounded toward zero; hi + lo misses x by less than 2^-21 |x|), and a
+// product takes three m16n8k8 TF32 mma.sync into one f32 accumulator,
+// the two small ones first: a_lo b_hi, a_hi b_lo, a_hi b_hi.  What is
+// dropped (a_lo b_lo, lo's rounding) is about 2^-20 of a product.
 //
-// What bounds them on an H100: operations.  dq does 6 * hd flops per kept
-// (query, key) pair (Q K^T, dO V^T, dS K), dk/dv 8 * hd (Q K^T, dO V^T,
-// P^T dO, dS^T Q).  Causal at b 2, H 32, kv 8, s 4096, hd 128 that is
-// 4.124e11 and 5.499e11 flops, and the same at the full-width hd 256
-// shape (b 2, H 16, kv 4, s 4096: H * hd is 4096 in both).  Three TF32
-// products at the 495 TFLOP/s TF32 peak do 165 TFLOP/s of f32 work:
-// 2.4995 and 3.3327 ms, against 6.1555 and 8.2073 ms at the 67 TFLOP/s
-// of the CUDA cores; the bytes
-// (q, k, v, do, lse, delta once, dq or dk and dv once) take ~0.1 ms at
-// 3.35 TB/s.  mma.sync reaches about half that peak on this card, and
-// three of them a product leave few issue slots for anything else, so
-// the design keeps the instructions beside each mma few:
+// What bounds them on an H100: operations.  The forward does 4 * hd flops
+// per kept (query, key) pair (Q K^T, P V), dq 6 * hd (Q K^T, dO V^T,
+// dS K), dk/dv 8 * hd (Q K^T, dO V^T, P^T dO, dS^T Q).  Causal at b 2,
+// H 32, kv 8, s 4096, hd 128 that is 2.749e11, 4.124e11 and 5.499e11
+// flops, and the same at the full-width hd 256 shape (b 2, H 16, kv 4,
+// s 4096: H * hd is 4096 in both).  Three TF32 products at the 495
+// TFLOP/s TF32 peak do 165 TFLOP/s of f32 work: 1.6663, 2.4995 and
+// 3.3327 ms, against 4.1037, 6.1555 and 8.2073 ms at the 67 TFLOP/s of
+// the CUDA cores; the bytes (q, k, v, do, lse, delta once, o, dq or dk
+// and dv once) take ~0.1 ms at 3.35 TB/s.  mma.sync reaches about half
+// that peak on this card, and three of them a product leave few issue
+// slots for anything else, so the design keeps the instructions beside
+// each mma few:
 //
 //  - The split is three integer and float instructions (cvt.rna itself
 //    compiles to four), and no element is split twice where several
 //    warps read it: a tile that every warp of a block reads as the B of
-//    its products (K and V for dq; Q and dO for dk/dv) is split once, by
-//    the whole block, into hi and lo planes in shared memory, and its
-//    fragments load from there.  What only one warp reads as an A (its
-//    own rows of Q and dO for dq, its own keys of K or V for dk/dv) stays
-//    f32 and is split at fragment load, in registers.
+//    its products (K and V for the forward and dq; Q and dO for dk/dv)
+//    is split once, by the whole block, into hi and lo planes in shared
+//    memory, and its fragments load from there.  What only one warp
+//    reads as an A (its own rows of Q for the forward, of Q and dO for
+//    dq, its own keys of K or V for dk/dv) stays f32 and is split at
+//    fragment load, in registers.
 //  - No ldmatrix: its .trans moves 16-bit halves and cannot transpose
 //    32-bit values, so fragments load by 32-bit shared loads.  The planes'
 //    rows are padded by 4 floats (stride hd + 4, 4 mod 32 banks), which
 //    keeps both read patterns free of bank conflicts: along a stored row
 //    (thread (g, t) reads row g, column t) and across stored rows (rows 2t
-//    and 2t + 1, column g: K in dS K, dO in P^T dO, Q in dS^T Q).  The A
+//    and 2t + 1, column g: V in P V, K in dS K, dO in P^T dO, Q in
+//    dS^T Q).  The A
 //    tiles are not padded (shared memory is full) but swizzled: column c
 //    of row r lies at c ^ 4 (r % 8), which spreads 8 rows over the banks.
 //  - P and dS go from the accumulators straight into A fragments.  An
@@ -70,6 +85,26 @@
 //    is column 2t and k t + 4 column 2t + 1 of the 8-column tile, which
 //    makes the A fragment {c0, c2, c1, c3} of the accumulator, and the B
 //    fragment reads rows 2t and 2t + 1 (above).  No shuffle.
+//  - The forward (flash_fwd_tf32x3): one block of 8 warps per (q tile,
+//    query head); a slab of 16 query rows has one warp a group of
+//    min(hd, 128) columns of o, so up to hd 128 a warp owns its 16 rows
+//    (128-row q tiles, 32-key K/V tiles), and above it the slab's warps
+//    split o's columns as the _split_ kernels below do (<256>: 4 slabs of
+//    2 groups, 64 rows, 16-key tiles; <512>: 2 slabs of 4, 32 rows, 8
+//    keys): each warp forms its group's share of S over its 128 columns,
+//    and every warp of the slab adds the shares in group order after a
+//    named barrier of the slab, so each holds the same S, m and l.  Q
+//    stays resident; each K/V tile lands as f32 by cp.async while the tile
+//    before is multiplied and is split into the planes between two
+//    barriers.  The row max takes two shuffles within a quad (a row lies
+//    on the 4 threads of a quad in an m16n8 fragment); l stays per thread
+//    until the end.  P goes from the S accumulators into A fragments
+//    (above), and each 8-column tile of a key tile's P V is summed from
+//    zero in the tensor core and added to o in f32 as o alpha + P V (the
+//    TPU kernel's acc * alpha + p @ v): no chain of truncating sums is
+//    longer than a key tile's, so o needs no flush, and the FMA takes the
+//    place of the rescaling multiply.  Shared memory: 165,888 bytes at
+//    hd 128, 173,056 at <256>, 168,448 at <512>.
 //  - dq: one block of 8 warps per (128-row q tile, query head), 16 rows a
 //    warp; Q and dO resident; 32-key K/V tiles land as f32 by cp.async
 //    while the tile before is multiplied, and are split into the planes
@@ -132,8 +167,8 @@
 //  - Fully masked tiles are skipped with the reference's bounds
 //    (kv_range, q_range), keep() runs only on tiles that straddle the
 //    diagonal, the window edge or a ragged end, and the heavy tiles of a
-//    causal grid (the last q tiles for dq, the first k tiles for dk/dv)
-//    are launched first.  Where hd % 4 != 0 or a pointer is not 16-byte
+//    causal grid (the last q tiles for the forward and dq, the first k
+//    tiles for dk/dv) are launched first.  Where hd % 4 != 0 or a pointer is not 16-byte
 //    aligned, the tiles are staged by plain loads instead of cp.async.
 
 #include <initializer_list>
@@ -149,12 +184,14 @@ using vtpu::cp_wait;
 using vtpu::smem_u32;
 using vtpu::flash::all_kept;
 using vtpu::flash::keep;
+using vtpu::flash::kNegInf;
 using vtpu::flash::kv_range;
 using vtpu::flash::make_problem;
 using vtpu::flash::Problem;
 using vtpu::flash::q_range;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kDqThreads = 256;   // dq: 8 warps
 constexpr int kDqM = 128;         // dq: query rows a block, 16 a warp
 constexpr int kDqN = 32;          // dq: keys a K/V tile
@@ -1156,6 +1193,208 @@ __global__ void __launch_bounds__(WideDkv<HD>::kThreads, 1)
   cp_wait<0>();  // with no step, K and V may still be in flight
 }
 
+// -- the forward -------------------------------------------------------------
+// 8 warps; a slab of 16 query rows has one warp a group of kC = min(HD,
+// kWideC) columns of o (so one warp a slab up to hd 128), query rows a
+// block (128 up to HD 128, 64 at 256, 32 at 512) and keys a K/V tile (32,
+// 16, 8) such that Q stays resident beside the K and V planes, the raw
+// tile and the shares of S.
+template <int HD>
+struct Fwd {
+  static constexpr int kC = HD < kWideC ? HD : kWideC;
+  static constexpr int kGroups = HD / kC;  // warps a slab
+  static constexpr int kThreads = 256;
+  static constexpr int M = 16 * kThreads / 32 / kGroups;
+  static constexpr int N = HD <= kWideC ? 32 : 4096 / HD;
+  // Q; K, V planes; the raw K, V tile; S shares (N / 8 float4 a lane a
+  // warp, above hd 128 only)
+  static constexpr size_t kSmem =
+      sizeof(float) * (M * HD + 4 * N * (HD + kPad) + 2 * N * HD +
+                       (kGroups > 1 ? kThreads * N / 2 : 0));
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Fwd<HD>::kThreads, 1)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Problem P, int n_q, bool vec) {
+  using W = Fwd<HD>;
+  constexpr int NT = W::kThreads, NG = W::kGroups, M = W::M, N = W::N;
+  constexpr int S = HD + kPad;
+  constexpr int KT = W::kC / 8;  // k-steps of a share of S; tiles of o
+  constexpr int JT = N / 8;      // 8-key tiles of S; k-steps of P V
+  extern __shared__ float4 smem_t3[];
+  float* Qs = reinterpret_cast<float*>(smem_t3);  // swizzled
+  float* Kh = Qs + M * HD;                        // planes, stride S
+  float* Kl = Kh + N * S;
+  float* Vh = Kl + N * S;
+  float* Vl = Vh + N * S;
+  float* Kr = Vl + N * S;                         // the raw tile, row-major
+  float* Vr = Kr + N * HD;
+  float4* X = reinterpret_cast<float4*>(Vr + N * HD);  // [warp][JT][lane]
+
+  // heavy first: under causal masking the last q tiles see the most keys
+  const int tiles = (P.seq_q + M - 1) / M;
+  const int rank = blockIdx.x / n_q, n = blockIdx.x % n_q;
+  const int q0 = (P.causal ? tiles - 1 - rank : rank) * M;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int sl = warp / NG, c0 = (warp % NG) * W::kC;  // slab, group
+  const int wr = sl * 16;       // the slab's 16 rows of the tile
+  const int r0 = q0 + wr + g;   // this thread's rows r0, r0 + 8
+  const size_t q_off = static_cast<size_t>(n) * P.seq_q * P.hd;
+  const size_t kv_off = static_cast<size_t>(n / P.g) * P.seq_k * P.hd;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
+
+  int lo, hi;
+  kv_range(P, q0, M, N, lo, hi);
+  // the raw K/V tile tt (nothing past hi)
+  auto stage_kv = [&](int tt) {
+    if (tt >= hi) return;
+    stage<N, HD, false, NT>(Kr, kb, tt * N, P.seq_k, P.hd, P.hd, vec);
+    stage<N, HD, false, NT>(Vr, vb, tt * N, P.seq_k, P.hd, P.hd, vec);
+  };
+  stage<M, HD, true, NT>(Qs, q + q_off, q0, P.seq_q, P.hd, P.hd, vec);
+  stage_kv(lo);
+  cp_commit();
+
+  float acc[KT][4];
+#pragma unroll
+  for (int c = 0; c < KT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sc = P.sm_scale * kLog2e;
+
+  for (int tt = lo; tt < hi; ++tt) {
+    cp_wait<0>();
+    // the raw tile tt has landed, and every warp is done with the planes
+    // of tile tt - 1
+    __syncthreads();
+    split_plane<N, HD, NT>(Kr, Kh, Kl);
+    split_plane<N, HD, NT>(Vr, Vh, Vl);
+    // the planes of tt are visible, and the raw tile is free again
+    __syncthreads();
+    stage_kv(tt + 1);  // lands while tile tt is multiplied
+    cp_commit();
+
+    // S = Q K^T (above hd 128 the group's share of it, over its columns):
+    // the slab's 16 rows x N keys
+    float s[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ah[4], al[4], bh[2], bl[2];
+      load_a<HD>(Qs, wr, c0 + 8 * kk, g, t, ah, al);
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        load_bt<S>(Kh, Kl, 8 * j, c0 + 8 * kk, g, t, bh, bl);
+        mma3(s[j], ah, al, bh, bl);
+      }
+    }
+    if constexpr (NG > 1) {
+      // the shares meet: every warp of the slab adds them in group order,
+      // so each holds the same S, m and l bit for bit
+#pragma unroll
+      for (int j = 0; j < JT; ++j)
+        X[(warp * JT + j) * 32 + lane] =
+            make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sl), "r"(32 * NG)
+                   : "memory");
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        const float4* xs = X + (sl * NG * JT + j) * 32 + lane;
+        float4 a = xs[0];
+#pragma unroll
+        for (int w = 1; w < NG; ++w) a = add4(a, xs[w * JT * 32]);
+        s[j][0] = a.x;
+        s[j][1] = a.y;
+        s[j][2] = a.z;
+        s[j][3] = a.w;
+      }
+    }
+
+    // the online softmax in log2 units: masked scores -1e30 and their p 0
+    const int k0 = tt * N;
+    const bool full = all_kept(P, q0 + wr, 16, k0, N);
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = full || keep(P, r0 + 8 * (e / 2), k0 + 8 * j + 2 * t + e % 2)
+                      ? s[j][e] * sc
+                      : kNegInf;
+    float mx[2] = {m[0], m[1]}, alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // a row lies on the 4 threads of a quad
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = ex2(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int j = 0; j < JT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = full || x > kNegInf * 0.5f ? ex2(x - m[e / 2]) : 0.f;
+        s[j][e] = p;
+        rs[e / 2] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
+
+    // o = o alpha + P V[:, group]: P from the accumulators, V read across
+    // its rows.  Each 8-column tile of the tile's P V is summed from zero
+    // (JT k-steps) and added to o in f32, as the TPU kernel's acc * alpha
+    // + p @ v: no chain of mma.sync longer than a tile's.
+    uint32_t ph[JT][4], pl[JT][4];
+#pragma unroll
+    for (int j = 0; j < JT; ++j) acc_as_a(s[j], ph[j], pl[j]);
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < JT; ++j) {
+        uint32_t bh[2], bl[2];
+        load_b_paired<S>(Vh, Vl, 8 * j, c0 + 8 * c, g, t, bh, bl);
+        mma3(pv, ph[j], pl[j], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c][e] = fmaf(acc[c][e], alpha[e / 2], pv[e]);
+    }
+  }
+  cp_wait<0>();  // with no K/V tile, Q may still be in flight
+
+  // l over the quad's keys; a row with no kept key (m still -1e30) writes
+  // o = 0 and lse ~ -1e30
+  float* out = o + q_off;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float ls = fmaxf(l[h], 1e-30f);
+    const float inv = 1.f / ls;
+    const int row = r0 + 8 * h;
+    if (c0 == 0 && t == 0 && row < P.seq_q)
+      lse[static_cast<size_t>(n) * P.seq_q + row] =
+          (m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2) + logf(ls);
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+      store_pair(out, row, c0 + 8 * c + 2 * t, acc[c][2 * h] * inv,
+                 acc[c][2 * h + 1] * inv, P.seq_q, P.hd);
+  }
+}
+
 // -- launchers ---------------------------------------------------------------
 bool can_vec(int hd, std::initializer_list<const void*> ptrs) {
   if (hd % 4 != 0) return false;
@@ -1234,7 +1473,55 @@ int dkv_split_tf32x3(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int fwd_tf32x3(const void* q, const void* k, const void* v, void* o,
+               void* lse, int n_q, const Problem& P, bool vec,
+               cudaStream_t st) {
+  using W = Fwd<HD>;
+  auto kernel = flash_fwd_tf32x3<HD>;
+  cudaError_t e = vtpu::allow_smem(kernel, W::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (P.seq_q + W::M - 1) / W::M;
+  kernel<<<tiles * n_q, W::kThreads, W::kSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), P, n_q, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int vtpu_flash_fwd_f32(const void* q, const void* k,
+                                  const void* v, void* o, void* lse, int n_q,
+                                  int g, int seq_q, int seq_k, int hd,
+                                  int causal, int shift, int window,
+                                  float sm_scale, void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 64 ? fwd_tf32x3<64>(q, k, v, o, lse, n_q, P, vec, st)
+                  : fwd_tf32x3<128>(q, k, v, o, lse, n_q, P, vec, st);
+}
+
+// 128 < hd <= 512: the <256> instance up to hd 256, the <512> one above
+extern "C" int vtpu_flash_fwd_wide_f32(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int n_q, int g, int seq_q, int seq_k,
+                                       int hd, int causal, int shift,
+                                       int window, float sm_scale,
+                                       void* stream) {
+  Problem P;
+  if (!make_problem(P, n_q, g, seq_q, seq_k, hd, causal, shift, window,
+                    sm_scale, vtpu::flash::kMaxWideHd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = can_vec(hd, {q, k, v});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 256 ? fwd_tf32x3<256>(q, k, v, o, lse, n_q, P, vec, st)
+                   : fwd_tf32x3<512>(q, k, v, o, lse, n_q, P, vec, st);
+}
 
 extern "C" int vtpu_flash_bwd_dq_f32(const void* q, const void* k,
                                      const void* v, const void* dout,

@@ -1,5 +1,5 @@
-// Shared by the flash-attention sources (flash_attention.cu,
-// flash_attention_sm90.cu, flash_attention_tf32x3.cu): the problem description, the reference's
+// Shared by the flash-attention sources (flash_attention_sm90.cu,
+// flash_attention_tf32x3.cu): the problem description, the reference's
 // keep rule, and the tile bounds that skip fully masked tiles.
 #pragma once
 
@@ -9,8 +9,8 @@ namespace vtpu {
 namespace flash {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxHd = 128;      // the register-tiled and tensor-core kernels
-constexpr int kMaxWideHd = 512;  // the kernels that chunk the head dim
+constexpr int kMaxHd = 128;      // the entries up to hd 128
+constexpr int kMaxWideHd = 512;  // the _wide entries, above it
 
 struct Problem {
   int g;            // query heads per kv head

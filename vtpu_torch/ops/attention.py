@@ -1,17 +1,16 @@
 """Flash attention: the wrappers of the flash kernels (forward, dq,
 dk/dv; bf16 -> bf16 and the bf16 -> f32-out forward on the tensor cores
-in ``csrc/flash_attention_sm90.cu``; the f32 backward on the tensor cores
-as 3xTF32 in ``csrc/flash_attention_tf32x3.cu``; the f32 forward on the
-CUDA cores in ``csrc/flash_attention.cu``), the autograd functions built
-on them, and their plain PyTorch versions.
+in ``csrc/flash_attention_sm90.cu``; the f32 forward and backward on the
+tensor cores as 3xTF32 in ``csrc/flash_attention_tf32x3.cu``), the
+autograd functions built on them, and their plain PyTorch versions.
 
 The wrappers pick the kernel by head dim, before any launch: up to
 ``MAX_TILED_HD`` (128) the kernels above; up to ``MAX_HD`` (512) the
 ``_wide`` entries, which hold the head dim 128 columns at a time (the
-f32 forward in ``csrc/flash_attention.cu``, the f32 backward as 3xTF32
-in ``csrc/flash_attention_tf32x3.cu``, the bf16 forward, its f32-out twin
-and the bf16 backward on the tensor cores in
-``csrc/flash_attention_sm90.cu``); above that they raise ``ValueError``.
+f32 forward and backward as 3xTF32 in ``csrc/flash_attention_tf32x3.cu``,
+the bf16 forward, its f32-out twin and the bf16 backward on the tensor
+cores in ``csrc/flash_attention_sm90.cu``); above that they raise
+``ValueError``.
 
 Counterpart of ``vtpu/ops/attention.py``, with its layouts: q, k, v
 ``[b, h, s, d]`` or ``[s, d]`` (any leading dims), lse ``[..., s, 1]`` in
